@@ -1,0 +1,200 @@
+"""Wrapper of the hand-written Hopper 4D-convolution forward.
+
+Replaces the TPU kernel ``ncnet_tpu/kernels/conv4d_pallas.py::_fwd_kernel``
+(public ``conv4d_packed_pallas``) with ``csrc/conv4d_fwd.cu``, a CUDA C++
+kernel for ``sm_90a`` built by ``nvcc`` from the repository's source on
+first use and bound through ``ctypes`` (no PyTorch headers, so the build
+takes seconds).
+
+What bounds it on the card: operations. The three NC layers of the 400 px
+PF-Pascal config do about 281 GFLOP per served pair against well under
+0.1 GB moved, thousands of FLOP per byte. The kernel's answer, for now, is
+register blocking on the CUDA cores: one block per ``(b, i, j)`` output
+row stages the zero-padded halo of each contributing input row and the
+matching weight slice in shared memory, folds the remaining taps into one
+float32 contraction, and keeps 4 positions x up to 16 output channels of
+accumulators per thread (see the source's header). Tensor-core ``wgmma``
+on a padded channel width is a later step.
+
+The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.conv4d.conv4d`
+routes CPU tensors to the plain PyTorch version, and nothing here falls
+back to it.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "conv4d_fwd.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _find_nvcc():
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the conv4d kernel is built from "
+        f"{SOURCE} on first use"
+    )
+
+
+def build():
+    """Compile `SOURCE` into a shared library unless one built from the
+    same bytes and flags exists; returns ``(path, ptxas_log)``.
+
+    The library lives in ``BUILD_DIR/<name>-<sha256 prefix>/`` so a changed
+    source never loads a stale build. The compiler writes to a temporary
+    name that is renamed into place, so a build that is cut off leaves no
+    library behind.
+    """
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    name = os.path.splitext(os.path.basename(SOURCE))[0]
+    out_dir = os.path.join(BUILD_DIR, f"{name}-{digest[:16]}")
+    lib = os.path.join(out_dir, f"lib{name}.so")
+    log = os.path.join(out_dir, "ptxas.log")
+    if not os.path.exists(lib):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {SOURCE} (rc {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(log, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    with open(log) as f:
+        return lib, f.read()
+
+
+class Conv4dForwardKernel:
+    """Callable wrapper: ``kernel(x, w, bias) -> out``.
+
+    ``x``: CUDA ``[b, i, j, k, l, cin]`` float32 or bfloat16, contiguous.
+    ``w``: ``[ks, ks, ks, ks, cin, cout]`` of x's dtype and device, odd ks.
+    ``bias``: ``[cout]`` (any float dtype, used in float32) or None.
+    Returns ``[b, i, j, k, l, cout]`` in x's dtype.
+
+    ``launches`` counts the kernel launches this wrapper made, and nothing
+    else adds to it.
+    """
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def load(self):
+        """Build (first use) and load the library; returns the ptxas log."""
+        with self._lock:
+            path, log = build()
+            if self._lib is None:
+                lib = ctypes.CDLL(path)
+                lib.conv4d_fwd.argtypes = [ctypes.c_void_p] * 4 + [
+                    ctypes.c_int
+                ] * 9 + [ctypes.c_void_p]
+                lib.conv4d_fwd.restype = ctypes.c_int
+                lib.conv4d_fwd_error_string.argtypes = [ctypes.c_int]
+                lib.conv4d_fwd_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+        return log
+
+    @staticmethod
+    def check(x, w, bias):
+        """Raise ValueError/TypeError on inputs the kernel does not take."""
+        if not x.is_cuda:
+            raise ValueError(
+                "conv4d kernel takes CUDA tensors; CPU tensors go through "
+                "ncnet_tpu_torch.ops.conv4d.conv4d (the plain version)"
+            )
+        if x.dtype not in _DTYPE_CODES:
+            raise TypeError(
+                f"conv4d kernel takes float32 or bfloat16, got {x.dtype}"
+            )
+        if x.dim() != 6 or w.dim() != 6:
+            raise ValueError(
+                f"conv4d kernel takes x [b,i,j,k,l,cin] and w "
+                f"[k,k,k,k,cin,cout]; got {tuple(x.shape)} and "
+                f"{tuple(w.shape)}"
+            )
+        ks = w.shape[0]
+        if len(set(w.shape[:4])) != 1 or ks % 2 == 0:
+            raise ValueError(
+                f"conv4d kernel takes an odd hypercubic kernel, got "
+                f"{tuple(w.shape[:4])}"
+            )
+        if w.shape[4] != x.shape[5]:
+            raise ValueError(
+                f"weight cin {w.shape[4]} != activation channels {x.shape[5]}"
+            )
+        if w.device != x.device or w.dtype != x.dtype:
+            raise ValueError(
+                f"weight must share x's device and dtype ({x.device}, "
+                f"{x.dtype}); got ({w.device}, {w.dtype})"
+            )
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise ValueError("conv4d kernel takes contiguous x and w")
+        if bias is not None and (
+            bias.shape != (w.shape[5],) or bias.device != x.device
+        ):
+            raise ValueError(
+                f"bias must be [{w.shape[5]}] on {x.device}, got "
+                f"{tuple(bias.shape)} on {bias.device}"
+            )
+        if max(x.shape) >= 2**31:
+            raise ValueError(f"shape {tuple(x.shape)} exceeds int32 dims")
+
+    def __call__(self, x, w, bias=None):
+        self.check(x, w, bias)
+        if self._lib is None:
+            self.load()
+        b, i, j, k, l, cin = x.shape
+        cout = w.shape[5]
+        if bias is None:
+            bias = torch.zeros(cout, dtype=torch.float32, device=x.device)
+        bias = bias.to(torch.float32).contiguous()
+        out = torch.empty(
+            (b, i, j, k, l, cout), dtype=x.dtype, device=x.device
+        )
+        if out.numel() == 0:
+            return out
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = self._lib.conv4d_fwd(
+                x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                _DTYPE_CODES[x.dtype], b, i, j, k, l, cin, cout, w.shape[0],
+                stream,
+            )
+        if code != 0:
+            msg = self._lib.conv4d_fwd_error_string(code).decode()
+            raise RuntimeError(
+                f"conv4d kernel launch failed (code {code}): {msg}; "
+                f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}"
+            )
+        self.launches += 1
+        return out
+
+
+#: The one wrapper the port launches the kernel through.
+conv4d_fwd = Conv4dForwardKernel()

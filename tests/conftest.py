@@ -245,3 +245,11 @@ def multihost_oracle_loss():
     batch = shard_batch(mesh, batch_np)
     _, loss = make_train_step(config, optimizer, donate=False)(state, batch)
     return float(loss)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand kernels); skips "
+        "with a reason where there is none",
+    )
