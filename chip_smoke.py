@@ -6,14 +6,22 @@ NVIDIA GPU and fails unless every phase holds.
 Phases, one JSON line each:
 
 1. device  — CUDA must be present; the card's name and power limit.
-2. build   — the hand kernel is built with nvcc from the repository's
-             sources (ptxas's register/spill report).
+2. build   — both hand kernels (conv4d, band GEMM) are built with nvcc
+             from the repository's sources, one nvcc each, started
+             together (seconds and ptxas's register/spill report).
 3. kernels — the conv4d kernel against its plain PyTorch version (TF32
              off) at the PF-Pascal NC layer shapes (batch 2x2 on the 25^4
              grid), a rectangular and a tiny grid, float32 and bfloat16;
              then each layer timed with CUDA events at the serving path's
              square-batch shape, beside its plain version and its bound.
-4. serve   — ImMatchNet at the PF-Pascal config (ResNet-101, NC 5-5-5 /
+4. band_kernels — the band kernel against its plain version (gather then
+             matmul, TF32 off) on real K = 16 mutual bands built by the
+             port from random features on 25x25 grids (the three PF-Pascal
+             layer shapes, both passes), a 25x25 against 19x25 band, K =
+             50, a tiny grid; float32 and bfloat16; then each layer and
+             pass timed at the served square batch (4 pairs), beside the
+             plain version, the non-null pointer share and the bound.
+5. serve   — ImMatchNet at the PF-Pascal config (ResNet-101, NC 5-5-5 /
              16-16-1, 400 px) with random weights from a seed behind the
              port's ServeEngine: 8 requests at the 400x400 bucket and 4 at
              400x400 against 304x400. Every future must resolve with
@@ -21,6 +29,19 @@ Phases, one JSON line each:
              batches must be 3 per square batch and 6 per rectangular one;
              one request must agree with the forward through the plain
              conv4d on the card.
+6. serve_band — the same model behind a ServeEngine whose standard program
+             is dense and whose degraded program is the K = 16 band
+             (``make_serve_match_step(config.replace(nc_topk=16))``), both
+             warmed on both buckets: 8 requests pinned ``degraded`` (square
+             and rectangular) and 2 unpinned. Every future must resolve
+             with finite matches; the band kernel must launch exactly 6
+             times per degraded batch and conv4d 3 per standard square
+             batch (6 per rectangular); one degraded request per bucket
+             must agree with the band forward through the plain band layer
+             on the card. Then the band forward's stage times.
+7. full_k  — at 192 px (12x12 grids, K = 144 = hB*wB, and 12x9 with K =
+             108) the band forward through the band kernel equals the
+             dense forward through the conv4d kernel.
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Needs one card; exits non-zero without CUDA.
@@ -40,6 +61,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
 SEED = 0
+BAND_K = 16  # the degraded program's band width (scripts/serve.py --degrade 16)
 MAX_BATCH = 4
 N_SQUARE, N_RECT = 8, 4
 SQUARE_HW, RECT_HW = (400, 400), (304, 400)
@@ -50,6 +72,10 @@ GRID, KSIZE = 25, 5
 # two orders (cuDNN may use Winograd/FFT for the plain conv3d); bfloat16
 # adds the output's rounding (2^-8 relative). Relative to max |plain|.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# band kernel vs plain on the card: float32 sums of at most 10,000
+# products in two orders; bfloat16 adds the rounding of the product and of
+# the biased sum (2^-8 relative each). Relative to max |plain|.
+BAND_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # served corr, kernel vs plain forward, relative to max |corr|
 SERVE_TOL = 1e-4
 
@@ -69,13 +95,31 @@ def phase_device():
     return smi
 
 
-def phase_build(conv4d_fwd):
+def phase_build(kernels):
+    """Build every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    log = conv4d_fwd.load()
-    seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    done, errors = {}, {}
+
+    def one(name, kernel):
+        try:
+            log = kernel.load()
+            done[name] = {
+                "seconds": time.perf_counter() - t0,
+                "ptxas": [ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln],
+            }
+        except Exception as exc:  # reported below, then the run fails
+            errors[name] = repr(exc)
+
+    threads = [threading.Thread(target=one, args=item) for item in kernels.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": done, "errors": errors})
+    if errors:
+        raise RuntimeError(f"kernel build failed: {errors}")
 
 
 def nc_inputs(shape, cin, cout, dtype, seed):
@@ -162,26 +206,92 @@ def phase_kernels(smi, conv4d_fwd, conv4d_plain):
     return layers
 
 
-def phase_serve(smi, conv4d_fwd, conv4d_plain):
-    """Serve the PF-Pascal config; returns the kernel's launches over the
-    served batches."""
-    from ncnet_tpu_torch.data.images import normalize_image_np
-    from ncnet_tpu_torch.models.immatchnet import (
-        ImMatchNet,
-        ImMatchNetConfig,
-        immatchnet_apply,
-    )
-    from ncnet_tpu_torch.ops.matches import corr_to_matches
-    from ncnet_tpu_torch.serve.engine import ServeEngine, payload_spec
-    from ncnet_tpu_torch.serve.step import make_match_fn, make_serve_match_step
+def build_model():
+    """ImMatchNet at the PF-Pascal config, random weights from `SEED`."""
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
 
     config = ImMatchNetConfig(
         feature_extraction_cnn="resnet101", ncons_kernel_sizes=(5, 5, 5),
         ncons_channels=(16, 16, 1), symmetric_mode=True,
     )
-    t0 = time.perf_counter()
     model = ImMatchNet(config, device="cuda",
                        generator=torch.Generator().manual_seed(SEED))
+    return model, config
+
+
+def image_maker(seed):
+    """``image(hw)``: a random ImageNet-normalized ``[h, w, 3]`` image."""
+    from ncnet_tpu_torch.data.images import normalize_image_np
+
+    rng = np.random.RandomState(seed)
+
+    def image(hw):
+        return normalize_image_np(
+            rng.uniform(0, 255, hw + (3,)).astype(np.float32)
+        ).astype(np.float32)
+
+    return image
+
+
+def argmax_agrees(corr_k, corr_p):
+    """Both readout directions of ``corr_k`` pick, on the plain forward's
+    softmax, a score within SERVE_TOL of the plain best: equal argmax,
+    allowing for (near-)ties in the plain scores."""
+    from ncnet_tpu_torch.ops.matches import corr_to_matches
+
+    flat_p = corr_p.reshape(1, corr_p.shape[1] * corr_p.shape[2], -1)
+    ok = True
+    for dim, invert in ((1, False), (2, True)):
+        sm = torch.softmax(flat_p, dim=dim)
+        i_k = corr_to_matches(corr_k, do_softmax=True, scale="positive",
+                              invert_matching_direction=invert,
+                              return_indices=True)
+        ia, ja, ib, jb = i_k[5:]
+        a_idx = ia * corr_p.shape[2] + ja
+        b_idx = ib * corr_p.shape[4] + jb
+        picked = sm[0, a_idx[0], b_idx[0]]
+        best = sm.amax(dim=dim)[0]
+        ok &= bool((picked >= best - SERVE_TOL * float(best.max())).all())
+    return ok
+
+
+def run_clients(engine, requests, payloads, variants=None):
+    """Submit every request from 4 client threads; returns the futures."""
+    futures = [None] * len(requests)
+
+    def client(idx):
+        for i in idx:
+            futures[i] = engine.submit(
+                key=requests[i], payload=payloads[i],
+                **({} if variants is None else {"variant": variants[i]}),
+            )
+
+    clients = [threading.Thread(target=client, args=(range(c, len(requests), 4),))
+               for c in range(4)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join()
+    return futures
+
+
+def check_matches(requests, results):
+    for (src, tgt), res in zip(requests, results):
+        m = res["matches"]
+        # one match per B cell (forward) and per A cell (reverse)
+        n = (tgt[0] // 16) * (tgt[1] // 16) + (src[0] // 16) * (src[1] // 16)
+        if m.shape != (5, n) or not np.isfinite(m).all():
+            raise AssertionError(f"bad matches {m.shape} (want (5, {n})) or non-finite")
+
+
+def phase_serve(smi, model, config, conv4d_fwd, conv4d_plain):
+    """Serve the PF-Pascal config; returns the kernel's launches over the
+    served batches."""
+    from ncnet_tpu_torch.models.immatchnet import immatchnet_apply
+    from ncnet_tpu_torch.serve.engine import ServeEngine, payload_spec
+    from ncnet_tpu_torch.serve.step import make_match_fn, make_serve_match_step
+
+    t0 = time.perf_counter()
     apply = make_serve_match_step(config)
     served_keys = []
 
@@ -190,13 +300,7 @@ def phase_serve(smi, conv4d_fwd, conv4d_plain):
                             tuple(batch["target_image"].shape[1:3])))
         return apply(m, batch)
 
-    rng = np.random.RandomState(SEED)
-
-    def image(hw):
-        return normalize_image_np(
-            rng.uniform(0, 255, hw + (3,)).astype(np.float32)
-        ).astype(np.float32)
-
+    image = image_maker(SEED)
     requests = [(SQUARE_HW, SQUARE_HW)] * N_SQUARE + [(SQUARE_HW, RECT_HW)] * N_RECT
     payloads = [{"source_image": image(s), "target_image": image(t)}
                 for s, t in requests]
@@ -209,18 +313,7 @@ def phase_serve(smi, conv4d_fwd, conv4d_plain):
         served_keys.clear()
         conv4d_fwd.launches = 0
         t_serve = time.perf_counter()
-        futures = [None] * len(requests)
-
-        def client(idx):
-            for i in idx:
-                futures[i] = engine.submit(key=requests[i], payload=payloads[i])
-
-        clients = [threading.Thread(target=client, args=(range(c, len(requests), 4),))
-                   for c in range(4)]
-        for t in clients:
-            t.start()
-        for t in clients:
-            t.join()
+        futures = run_clients(engine, requests, payloads)
         results = [f.result(timeout=600) for f in futures]  # raises on a failed future
         serve_s = time.perf_counter() - t_serve
     launches = conv4d_fwd.launches
@@ -229,12 +322,7 @@ def phase_serve(smi, conv4d_fwd, conv4d_plain):
     n_sq = sum(1 for k in served_keys if k == (SQUARE_HW, SQUARE_HW))
     n_rect = len(served_keys) - n_sq
     expected = 3 * n_sq + 6 * n_rect
-    for (src, tgt), res in zip(requests, results):
-        m = res["matches"]
-        # one match per B cell (forward) and per A cell (reverse)
-        n = (tgt[0] // 16) * (tgt[1] // 16) + (src[0] // 16) * (src[1] // 16)
-        if m.shape != (5, n) or not np.isfinite(m).all():
-            raise AssertionError(f"bad matches {m.shape} (want (5, {n})) or non-finite")
+    check_matches(requests, results)
     if report["failed"] or report["completed"] != len(requests):
         raise AssertionError(f"serving failed: {report}")
     if launches != expected or n_sq == 0 or n_rect == 0:
@@ -265,20 +353,7 @@ def phase_serve(smi, conv4d_fwd, conv4d_plain):
                 model.neigh_consensus.conv = conv
             scale = float(corr_p.abs().max())
             corr_err = float((corr_k - corr_p).abs().max())
-            flat_p = corr_p.reshape(1, corr_p.shape[1] * corr_p.shape[2], -1)
-            idx_ok = True
-            for dim, invert in ((1, False), (2, True)):
-                sm = torch.softmax(flat_p, dim=dim)
-                i_k = corr_to_matches(corr_k, do_softmax=True, scale="positive",
-                                      invert_matching_direction=invert,
-                                      return_indices=True)
-                ia, ja, ib, jb = i_k[5:]
-                a_idx = ia * corr_p.shape[2] + ja
-                b_idx = ib * corr_p.shape[4] + jb
-                picked = sm[0, a_idx[0], b_idx[0]]
-                best = sm.amax(dim=dim)[0]
-                # equal argmax, allowing for (near-)ties in the plain scores
-                idx_ok &= bool((picked >= best - SERVE_TOL * float(best.max())).all())
+            idx_ok = argmax_agrees(corr_k, corr_p)
             ok = corr_err <= SERVE_TOL * scale and idx_ok and served_ok
         agree.append({"request": idx, "bucket": [list(requests[idx][0]), list(requests[idx][1])],
                       "served_vs_lone_score_err": served_err,
@@ -337,34 +412,381 @@ def stage_breakdown(model, config, payloads, reps=3):
         }
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available; this run needs a card")
-    # the port itself: this fails where chip_smoke.py stands without it
-    from ncnet_tpu_torch.kernels.conv4d import conv4d_fwd
-    from ncnet_tpu_torch.ops.conv4d import conv4d_plain
+def real_band(b, grid_a, grid_b, k, seed):
+    """A mutual top-``k`` band as the serving path builds one: L2-normalized
+    non-negative random features, correlation, mutual matching, `topk_band`.
+    Returns ``(values, indices)``."""
+    from ncnet_tpu_torch.ops.band import topk_band
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.ops.norm import feature_l2norm
 
-    smi = phase_device()
-    phase_build(conv4d_fwd)
-    layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
-    launches = phase_serve(smi, conv4d_fwd, conv4d_plain)
-    emit({"kernels": [{
-        "name": "conv4d_fwd",
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fa = feature_l2norm(torch.rand(b, *grid_a, 1024, generator=g, device="cuda"))
+    fb = feature_l2norm(torch.rand(b, *grid_b, 1024, generator=g, device="cuda"))
+    corr = correlation_4d(fa, fb)
+    return topk_band(corr, k, values_from=mutual_matching(corr), mutual=True)
+
+
+def band_tables(indices, grid_b):
+    """The two pointer tables of one band (the plain pass's, and the
+    symmetric pass's over the B-major entries), as the NC stack builds them."""
+    from ncnet_tpu_torch.sparse.nc import (
+        b_major_order,
+        plain_pointers,
+        swapped_pointers,
+    )
+
+    kern = (KSIZE,) * 4
+    perm, inv = b_major_order(indices)
+    return {"plain": plain_pointers(indices, grid_b, kern),
+            "swapped": swapped_pointers(indices, grid_b, kern, perm, inv)}
+
+
+def band_layer_inputs(b, n, cin, cout, dtype, seed):
+    """Entries in [0, 1) and reference-init weights of one band layer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bound = (cin * KSIZE**4) ** -0.5
+    x = torch.rand(b, n, cin, generator=g, device="cuda")
+    w = (torch.rand(KSIZE, KSIZE, KSIZE, KSIZE, cin, cout, generator=g,
+                    device="cuda") * 2 - 1) * bound
+    bias = (torch.rand(cout, generator=g, device="cuda") * 2 - 1) * bound
+    return x.to(dtype), w.to(dtype), bias
+
+
+def band_bound_ms(ptr, cin, cout, dtype):
+    """The least time of one band layer on the card: the FLOPs of the
+    non-null taps over the peak of ``dtype``, against the bytes (pointers,
+    entries, weights, bias, output, each once) over HBM bandwidth."""
+    b, n, taps = ptr.shape
+    nnz = int((ptr != n).sum())
+    elt = torch.finfo(dtype).bits // 8
+    flops = 2.0 * nnz * cin * cout
+    nbytes = (ptr.numel() * 4 + b * n * (cin + cout) * elt
+              + taps * cin * cout * elt + 4 * cout)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "nonnull_share": nnz / ptr.numel(),
+            "gflop_nonnull": flops / 1e9,
+            "gflop_all_taps": 2.0 * ptr.numel() * cin * cout / 1e9,
+            "mbytes": nbytes / 1e6}
+
+
+def phase_band_kernels(smi, band_gemm_fwd, band_plain):
+    """The band kernel against its plain version on real bands; then each
+    layer and pass timed at the served square batch."""
+    g = GRID
+    cases = []  # (label, indices-derived table, cin, cout)
+    _, idx = real_band(2, (g, g), (g, g), BAND_K, seed=20)
+    tables = band_tables(idx, (g, g))
+    n = idx[0].numel()
+    for name, ptr in tables.items():
+        lo, hi = int(ptr.min()), int(ptr.max())
+        if lo < 0 or hi > n:
+            raise AssertionError(f"{name} pointers outside [0, {n}]: {lo}..{hi}")
+        for cin, cout in NC_LAYERS:
+            cases.append((f"25x25/25x25 K{BAND_K} {name}", ptr, cin, cout))
+    _, idx = real_band(2, (g, g), (19, g), BAND_K, seed=21)
+    cases.append((f"25x25/19x25 K{BAND_K} swapped",
+                  band_tables(idx, (19, g))["swapped"], 16, 16))
+    _, idx = real_band(2, (g, g), (g, g), 50, seed=22)
+    cases.append(("25x25/25x25 K50 plain", band_tables(idx, (g, g))["plain"], 16, 16))
+    _, idx = real_band(2, (3, 2), (4, 3), 5, seed=23)
+    tiny = band_tables(idx, (4, 3))
+    cases += [("3x2/4x3 K5 plain", tiny["plain"], 1, 16),
+              ("3x2/4x3 K5 swapped", tiny["swapped"], 16, 1)]
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for ci, (label, ptr, cin, cout) in enumerate(cases):
+            x, w, b = band_layer_inputs(ptr.shape[0], ptr.shape[1], cin, cout,
+                                        dtype, seed=ci)
+            got = band_gemm_fwd(x, w, b, ptr).float()
+            want = band_plain(x.float(), w.float(), b.to(dtype).float(), ptr)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= BAND_TOL[dtype] * scale
+            checks.append({"case": label, "n": ptr.shape[1], "cin": cin,
+                           "cout": cout, "dtype": str(dtype).split(".")[1],
+                           "max_abs_err": err, "max_rel_err": err / scale,
+                           "tol_rel": BAND_TOL[dtype], "ok": ok})
+            if not ok:
+                emit({"phase": "band_kernels", "checks": checks})
+                raise AssertionError(f"band kernel disagrees: {checks[-1]}")
+
+    # per-layer, per-pass times at the served square batch (MAX_BATCH
+    # pairs; the band runs its two symmetric passes one after the other)
+    _, idx = real_band(MAX_BATCH, (g, g), (g, g), BAND_K, seed=30)
+    tables = band_tables(idx, (g, g))
+    layers = []
+    for li, (cin, cout) in enumerate(NC_LAYERS):
+        for name, ptr in tables.items():
+            x, w, b = band_layer_inputs(MAX_BATCH, ptr.shape[1], cin, cout,
+                                        torch.float32, seed=40 + li)
+            ms = time_ms(lambda: band_gemm_fwd(x, w, b, ptr), reps=10)
+            plain_ms = time_ms(lambda: band_plain(x, w, b, ptr), reps=3)
+            err = float((band_gemm_fwd(x, w, b, ptr)
+                         - band_plain(x, w, b, ptr)).abs().max())
+            layers.append({"layer": li, "pass": name, "shape": list(ptr.shape),
+                           "cin": cin, "cout": cout, "dtype": "float32",
+                           "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                           **band_bound_ms(ptr, cin, cout, torch.float32)})
+    emit({"phase": "band_kernels", "card": smi, "checks": checks,
+          "timed": layers})
+    return layers
+
+
+def phase_serve_band(smi, model, config, conv4d_fwd, band_gemm_fwd, band_plain):
+    """Serve with a dense standard and a K-band degraded program; returns
+    the band kernel's launches over the served batches."""
+    from ncnet_tpu_torch.models.immatchnet import immatchnet_apply
+    from ncnet_tpu_torch.serve.engine import ServeEngine, payload_spec
+    from ncnet_tpu_torch.serve.step import make_match_fn, make_serve_match_step
+
+    band_config = config.replace(nc_topk=BAND_K)
+    served = []  # (program, key, first pixel of each row) per batch run
+
+    def recording(apply, name):
+        def fn(m, batch):
+            src = batch["source_image"]
+            served.append((name, (tuple(src.shape[1:3]),
+                                  tuple(batch["target_image"].shape[1:3])),
+                           src[:, 0, 0, 0].clone()))
+            return apply(m, batch)
+        return fn
+
+    image = image_maker(SEED + 1)
+    requests = [(SQUARE_HW, SQUARE_HW)] * 5 + [(SQUARE_HW, RECT_HW)] * 3 \
+        + [(SQUARE_HW, SQUARE_HW)] * 2
+    variants = ["degraded"] * 8 + [None] * 2
+    payloads = [{"source_image": image(s), "target_image": image(t)}
+                for s, t in requests]
+    with ServeEngine(recording(make_serve_match_step(config), "standard"), model,
+                     device="cuda", max_batch=MAX_BATCH, max_wait=0.05,
+                     degraded_apply_fn=recording(
+                         make_serve_match_step(band_config), "degraded"),
+                     ) as engine:
+        t_warm = time.perf_counter()
+        engine.warmup([((SQUARE_HW, SQUARE_HW), payload_spec(payloads[0])),
+                       ((SQUARE_HW, RECT_HW), payload_spec(payloads[5]))])
+        warmup_s = time.perf_counter() - t_warm
+        served.clear()
+        conv4d_fwd.launches = band_gemm_fwd.launches = 0
+        t_serve = time.perf_counter()
+        futures = run_clients(engine, requests, payloads, variants)
+        results = [f.result(timeout=600) for f in futures]  # raises on a failed future
+        serve_s = time.perf_counter() - t_serve
+    band_launches, conv_launches = band_gemm_fwd.launches, conv4d_fwd.launches
+    report = engine.report()
+
+    check_matches(requests, results)
+    n_deg = sum(1 for name, _, _ in served if name == "degraded")
+    n_std_sq = sum(1 for name, key, _ in served
+                   if name == "standard" and key == (SQUARE_HW, SQUARE_HW))
+    n_std_rect = len(served) - n_deg - n_std_sq
+    if report["failed"] or report["completed"] != len(requests):
+        raise AssertionError(f"serving failed: {report}")
+    if n_deg == 0 or report["degraded_batches"] != n_deg:
+        raise AssertionError(f"degraded batches {n_deg}, report {report}")
+    if band_launches != 6 * n_deg:
+        raise AssertionError(
+            f"band launches {band_launches} != 6 x {n_deg} degraded batches")
+    if conv_launches != 3 * n_std_sq + 6 * n_std_rect:
+        raise AssertionError(
+            f"conv4d launches {conv_launches} != 3 x {n_std_sq} square + 6 x "
+            f"{n_std_rect} rectangular standard batches")
+
+    # one degraded request of each bucket: the served row against the same
+    # request's band forward at the served batch's padded size (the trunk's
+    # float32 sums change with the batch size at the ulp level, which can
+    # swap near-tied entries at the band's edge), and the band forward with
+    # the kernel against the same forward with the plain band layer
+    agree = []
+    match_fn = make_match_fn(band_config)
+    for idx in (0, 5):
+        pixel = float(payloads[idx]["source_image"][0, 0, 0])
+        (bs,) = [len(rows) for name, _, rows in served if name == "degraded"
+                 and bool((rows == pixel).any())]
+        src = torch.from_numpy(payloads[idx]["source_image"][None]).cuda()
+        tgt = torch.from_numpy(payloads[idx]["target_image"][None]).cuda()
+        with torch.inference_mode():
+            lone = match_fn(model, src.repeat(bs, 1, 1, 1),
+                            tgt.repeat(bs, 1, 1, 1))[:, 0].cpu().numpy()
+            served_err = float(np.abs(results[idx]["matches"][4] - lone[4]).max())
+            served_ok = served_err <= SERVE_TOL * float(np.abs(lone[4]).max())
+            corr_k = immatchnet_apply(model, band_config, src, tgt)
+            layer = model.neigh_consensus.band_layer
+            model.neigh_consensus.band_layer = band_plain
+            try:
+                corr_p = immatchnet_apply(model, band_config, src, tgt)
+            finally:
+                model.neigh_consensus.band_layer = layer
+            scale = float(corr_p.abs().max())
+            corr_err = float((corr_k - corr_p).abs().max())
+            idx_ok = argmax_agrees(corr_k, corr_p)
+            ok = corr_err <= SERVE_TOL * scale and idx_ok and served_ok
+        agree.append({"request": idx, "bucket": [list(requests[idx][0]),
+                                                 list(requests[idx][1])],
+                      "served_batch": bs, "served_vs_same_batch_score_err": served_err,
+                      "corr_max_abs_err": corr_err, "corr_scale": scale,
+                      "argmax_agree": idx_ok, "ok": ok})
+        if not ok:
+            raise AssertionError(f"band kernel path disagrees with the plain path: {agree[-1]}")
+    emit({"phase": "serve_band", "card": smi, "config": band_config.to_dict(),
+          "requests": len(requests), "pinned_degraded": variants.count("degraded"),
+          "degraded_batches": n_deg, "standard_square_batches": n_std_sq,
+          "standard_rect_batches": n_std_rect, "band_launches": band_launches,
+          "conv4d_launches": conv_launches, "warmup_s": warmup_s,
+          "serve_s": serve_s, "pairs_per_s": report["pairs_per_s"],
+          "latency_p50_ms": report["latency_p50_ms"],
+          "latency_p95_ms": report["latency_p95_ms"],
+          "degrade_flips": report["degrade_flips"], "agreement": agree,
+          "stages_ms": band_stage_breakdown(model, band_config,
+                                            payloads[:MAX_BATCH])})
+    return band_launches
+
+
+def band_stage_breakdown(model, config, payloads, reps=3):
+    """CUDA-event times of the band serving forward's stages on one square
+    batch (``len(payloads)`` pairs), each timed alone after a warm-up. The
+    NC stage builds its pointer tables itself, so it includes the
+    ``pointer_build`` stage."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.ops.band import topk_band
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.ops.matches import corr_to_matches
+    from ncnet_tpu_torch.serve.step import make_serve_match_step
+    from ncnet_tpu_torch.sparse import (
+        band_mutual_matching,
+        resolve_band_width,
+        sparse_corr_to_dense,
+        sparse_neigh_consensus_apply,
+    )
+
+    batch = {k: torch.from_numpy(np.stack([p[k] for p in payloads])).cuda()
+             for k in payloads[0]}
+    apply = make_serve_match_step(config)
+    params = model.neigh_consensus.params()
+    with torch.inference_mode():
+        fa = extract_features(model, config, batch["source_image"])
+        fb = extract_features(model, config, batch["target_image"])
+        grid_b = (fb.shape[1], fb.shape[2])
+        k = resolve_band_width(config.nc_topk, grid_b)
+
+        def select():
+            corr = correlation_4d(fa, fb)
+            return topk_band(corr, k, values_from=mutual_matching(corr),
+                             mutual=config.nc_topk_mutual)
+
+        values, indices = select()
+
+        def nc():
+            return sparse_neigh_consensus_apply(
+                params, values, indices, grid_b, symmetric=config.symmetric_mode)
+
+        band = nc()
+
+        def readout():
+            c = sparse_corr_to_dense(
+                band_mutual_matching(band, indices, grid_b).float(), indices, grid_b)
+            kw = dict(scale="positive", do_softmax=True)
+            return torch.cat([torch.stack(corr_to_matches(c, **kw)),
+                              torch.stack(corr_to_matches(
+                                  c, invert_matching_direction=True, **kw))], 2)
+
+        return {
+            "pairs": len(payloads),
+            "trunk": time_ms(lambda: (
+                extract_features(model, config, batch["source_image"]),
+                extract_features(model, config, batch["target_image"])), reps),
+            "corr_mm_topk": time_ms(select, reps),
+            "pointer_build": time_ms(lambda: band_tables(indices, grid_b), reps),
+            "neigh_consensus_incl_pointers": time_ms(nc, reps),
+            "band_mm_readout": time_ms(readout, reps),
+            "forward": time_ms(lambda: apply(model, batch), reps),
+        }
+
+
+def phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd):
+    """At 192 px the complete band (K = hB*wB) through the band kernel
+    equals the dense forward through the conv4d kernel."""
+    from ncnet_tpu_torch.models.immatchnet import immatchnet_apply
+
+    image = image_maker(SEED + 2)
+    checks = []
+    for tgt_hw in ((192, 192), (144, 192)):
+        src = torch.from_numpy(np.stack([image((192, 192)) for _ in range(2)])).cuda()
+        tgt = torch.from_numpy(np.stack([image(tgt_hw) for _ in range(2)])).cuda()
+        k = (tgt_hw[0] // 16) * (tgt_hw[1] // 16)
+        conv0, band0 = conv4d_fwd.launches, band_gemm_fwd.launches
+        with torch.inference_mode():
+            dense = immatchnet_apply(model, config, src, tgt)
+            band = immatchnet_apply(model, config.replace(nc_topk=k), src, tgt)
+        scale = float(dense.abs().max())
+        err = float((band - dense).abs().max())
+        launched = (conv4d_fwd.launches - conv0, band_gemm_fwd.launches - band0)
+        ok = err <= SERVE_TOL * scale and launched[1] == 6 and launched[0] > 0
+        checks.append({"source_hw": [192, 192], "target_hw": list(tgt_hw),
+                       "k": k, "max_abs_err": err, "scale": scale,
+                       "conv4d_launches": launched[0],
+                       "band_launches": launched[1], "ok": ok})
+        if not ok:
+            emit({"phase": "full_k", "checks": checks})
+            raise AssertionError(f"full-K band != dense: {checks[-1]}")
+    emit({"phase": "full_k", "card": smi, "tol_rel": SERVE_TOL, "checks": checks})
+
+
+def kernel_line(name, source, replaces, launches, layers, work, smi):
+    return {
+        "name": name,
         "route": "cuda",
-        "source": "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
-        "replaces": "ncnet_tpu/kernels/conv4d_pallas.py:65",
+        "source": source,
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(layer["max_abs_err"] for layer in layers),
         "ms": sum(layer["ms"] for layer in layers),
         "plain_ms": sum(layer["plain_ms"] for layer in layers),
         "bound_ms": sum(layer["bound_ms"] for layer in layers),
-        "bound_by": "operations",
+        "bound_by": max(layers, key=lambda la: la["bound_ms"])["bound_by"],
         "library_ms": None,
-        "work": "the three NC layers of one square serving batch "
-                f"({MAX_BATCH} pairs x 2 directions), float32",
+        "work": work,
         "card": smi,
         "layers": layers,
-    }]})
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this run needs a card")
+    # the port itself: this fails where chip_smoke.py stands without it
+    from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
+    from ncnet_tpu_torch.kernels.conv4d import conv4d_fwd
+    from ncnet_tpu_torch.ops.band import band_conv_bias_relu_plain
+    from ncnet_tpu_torch.ops.conv4d import conv4d_plain
+
+    smi = phase_device()
+    phase_build({"conv4d_fwd": conv4d_fwd, "band_gemm_fwd": band_gemm_fwd})
+    layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
+    band_layers = phase_band_kernels(smi, band_gemm_fwd, band_conv_bias_relu_plain)
+    model, config = build_model()
+    launches = phase_serve(smi, model, config, conv4d_fwd, conv4d_plain)
+    band_launches = phase_serve_band(smi, model, config, conv4d_fwd,
+                                     band_gemm_fwd, band_conv_bias_relu_plain)
+    phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd)
+    emit({"kernels": [
+        kernel_line("conv4d_fwd", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
+                    "ncnet_tpu/kernels/conv4d_pallas.py:65", launches, layers,
+                    "the three NC layers of one square serving batch "
+                    f"({MAX_BATCH} pairs x 2 directions), float32", smi),
+        kernel_line("band_gemm_fwd", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
+                    "ncnet_tpu/kernels/band_gemm_pallas.py:83", band_launches,
+                    band_layers,
+                    "the three band NC layers x 2 symmetric passes of one "
+                    f"square degraded batch ({MAX_BATCH} pairs, K = {BAND_K}),"
+                    " float32", smi),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,113 @@
+"""Build and load of the hand-written CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain ``extern "C"`` launcher
+(no PyTorch headers, so ``nvcc`` takes seconds). `build` compiles it on
+first use into ``_build/<name>-<sha256 prefix>/lib<name>.so``, keyed on
+the source's bytes and the flags, and `KernelLibrary` loads it with
+``ctypes`` once per process.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def find_nvcc(label, source):
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError(
+        f"nvcc not found (set CUDA_HOME): the {label} kernel is built from "
+        f"{source} on first use"
+    )
+
+
+def build(source, label):
+    """Compile ``source`` into a shared library unless one built from the
+    same bytes and flags exists; returns ``(path, ptxas_log)``.
+
+    The library lives in ``BUILD_DIR/<name>-<sha256 prefix>/`` so a changed
+    source never loads a stale build. The compiler writes to a temporary
+    name that is renamed into place, so a build that is cut off leaves no
+    library behind.
+    """
+    with open(source, "rb") as f:
+        src = f.read()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    name = os.path.splitext(os.path.basename(source))[0]
+    out_dir = os.path.join(BUILD_DIR, f"{name}-{digest[:16]}")
+    lib = os.path.join(out_dir, f"lib{name}.so")
+    log = os.path.join(out_dir, "ptxas.log")
+    if not os.path.exists(lib):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [find_nvcc(label, source), *NVCC_FLAGS, "-o", tmp, source],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {source} (rc {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(log, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    with open(log) as f:
+        return lib, f.read()
+
+
+class KernelLibrary:
+    """One kernel's shared library, built and loaded on first use.
+
+    ``symbol`` is the ``extern "C"`` launcher, which returns an int status;
+    ``argtypes`` its ctypes argument types. The library must also export
+    ``<symbol>_error_string(int) -> const char*``.
+    """
+
+    def __init__(self, source, label, symbol, argtypes):
+        self.source = source
+        self.label = label
+        self._symbol = symbol
+        self._argtypes = argtypes
+        self._fn = None
+        self._error_string = None
+        self._lock = threading.Lock()
+
+    def load(self):
+        """Build (first use) and load the library; returns the ptxas log."""
+        with self._lock:
+            path, log = build(self.source, self.label)
+            if self._fn is None:
+                lib = ctypes.CDLL(path)
+                fn = getattr(lib, self._symbol)
+                fn.argtypes = list(self._argtypes)
+                fn.restype = ctypes.c_int
+                err = getattr(lib, f"{self._symbol}_error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._error_string = err
+                self._fn = fn
+        return log
+
+    def launch(self, *args):
+        """Call the launcher; returns ``(code, message)`` (0, '') on
+        success."""
+        if self._fn is None:
+            self.load()
+        code = self._fn(*args)
+        return code, ("" if code == 0 else self._error_string(code).decode())

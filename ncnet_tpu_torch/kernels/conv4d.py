@@ -22,70 +22,14 @@ back to it.
 """
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "conv4d_fwd.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from ncnet_tpu_torch.kernels import _build
+
+SOURCE = os.path.join(_build.CSRC, "conv4d_fwd.cu")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _find_nvcc():
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
-    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for path in candidates:
-        if path and os.path.exists(path):
-            return path
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the conv4d kernel is built from "
-        f"{SOURCE} on first use"
-    )
-
-
-def build():
-    """Compile `SOURCE` into a shared library unless one built from the
-    same bytes and flags exists; returns ``(path, ptxas_log)``.
-
-    The library lives in ``BUILD_DIR/<name>-<sha256 prefix>/`` so a changed
-    source never loads a stale build. The compiler writes to a temporary
-    name that is renamed into place, so a build that is cut off leaves no
-    library behind.
-    """
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    name = os.path.splitext(os.path.basename(SOURCE))[0]
-    out_dir = os.path.join(BUILD_DIR, f"{name}-{digest[:16]}")
-    lib = os.path.join(out_dir, f"lib{name}.so")
-    log = os.path.join(out_dir, "ptxas.log")
-    if not os.path.exists(lib):
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {SOURCE} (rc {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        with open(log, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    with open(log) as f:
-        return lib, f.read()
 
 
 class Conv4dForwardKernel:
@@ -102,23 +46,14 @@ class Conv4dForwardKernel:
 
     def __init__(self):
         self.launches = 0
-        self._lib = None
-        self._lock = threading.Lock()
+        self._lib = _build.KernelLibrary(
+            SOURCE, "conv4d", "conv4d_fwd",
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        )
 
     def load(self):
         """Build (first use) and load the library; returns the ptxas log."""
-        with self._lock:
-            path, log = build()
-            if self._lib is None:
-                lib = ctypes.CDLL(path)
-                lib.conv4d_fwd.argtypes = [ctypes.c_void_p] * 4 + [
-                    ctypes.c_int
-                ] * 9 + [ctypes.c_void_p]
-                lib.conv4d_fwd.restype = ctypes.c_int
-                lib.conv4d_fwd_error_string.argtypes = [ctypes.c_int]
-                lib.conv4d_fwd_error_string.restype = ctypes.c_char_p
-                self._lib = lib
-        return log
+        return self._lib.load()
 
     @staticmethod
     def check(x, w, bias):
@@ -167,8 +102,6 @@ class Conv4dForwardKernel:
 
     def __call__(self, x, w, bias=None):
         self.check(x, w, bias)
-        if self._lib is None:
-            self.load()
         b, i, j, k, l, cin = x.shape
         cout = w.shape[5]
         if bias is None:
@@ -181,13 +114,12 @@ class Conv4dForwardKernel:
             return out
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            code = self._lib.conv4d_fwd(
+            code, msg = self._lib.launch(
                 x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
                 _DTYPE_CODES[x.dtype], b, i, j, k, l, cin, cout, w.shape[0],
                 stream,
             )
         if code != 0:
-            msg = self._lib.conv4d_fwd_error_string(code).decode()
             raise RuntimeError(
                 f"conv4d kernel launch failed (code {code}): {msg}; "
                 f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}"

@@ -1,10 +1,13 @@
-"""ImMatchNet, the dense matching model (``ncnet_tpu/models/immatchnet.py``).
+"""ImMatchNet, the matching model (``ncnet_tpu/models/immatchnet.py``).
 
   feature extraction (frozen trunk, L2 norm)  [source and target]
   -> all-pairs 4D correlation
   -> soft mutual-NN filtering
   -> symmetric neighbourhood-consensus 4D convolutions (the hand kernel)
   -> soft mutual-NN filtering
+
+or, with ``nc_topk > 0``, the same chain on the top-K correlation band
+(`ncnet_tpu_torch.sparse`, the band hand kernel), densified for readout.
 
 `ImMatchNetConfig` carries every field of the JAX config, so one dict
 builds both models; the configurations this port does not implement yet
@@ -25,6 +28,11 @@ from ncnet_tpu_torch.models.feature_extraction import (
 from ncnet_tpu_torch.models.neigh_consensus import NeighConsensus
 from ncnet_tpu_torch.ops.correlation import correlation_4d
 from ncnet_tpu_torch.ops.matching import mutual_matching
+from ncnet_tpu_torch.sparse.pipeline import (
+    resolve_corr_impl,
+    sparse_corr_to_dense,
+    sparse_match_pipeline,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +40,9 @@ class ImMatchNetConfig:
     """Architecture and numerics config; field for field the JAX
     ``ImMatchNetConfig``. Training-only fields (``nc_remat``,
     ``loss_chunk``, ``loss_chunk_remat``) are carried but not read, and
-    ``conv4d_impl`` names a JAX lowering: every value computes the same
-    function here."""
+    ``conv4d_impl`` / ``band_impl`` name JAX lowerings: every value (of
+    ``band_impl``, ``'xla'`` or ``'pallas'``) computes the same function
+    here."""
 
     feature_extraction_cnn: str = "resnet101"
     ncons_kernel_sizes: Tuple[int, ...] = (3, 3, 3)
@@ -75,13 +84,36 @@ class ImMatchNetConfig:
         return cls(**d)
 
 
-def check_supported(config):
-    """Raise `NotImplementedError` for configurations the port does not
-    implement yet; they never fall back to another path."""
-    if config.nc_topk > 0:
-        raise NotImplementedError(
-            "nc_topk > 0 (sparse top-K band) is not ported yet (ROADMAP A8)"
+def check_sparse_config(config):
+    """The JAX package's ``train/step.py::check_sparse_config``: a negative
+    band width, relocalization with a band, an unknown ``corr_impl`` and a
+    streamed correlation without a band path raise `ValueError`."""
+    if config.nc_topk < 0:
+        raise ValueError(
+            f"nc_topk={config.nc_topk} is negative; use 0 for the dense path "
+            "or a positive top-K band width (ncnet_tpu_torch.sparse)"
         )
+    if config.nc_topk and config.relocalization_k_size > 1:
+        raise ValueError(
+            f"nc_topk={config.nc_topk} with relocalization_k_size="
+            f"{config.relocalization_k_size}: the sparse band path does not "
+            "support relocalization (use relocalization_k_size=0, as the "
+            "reference does)"
+        )
+    impl = resolve_corr_impl(config)  # raises on unknown values
+    if impl != "dense" and not (config.nc_topk or config.refine_factor):
+        raise ValueError(
+            f"corr_impl={impl!r} requires a band path (nc_topk > 0 or "
+            "refine_factor > 0): the dense NC stack consumes the full "
+            "correlation volume, so there is nothing to stream"
+        )
+
+
+def check_supported(config):
+    """`check_sparse_config`, then raise `NotImplementedError` for
+    configurations the port does not implement yet; they never fall back
+    to another path."""
+    check_sparse_config(config)
     if config.refine_factor > 0:
         raise NotImplementedError(
             "refine_factor > 0 (coarse-to-fine refinement) is not ported yet "
@@ -116,8 +148,16 @@ def extract_features(model, config, image):
 
 def match_pipeline(neigh_consensus, config, feat_a, feat_b):
     """Features -> filtered correlation: corr -> MM -> NC -> MM, returned
-    in float32."""
+    in float32. With ``config.nc_topk > 0`` the chain runs on the top-K band
+    (`ncnet_tpu_torch.sparse`) and the filtered band is densified here,
+    exact zeros off-band."""
     check_supported(config)
+    if config.nc_topk > 0:
+        band, indices, grid_b = sparse_match_pipeline(
+            neigh_consensus.params(), config, feat_a, feat_b,
+            layer=neigh_consensus.band_layer,
+        )
+        return sparse_corr_to_dense(band, indices, grid_b)
     dtype = _compute_dtype(config)
     corr = mutual_matching(correlation_4d(feat_a, feat_b))
     corr = neigh_consensus(corr.to(dtype) if dtype else corr)

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ncnet_tpu_torch.device import resolve_device
+from ncnet_tpu_torch.ops.band import band_conv_bias_relu
 from ncnet_tpu_torch.ops.conv4d import conv4d
 
 
@@ -96,9 +97,10 @@ class NeighConsensus(nn.Module):
     """The NC stack as a module; parameters keep the JAX layout
     ``kernel [k,k,k,k,cin,cout]`` / ``bias [cout]``.
 
-    ``conv`` is the 4D convolution the stack calls; it defaults to the
-    dispatching `conv4d`, and a check may set the plain version to hold the
-    kernel path against it.
+    ``conv`` is the 4D convolution the stack calls and ``band_layer`` the
+    band NC layer the sparse path calls (`ncnet_tpu_torch.sparse`); they
+    default to the dispatching `conv4d` and `band_conv_bias_relu`, and a
+    check may set the plain versions to hold the kernel paths against them.
     """
 
     def __init__(self, kernel_sizes=(3, 3, 3), channels=(10, 10, 1),
@@ -109,6 +111,7 @@ class NeighConsensus(nn.Module):
         self.symmetric = symmetric
         self.symmetric_batch = symmetric_batch
         self.conv = conv4d
+        self.band_layer = band_conv_bias_relu
         self.layers = nn.ModuleList()
         for p in init_neigh_consensus(kernel_sizes, channels, scheme,
                                       generator=generator):
@@ -117,10 +120,14 @@ class NeighConsensus(nn.Module):
             layer.bias = nn.Parameter(p["bias"].to(device), requires_grad=False)
             self.layers.append(layer)
 
+    def params(self):
+        """The layers as ``[{'kernel', 'bias'}, ...]`` (the JAX layout)."""
+        return [{"kernel": layer.kernel, "bias": layer.bias}
+                for layer in self.layers]
+
     def forward(self, corr):
         return neigh_consensus_apply(
-            [{"kernel": layer.kernel, "bias": layer.bias}
-             for layer in self.layers],
+            self.params(),
             corr,
             symmetric=self.symmetric, symmetric_batch=self.symmetric_batch,
             conv=self.conv,

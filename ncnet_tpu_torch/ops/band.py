@@ -1,0 +1,202 @@
+"""Top-K correlation band: selection, neighbour pointers, gathers, and the
+band NC layer (semantics of ``ncnet_tpu/ops/band.py``).
+
+Representation, as in the JAX package:
+
+  values  ``[b, hA, wA, K]``        band entry values
+  indices ``[b, hA, wA, K]`` int32  flattened B-grid index ``iB * wB + jB``,
+                                    sorted ascending per A-cell
+
+At ``K = hB*wB`` the band is the dense correlation row in row-major order.
+Neighbour reads that fall off the A grid, off the B grid or off the band
+resolve to the null slot ``N = hA*wA*K`` and read exact zeros.
+
+The band NC layer ``relu(gather(x, ptr) @ w_flat + bias)`` has two
+versions of one function, as `ncnet_tpu_torch.ops.conv4d` does:
+
+* `band_conv_bias_relu_plain` — gather then ``torch.matmul``: the CPU
+  path, and the version the hand kernel is held against on the card;
+* the hand-written Hopper kernel (`ncnet_tpu_torch.kernels.band_gemm`).
+
+`band_conv_bias_relu` dispatches on the tensor's device only: a CPU tensor
+takes the plain version, a CUDA tensor takes the kernel (which raises on
+what it does not take; nothing falls back).
+"""
+
+import torch
+import torch.nn.functional as F
+
+from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
+
+#: the largest B grid the mutual rank key ``min(ra, rb) * nb + ra`` takes
+#: in int32 (the JAX package's guard)
+MUTUAL_MAX_NB = 46340
+
+
+def _ranks_descending(x):
+    """Per-row dense ranks along the last axis (0 = largest); ties rank in
+    index order (the JAX package's stable ``argsort``)."""
+    order = torch.argsort(-x, dim=-1, stable=True)
+    return torch.argsort(order, dim=-1, stable=True)
+
+
+def topk_band(scores, k, values_from=None, mutual=False):
+    """Select the per-A-cell top-K band from a dense correlation.
+
+    ``scores`` ``[b, hA, wA, hB, wB]`` are the selection scores;
+    ``values_from`` (default ``scores``) the tensor the band values are
+    read from. ``mutual=False``: the plain per-A top-K, ties to the lower
+    B-index (as ``lax.top_k``). ``mutual=True``: the key is the symmetric
+    rank ``min(rank within the A-row, rank within the B-column)``, ties
+    broken by the within-row rank. Returns ``(values, indices int32)``,
+    indices sorted ascending per A-cell.
+    """
+    b, ha, wa, hb, wb = scores.shape
+    nb = hb * wb
+    k = int(k)
+    if not 1 <= k <= nb:
+        raise ValueError(
+            f"band width k={k} must be in [1, hB*wB={nb}] "
+            f"for a {hb}x{wb} B grid"
+        )
+    flat = scores.reshape(b, ha, wa, nb)
+    if mutual:
+        if nb > MUTUAL_MAX_NB:
+            raise ValueError(
+                f"mutual band selection needs nb=hB*wB <= {MUTUAL_MAX_NB} "
+                f"(int32 rank key), got {nb}; use mutual=False at this grid "
+                "size"
+            )
+        rank_a = _ranks_descending(flat)
+        cols = scores.reshape(b, ha * wa, nb).transpose(1, 2)
+        rank_b = _ranks_descending(cols).transpose(1, 2).reshape(b, ha, wa, nb)
+        # unique per row (rank_a is a permutation), so the k smallest keys
+        # are one set whatever the sort does with ties
+        key = torch.minimum(rank_a, rank_b) * nb + rank_a
+        idx = torch.argsort(key, dim=-1, stable=True)[..., :k]
+    else:
+        idx = torch.argsort(flat, dim=-1, descending=True, stable=True)[..., :k]
+    idx = torch.sort(idx, dim=-1).values
+    source = flat if values_from is None else values_from.reshape(b, ha, wa, nb)
+    return source.gather(-1, idx), idx.to(torch.int32)
+
+
+def band_to_dense(values, indices, grid_b, fill=0.0):
+    """The band as the dense ``[b, hA, wA, hB, wB]`` tensor; off-band cells
+    read ``fill``."""
+    b, ha, wa, k = values.shape
+    hb, wb = grid_b
+    dense = torch.full((b, ha * wa, hb * wb), fill, dtype=values.dtype,
+                       device=values.device)
+    dense.scatter_(2, indices.reshape(b, ha * wa, k).long(),
+                   values.reshape(b, ha * wa, k))
+    return dense.reshape(b, ha, wa, hb, wb)
+
+
+def band_neighbor_pointers(indices, grid_b, kernel, swapped=False):
+    """Flat gather pointers from each band entry to its 4D-conv neighbours:
+    ``[b, hA, wA, K, T]`` int32, ``T = k1*k2*k3*k4``, taps row-major over
+    ``kernel``; a read off the A grid, off the B grid or off the band is
+    the null slot ``hA*wA*K``.
+
+    ``swapped=False`` offsets A by ``(d1, d2)`` and B by ``(d3, d4)``;
+    ``swapped=True`` inverts the roles, so the same flattened kernel over
+    this table computes the transposed term of the symmetric pass.
+
+    Membership of each neighbour B-index in the neighbouring A-cell's
+    sorted band row is one ``searchsorted`` over all A-taps at once (the
+    JAX package broadcasts an equality test instead; the tables are
+    equal). Its transient is ``[b, hA, wA, kA, K*kB]`` int64.
+    """
+    k1, k2, k3, k4 = (int(s) for s in kernel)
+    b, ha, wa, kslots = indices.shape
+    hb, wb = grid_b
+    null = ha * wa * kslots
+    if swapped:
+        ka_i, ka_j, kb_i, kb_j = k3, k4, k1, k2
+    else:
+        ka_i, ka_j, kb_i, kb_j = k1, k2, k3, k4
+    pa_i, pa_j = ka_i // 2, ka_j // 2
+    pb_i, pb_j = kb_i // 2, kb_j // 2
+    ka, kb = ka_i * ka_j, kb_i * kb_j
+    dev = indices.device
+    idx = indices.long()
+
+    # B targets of every band entry: [b, hA, wA, K, kB]
+    ib, jb = idx // wb, idx % wb
+    tb_i = ib[..., None, None] + (torch.arange(kb_i, device=dev) - pb_i)[:, None]
+    tb_j = jb[..., None, None] + (torch.arange(kb_j, device=dev) - pb_j)[None, :]
+    valid_b = ((tb_i >= 0) & (tb_i < hb) & (tb_j >= 0) & (tb_j < wb))
+    target = (tb_i * wb + tb_j).reshape(b, ha, wa, 1, kslots * kb)
+    valid_b = valid_b.reshape(b, ha, wa, 1, kslots * kb)
+
+    # the band row of every A-neighbour: [b, hA, wA, kA, K]; off the A grid
+    # the row is -1, which no target (>= 0 where valid) matches
+    idx_pad = F.pad(idx, (0, 0, pa_j, pa_j, pa_i, pa_i), value=-1)
+    nbr = idx_pad.unfold(1, ka_i, 1).unfold(2, ka_j, 1)  # [b,hA,wA,K,ka_i,ka_j]
+    nbr = nbr.permute(0, 1, 2, 4, 5, 3).reshape(b, ha, wa, ka, kslots)
+
+    target = target.expand(b, ha, wa, ka, kslots * kb).contiguous()
+    slot = torch.searchsorted(nbr.contiguous(), target).clamp_(max=kslots - 1)
+    found = nbr.gather(-1, slot) == target
+
+    ia = torch.arange(ha, device=dev)[:, None, None, None]
+    ja = torch.arange(wa, device=dev)[None, :, None, None]
+    ni = ia + (torch.arange(ka_i, device=dev) - pa_i)[:, None]  # [hA,1,ka_i,1]
+    nj = ja + (torch.arange(ka_j, device=dev) - pa_j)[None, :]  # [1,wA,1,ka_j]
+    valid_a = ((ni >= 0) & (ni < ha) & (nj >= 0) & (nj < wa)).reshape(ha, wa, ka, 1)
+    base = ((ni * wa + nj) * kslots).reshape(ha, wa, ka, 1)
+    ptr = torch.where(found & valid_b & valid_a, base + slot, null)
+    ptr = ptr.reshape(b, ha, wa, ka, kslots, kb).permute(0, 1, 2, 4, 3, 5)
+    if swapped:
+        # assembled A-offset-major; the tap order is (d1..d4) row-major,
+        # which is B-offset-major here
+        ptr = ptr.transpose(4, 5)
+    return ptr.reshape(b, ha, wa, kslots, k1 * k2 * k3 * k4).to(torch.int32)
+
+
+def band_gather_neighbors(x_entries, ptr):
+    """``[b, N, c]`` entries and ``[b, N, T]`` pointers -> ``[b, N, T*c]``
+    (tap-major, channel-minor: the rows of ``w.reshape(T*c, cout)``); the
+    null pointer ``N`` reads zeros."""
+    b, n, c = x_entries.shape
+    t = ptr.shape[-1]
+    x_pad = torch.cat([x_entries, x_entries.new_zeros(b, 1, c)], dim=1)
+    rows = torch.arange(b, device=ptr.device)[:, None]
+    return x_pad[rows, ptr.reshape(b, n * t).long()].reshape(b, n, t * c)
+
+
+def band_conv_gemm(x_entries, w, ptr):
+    """One submanifold conv pass: neighbour gather + one GEMM, no bias; the
+    product in the activation dtype."""
+    cout = w.shape[-1]
+    g = band_gather_neighbors(x_entries, ptr)
+    return torch.matmul(g, w.reshape(-1, cout).to(x_entries.dtype))
+
+
+def band_conv_bias_relu_plain(x_entries, w, bias, ptr):
+    """Plain PyTorch band NC layer; same contract as `band_conv_bias_relu`."""
+    y = band_conv_gemm(x_entries, w, ptr)
+    return torch.relu(y + bias.to(x_entries.dtype))
+
+
+def band_conv_bias_relu(x_entries, w, bias, ptr):
+    """One band NC layer: ``relu(gather(x, ptr) @ w_flat + bias)``.
+
+    Args:
+      x_entries: ``[b, N, c_in]`` band activations, flat entry list.
+      w: ``[k1, k2, k3, k4, c_in, c_out]`` in the activation dtype.
+      bias: ``[c_out]``, added in the activation dtype.
+      ptr: ``[b, N, T]`` int32 from `band_neighbor_pointers` (reshaped,
+        row-permuted and remapped by the caller); the null pointer is N.
+
+    Returns:
+      ``[b, N, c_out]`` in the activation dtype.
+    """
+    if x_entries.device.type == "cpu":
+        return band_conv_bias_relu_plain(x_entries, w, bias, ptr)
+    if x_entries.is_cuda:
+        return band_gemm_fwd(x_entries, w, bias, ptr)
+    raise ValueError(
+        f"band layer runs on cpu or cuda tensors, got {x_entries.device}"
+    )

@@ -4,6 +4,8 @@
   python -m ncnet_tpu_torch.serve --synthetic 16 --seed 0 --image-size 400 \
       --max-batch 8
   python -m ncnet_tpu_torch.serve --images DIR --params weights.npz
+  python -m ncnet_tpu_torch.serve --synthetic 16 --nc-topk 16
+  python -m ncnet_tpu_torch.serve --synthetic 16 --degrade 16
 
 ``--images DIR`` pairs the sorted image files consecutively; ``--synthetic
 N`` makes N random pairs from ``--seed`` (every fourth target is 304x400,
@@ -11,8 +13,12 @@ the rest 400x400, so two buckets are served). Weights come from
 ``--params file.npz`` (the JAX param tree flattened by
 `ncnet_tpu_torch.bridge.flatten`) or are random from ``--seed``. The model
 is ImMatchNet at the flags' config (default: the PF-Pascal config, ResNet-101
-+ NC 5-5-5 / 16-16-1). Prints one JSON report: pairs/s, occupancy and
-latency percentiles. Runs on the card unless ``--device cpu``.
++ NC 5-5-5 / 16-16-1). ``--nc-topk K`` serves the sparse top-K band
+(Sparse-NCNet) as the standard program; ``--degrade K`` pre-warms the band
+at K as the degraded program that the engine's hysteresis controller flips
+to under queue pressure (``--degrade-high`` / ``--degrade-low``). Prints
+one JSON report: pairs/s, occupancy, latency percentiles and the
+degradation counts. Runs on the card unless ``--device cpu``.
 """
 
 import argparse
@@ -33,6 +39,7 @@ from ncnet_tpu_torch.device import resolve_device
 from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
 from ncnet_tpu_torch.serve.buckets import BucketSpec, pair_bucket
 from ncnet_tpu_torch.serve.engine import ServeEngine, payload_spec
+from ncnet_tpu_torch.serve.resilience import HysteresisController
 from ncnet_tpu_torch.serve.step import make_serve_match_step
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
@@ -62,6 +69,18 @@ def parse_args(argv=None):
                    default=[16, 16, 1])
     p.add_argument("--bf16", action="store_true",
                    help="bf16 features / correlation / NC (readout f32)")
+    p.add_argument("--nc-topk", type=int, default=-1,
+                   help="sparse NC band width K of the standard program "
+                        "(-1 keeps the config's, 0 is dense)")
+    p.add_argument("--degrade", type=int, default=-1,
+                   help="nc_topk of the DEGRADED program the overload "
+                        "controller flips to (-1 disables degradation)")
+    p.add_argument("--degrade-high", type=float, default=0.75,
+                   help="queue-pressure fraction that flips dispatch to "
+                        "the degraded program (hysteresis high water)")
+    p.add_argument("--degrade-low", type=float, default=0.25,
+                   help="queue-pressure fraction that flips back "
+                        "(hysteresis low water)")
     p.add_argument("--device", type=str, default=None,
                    help="default: cuda (the run fails without a card)")
     return p.parse_args(argv)
@@ -100,6 +119,17 @@ def main(argv=None):
         ncons_channels=tuple(args.ncons_channels),
         half_precision=args.bf16,
     )
+    if args.nc_topk >= 0:
+        config = config.replace(nc_topk=args.nc_topk)
+    degraded_apply_fn = controller = None
+    if args.degrade >= 0:
+        # the overload fallback: the same serving forward on a K band
+        degraded_apply_fn = make_serve_match_step(
+            config.replace(nc_topk=args.degrade)
+        )
+        controller = HysteresisController(
+            high=args.degrade_high, low=args.degrade_low
+        )
     model = ImMatchNet(
         config, device=device,
         generator=torch.Generator().manual_seed(args.seed),
@@ -125,11 +155,13 @@ def main(argv=None):
         else image_pairs(args.images)
     )
     report = {"n_requests": len(requests), "max_batch": args.max_batch,
-              "config": config.to_dict()}
+              "config": config.to_dict(), "nc_topk": config.nc_topk,
+              "degrade_topk": args.degrade}
     with ServeEngine(
         make_serve_match_step(config), model, device=device,
         max_batch=args.max_batch, max_wait=args.max_wait_ms / 1e3,
-        prep_fn=prep,
+        prep_fn=prep, degraded_apply_fn=degraded_apply_fn,
+        degrade_controller=controller,
     ) as engine:
         seen = {}
         for pair in requests:

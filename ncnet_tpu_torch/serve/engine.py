@@ -19,7 +19,13 @@ Three stages, each on its own thread(s), with queues between them:
 
 A failure while a batch is prepared, launched or read back fails exactly
 that batch's futures with the exception; every accepted future resolves.
-Deadlines, degradation and quality ladders, the watchdog, fleet, HTTP and
+
+Overload degradation: with a ``degraded_apply_fn`` (the cheaper program,
+e.g. the serving forward on an ``nc_topk`` band) a `HysteresisController`
+fed the queued-work fraction on every dispatch loop flips dispatch to it
+under sustained pressure and back when the pressure clears; a request may
+pin its program with ``submit(variant=...)``. Both programs run at
+`warmup`. Deadlines, quality ladders, the watchdog, fleet, HTTP and
 telemetry of the JAX engine are not ported yet (ROADMAP A15/A16).
 """
 
@@ -33,10 +39,12 @@ import torch
 
 from ncnet_tpu_torch.device import resolve_device
 from ncnet_tpu_torch.serve.batcher import MicroBatcher, Request
+from ncnet_tpu_torch.serve.resilience import HysteresisController
 
 _SENTINEL = object()
 QUEUE_LIMIT = 64  # bounded submit queue: submit blocks beyond this
 READOUT_DEPTH = 2  # batches in flight between dispatch and readout
+VARIANTS = ("standard", "degraded")  # the programs a request may pin
 
 
 def payload_spec(payload):
@@ -67,6 +75,11 @@ class ServeEngine:
     the next allowed batch size, and the padding rows are dropped at
     readout. ``device`` is where the batches run (None: the card).
 
+    ``degraded_apply_fn`` is the cheaper program (same signature as
+    ``apply_fn``) that ``degrade_controller`` (default: a
+    `HysteresisController`) flips dispatch to under sustained queue
+    pressure; requests pinned with ``submit(variant=)`` bypass it.
+
     Use as a context manager; `close` drains in-flight work, resolves
     every accepted future and joins all threads.
     """
@@ -81,9 +94,19 @@ class ServeEngine:
         max_wait=0.005,
         host_workers=2,
         prep_fn=None,
+        degraded_apply_fn=None,
+        degrade_controller=None,
     ):
         self.device = resolve_device(device)
-        self._apply_fn = apply_fn
+        self._programs = {"standard": apply_fn}
+        if degraded_apply_fn is not None:
+            self._programs["degraded"] = degraded_apply_fn
+        if degrade_controller is not None:
+            self.controller = degrade_controller
+        elif degraded_apply_fn is not None:
+            self.controller = HysteresisController()
+        else:
+            self.controller = None
         self._model = model
         self._prep_fn = prep_fn
         self._batcher = MicroBatcher(max_batch=max_batch, max_wait=max_wait)
@@ -99,7 +122,8 @@ class ServeEngine:
         self._lock = threading.Lock()
         self._pending = set()
         self._stats = dict(submitted=0, completed=0, failed=0, batches=0,
-                           real_samples=0, padded_samples=0)
+                           real_samples=0, padded_samples=0,
+                           degraded_batches=0, degrade_flips=0)
         self._latencies = []
         self._t_first_submit = None
         self._t_last_done = None
@@ -121,10 +145,11 @@ class ServeEngine:
     # -- warmup ----------------------------------------------------------
 
     def warmup(self, bucket_specs):
-        """Run every (bucket, allowed batch size) once on zeros, so the
+        """Run every (bucket, allowed batch size) once on zeros through
+        every program (standard, and degraded when configured), so the
         kernels are built and the convolution algorithms chosen before
         the first request. ``bucket_specs``: iterable of ``(key,
-        payload_spec)``. Returns the number of shapes run."""
+        payload_spec)``. Returns the number of (shape, program) runs."""
         n = 0
         for _, pspec in bucket_specs:
             for bs in self.batch_sizes:
@@ -134,21 +159,42 @@ class ServeEngine:
                     ).to(self.device)
                     for name, (shape, dtype) in pspec.items()
                 }
-                with torch.inference_mode():
-                    self._apply_fn(self._model, batch)
-                n += 1
+                for apply_fn in self._programs.values():
+                    with torch.inference_mode():
+                        apply_fn(self._model, batch)
+                    n += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return n
 
     # -- request path ----------------------------------------------------
 
-    def submit(self, raw=None, *, key=None, payload=None, timeout=None):
+    def _check_variant(self, variant):
+        """A pin the engine cannot serve fails at submit, never mid-dispatch."""
+        if variant not in VARIANTS:
+            raise ValueError(
+                f"unknown quality variant {variant!r} (expected one of "
+                f"{sorted(VARIANTS)})"
+            )
+        if variant not in self._programs:
+            raise ValueError(
+                f"variant {variant!r} pinned but the engine has no "
+                f"{variant} program configured"
+            )
+
+    def submit(self, raw=None, *, key=None, payload=None, timeout=None,
+               variant=None):
         """Queue one request; returns a `concurrent.futures.Future` whose
         result is ``{name: per-request array}``. With a ``prep_fn`` pass
         ``raw``; without one pass ``key=`` and ``payload=``. The submit
         queue is bounded: when it is full this blocks, or raises
-        ``queue.Full`` after ``timeout`` seconds."""
+        ``queue.Full`` after ``timeout`` seconds. ``variant`` pins the
+        program (``"standard"`` or ``"degraded"``): the request joins only
+        batches of that program and bypasses the controller; a pin the
+        engine has no program for raises `ValueError` here. None lets the
+        controller choose."""
+        if variant is not None:
+            self._check_variant(variant)
         if self._closed:
             raise RuntimeError("submit on a closed ServeEngine")
         if raw is None:
@@ -166,7 +212,7 @@ class ServeEngine:
             if self._t_first_submit is None:
                 self._t_first_submit = now
         try:
-            self._submit_q.put((raw, fut, now), timeout=timeout)
+            self._submit_q.put((raw, fut, now, variant), timeout=timeout)
         except queue.Full:
             with self._lock:
                 self._pending.discard(fut)
@@ -179,7 +225,7 @@ class ServeEngine:
             item = self._submit_q.get()
             if item is _SENTINEL:
                 return
-            raw, fut, t_submit = item
+            raw, fut, t_submit, variant = item
             try:
                 if self._prep_fn is not None:
                     key, payload = self._prep_fn(raw)
@@ -188,12 +234,15 @@ class ServeEngine:
             except Exception as exc:  # a failed request fails alone
                 self._fail(fut, exc)
                 continue
-            batch = self._batcher.add(Request(key, payload, fut, t_submit))
+            batch = self._batcher.add(
+                Request(key, payload, fut, t_submit, variant=variant)
+            )
             if batch is not None:
                 self._batch_q.put(batch)
 
     def _dispatch_loop(self):
         while True:
+            self._update_degrade()
             stopping = self._stop_dispatch.is_set()
             nd = self._batcher.next_deadline()
             wait = 0.0 if stopping else min(
@@ -215,6 +264,8 @@ class ServeEngine:
                     return
 
     def _dispatch(self, batch):
+        # a pinned batch runs its members' program; else the controller's
+        variant = batch.variant or self._variant_now()
         try:
             reqs = batch.requests
             tensors = {}
@@ -225,7 +276,7 @@ class ServeEngine:
                 arrs.extend([arrs[-1]] * (batch.pad_to - len(arrs)))
                 tensors[name] = torch.from_numpy(np.stack(arrs)).to(self.device)
             with torch.inference_mode():
-                out = self._apply_fn(self._model, tensors)
+                out = self._programs[variant](self._model, tensors)
                 if self.device.type == "cuda":
                     host = {}
                     for name, val in out.items():
@@ -241,14 +292,14 @@ class ServeEngine:
             for r in batch.requests:
                 self._fail(r.future, exc)
             return
-        self._readout_q.put((batch, host, done))
+        self._readout_q.put((batch, host, done, variant))
 
     def _readout_loop(self):
         while True:
             item = self._readout_q.get()
             if item is _SENTINEL:
                 return
-            batch, host, done = item
+            batch, host, done, variant = item
             try:
                 if done is not None:
                     done.synchronize()
@@ -263,6 +314,8 @@ class ServeEngine:
                 self._stats["batches"] += 1
                 self._stats["real_samples"] += n
                 self._stats["padded_samples"] += batch.pad_to
+                if variant == "degraded":
+                    self._stats["degraded_batches"] += 1
             # padding masked here: only rows [0, n) are ever read
             for i, r in enumerate(batch.requests):
                 result = {name: a[i].copy() for name, a in arrays.items()}
@@ -271,6 +324,27 @@ class ServeEngine:
                         self._stats["completed"] += 1
                         self._latencies.append(now - r.t_submit)
                         self._t_last_done = now
+
+    # -- degradation controller -----------------------------------------
+
+    def _variant_now(self):
+        """The program dispatch uses for unpinned batches right now."""
+        if self.controller is not None and self.controller.degraded \
+                and "degraded" in self._programs:
+            return "degraded"
+        return "standard"
+
+    def _update_degrade(self):
+        """Feed the controller the queued-work fraction (dispatch thread
+        only); counts the mode changes."""
+        if self.controller is None or "degraded" not in self._programs:
+            return
+        pressure = (self._submit_q.qsize() + self._batcher.pending()
+                    + self._batch_q.qsize()) / QUEUE_LIMIT
+        was = self.controller.degraded
+        if self.controller.update(pressure) != was:
+            with self._lock:
+                self._stats["degrade_flips"] += 1
 
     # -- settlement ------------------------------------------------------
 
@@ -294,8 +368,10 @@ class ServeEngine:
     # -- lifecycle -------------------------------------------------------
 
     def report(self):
-        """Counts, mean batch occupancy, pairs/s (completed requests over
-        first submit to last completion) and latency percentiles."""
+        """Counts (``degraded_batches``: batches the degraded program served;
+        ``degrade_flips``: controller mode changes), ``degraded_mode``, mean
+        batch occupancy, pairs/s (completed requests over first submit to
+        last completion) and latency percentiles."""
         with self._lock:
             s = dict(self._stats)
             lat = list(self._latencies)
@@ -304,6 +380,7 @@ class ServeEngine:
                 if self._t_last_done is not None else None
             )
         s["device"] = str(self.device)
+        s["degraded_mode"] = self._variant_now() == "degraded"
         s["mean_occupancy"] = (
             s["real_samples"] / s["padded_samples"]
             if s["padded_samples"] else float("nan")

@@ -9,8 +9,8 @@ from ncnet_tpu_torch.ops.matches import corr_to_matches
 
 
 def make_match_fn(config, softmax=True):
-    """``fn(model, src, tgt) -> [5, b, n_fwd + n_rev]``: the dense forward,
-    then `corr_to_matches` in both directions (positive coordinates),
+    """``fn(model, src, tgt) -> [5, b, n_fwd + n_rev]``: the forward (dense,
+    or the top-K band densified when ``config.nc_topk > 0``), then `corr_to_matches` in both directions (positive coordinates),
     stacked as ``(xA, yA, xB, yB, score)`` and concatenated along the
     match axis."""
     check_supported(config)
@@ -29,7 +29,8 @@ def make_serve_match_step(config, softmax=True):
     """``apply(model, batch) -> {'matches': [b, 5, n]}`` with ``batch``
     ``{'source_image', 'target_image'}`` of ``[b, h, w, 3]`` tensors; the
     batch axis comes first so readout slices one ``[5, n]`` block per
-    request."""
+    request. The degraded serving program is this same constructor at a
+    band geometry: ``make_serve_match_step(config.replace(nc_topk=K))``."""
     fn = make_match_fn(config, softmax=softmax)
 
     def apply(model, batch):

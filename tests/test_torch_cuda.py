@@ -1,4 +1,5 @@
-"""The hand-written Hopper kernels against their plain versions, on a card.
+"""The hand-written Hopper kernels (conv4d, band GEMM) against their plain
+versions, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 the port is installed:
@@ -11,7 +12,14 @@ Without a CUDA device every test skips (a CUDA kernel has no CPU mode).
 import pytest
 import torch
 
+from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
 from ncnet_tpu_torch.kernels.conv4d import conv4d_fwd
+from ncnet_tpu_torch.ops.band import (
+    band_conv_bias_relu,
+    band_conv_bias_relu_plain,
+    band_neighbor_pointers,
+    topk_band,
+)
 from ncnet_tpu_torch.ops.conv4d import conv4d, conv4d_plain
 
 pytestmark = pytest.mark.cuda
@@ -85,3 +93,75 @@ def test_kernel_rejects_mixed_devices(card):
     with pytest.raises(ValueError, match="contiguous"):
         conv4d_fwd(torch.zeros(1, 3, 3, 3, 3, 2, device=card).transpose(1, 2),
                    torch.zeros(3, 3, 3, 3, 2, 1, device=card))
+
+
+BAND_CASES = [
+    # (b, hA, wA, hB, wB, K, k, cin, cout, swapped)
+    (2, 25, 25, 25, 25, 16, 5, 1, 16, False),  # the PF-Pascal band layers
+    (2, 25, 25, 25, 25, 16, 5, 16, 16, True),
+    (2, 25, 25, 25, 25, 16, 5, 16, 1, False),
+    (1, 25, 25, 19, 25, 16, 5, 16, 16, True),  # A 25x25 against B 19x25
+    (1, 4, 3, 3, 5, 4, 3, 3, 9, False),        # tiny grid, N = 48, cout 9
+    (1, 6, 7, 6, 7, 42, 3, 4, 4, False),       # complete band
+]
+
+
+def _band_inputs(case, device):
+    b, ha, wa, hb, wb, K, k, cin, cout, swapped = BAND_CASES[case]
+    g = torch.Generator(device=device).manual_seed(case)
+    scores = torch.randn(b, ha, wa, hb, wb, generator=g, device=device)
+    _, idx = topk_band(scores, K, mutual=True)
+    n = ha * wa * K
+    ptr = band_neighbor_pointers(idx, (hb, wb), (k,) * 4, swapped=swapped)
+    ptr = ptr.reshape(b, n, -1).contiguous()
+    bound = (cin * k**4) ** -0.5
+    x = torch.rand(b, n, cin, generator=g, device=device)
+    w = (torch.rand(k, k, k, k, cin, cout, generator=g, device=device) * 2 - 1) * bound
+    bias = (torch.rand(cout, generator=g, device=device) * 2 - 1) * bound
+    return x, w, bias, ptr
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(BAND_CASES)))
+def test_band_kernel_matches_plain(card, case, dtype):
+    dt = getattr(torch, dtype)
+    x, w, bias, ptr = _band_inputs(case, card)
+    x, w = x.to(dt), w.to(dt)
+    n = x.shape[1]
+    assert int(ptr.min()) >= 0 and int(ptr.max()) <= n
+    before = band_gemm_fwd.launches
+    got = band_conv_bias_relu(x, w, bias, ptr)
+    torch.cuda.synchronize()
+    assert band_gemm_fwd.launches == before + 1
+    assert got.dtype == dt and got.shape == (*x.shape[:2], w.shape[5])
+    want = band_conv_bias_relu_plain(x, w, bias, ptr)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    # float32: two float32 sums of up to k^4*cin products in different
+    # orders (the plain matmul's blocking); bfloat16: both round the
+    # product and the biased sum to bfloat16 (2^-8 relative) from float32
+    # sums in different orders
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert err <= tol * scale, (err, scale)
+
+
+def test_band_kernel_rejects_bad_inputs(card):
+    x = torch.zeros(1, 4, 1, device=card)
+    w = torch.zeros(3, 3, 3, 3, 1, 1, device=card)
+    bias = torch.zeros(1, device=card)
+    ptr = torch.zeros(1, 4, 81, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="int32"):
+        band_gemm_fwd(x, w, bias, ptr.long())
+    with pytest.raises(ValueError, match="device"):
+        band_gemm_fwd(x, w, bias, ptr.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        band_gemm_fwd(x, w.to(torch.bfloat16), bias, ptr)
+    with pytest.raises(ValueError, match="contiguous"):
+        band_gemm_fwd(torch.zeros(1, 8, 1, device=card)[:, ::2], w, bias, ptr)
+    with pytest.raises(ValueError, match="1 to 16"):
+        band_gemm_fwd(x, torch.zeros(3, 3, 3, 3, 1, 17, device=card),
+                      torch.zeros(17, device=card), ptr)
+    # null pointers (== N) read zeros: relu(bias) everywhere
+    out = band_gemm_fwd(x + 1, w + 1, bias - 0.5, torch.full_like(ptr, 4))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))

@@ -82,6 +82,9 @@ def _entry_points():
         "bridge.from_jax_params": lambda: bridge.from_jax_params({}, small),
         "python -m ncnet_tpu_torch.serve": lambda: serve_main(
             ["--synthetic", "1", "--cnn", "patch16"]),
+        "python -m ncnet_tpu_torch.serve --degrade": lambda: serve_main(
+            ["--synthetic", "1", "--cnn", "patch16", "--degrade", "16"]),
+        "ImMatchNet(nc_topk)": lambda: ImMatchNet(small.replace(nc_topk=16)),
     }
 
 

@@ -140,9 +140,11 @@ def test_config_dict_round_trip():
 @pytest.mark.parametrize(
     "override,item",
     [
-        (dict(nc_topk=8), "A8"),
+        # the band itself is ported (tests/test_torch_sparse.py); streaming
+        # it is not, and a stream without a band is a ValueError there
+        (dict(nc_topk=8, corr_impl="stream"), "A9"),
         (dict(refine_factor=2), "A10"),
-        (dict(corr_impl="stream"), "A9"),
+        (dict(nc_topk=8, corr_impl="stream", nc_topk_mutual=False), "A9"),
         (dict(relocalization_k_size=2), "A2"),
         (dict(feature_extraction_cnn="vgg"), "A4"),
         (dict(feature_extraction_cnn="densenet201"), "A4"),
