@@ -6,9 +6,10 @@ NVIDIA GPU and fails unless every phase holds.
 Phases, one JSON line each:
 
 1. device  — CUDA must be present; the card's name and power limit.
-2. build   — both hand kernels (conv4d, band GEMM) are built with nvcc
-             from the repository's sources, one nvcc each, started
-             together (seconds and ptxas's register/spill report).
+2. build   — the three kernel libraries (conv4d forward, which dx reuses;
+             conv4d dw; band GEMM) are built with nvcc from the
+             repository's sources, one nvcc each, started together
+             (seconds and ptxas's register/spill report).
 3. kernels — the conv4d kernel against its plain PyTorch version (TF32
              off) at the PF-Pascal NC layer shapes (batch 2x2 on the 25^4
              grid), a rectangular and a tiny grid, float32 and bfloat16;
@@ -42,13 +43,40 @@ Phases, one JSON line each:
 7. full_k  — at 192 px (12x12 grids, K = 144 = hB*wB, and 12x9 with K =
              108) the band forward through the band kernel equals the
              dense forward through the conv4d kernel.
+8. train_kernels — the conv4d backward kernels against their plain
+             versions (TF32 off) at every training layer shape (dx: the
+             16->16 and 16->1 layers, whose inputs need a gradient; dw:
+             all three) at 2 samples on the 25^4 grid, float32 and
+             bfloat16; then each timed at the training batch (16 pairs x 2
+             symmetric directions = 32 samples per pipeline call, the
+             bfloat16 of the training path) beside its plain version and
+             its bound.
+9. train   — (a) the NC gradients at the PF-Pascal width (ResNet-101,
+             400 px, 5-5-5 / 16-16-1), 2 pairs, of a random linear
+             functional of the NC output and of the weak loss's positive
+             term, float32 through the kernels, against the same model
+             with the plain differentiable conv4d (cuDNN's conv3d and its
+             autograd) on float64 correlations: within 4x the same plain
+             version's own float32 error (see GRAD_RATIO);
+             (b) 3 Adam steps of the trainer API (create_train_state /
+             make_train_step) at batch 16, bfloat16, on SyntheticPairDataset:
+             finite float32 losses, float32 masters and Adam state, every
+             NC kernel moved, trunk bitwise unchanged, and exactly 6 conv4d
+             forward, 4 dx and 6 dw launches per step; then one step's
+             stage times and the peak memory; (c) ``python -m
+             ncnet_tpu_torch.train --synthetic --allow_random_fe
+             --max-steps 2`` in a subprocess: its report comes back and its
+             checkpoint loads.
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Needs one card; exits non-zero without CUDA.
 """
 
 import json
+import os
 import subprocess
+import sys
+import tempfile
 import threading
 import time
 
@@ -78,6 +106,23 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 BAND_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # served corr, kernel vs plain forward, relative to max |corr|
 SERVE_TOL = 1e-4
+# dx kernel vs plain: the forward kernel's sums and rounding (as TOL); dw
+# kernel vs plain: float32 sums of up to 781,250 products (2 samples) in
+# other orders, bfloat16 held to 1e-2 of max |dw| as the forward's TOL
+DW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# NC gradients, float32 through the kernels vs the plain conv4d in
+# float64, relative to the max |g| of each layer's parameters. A float32
+# forward flips some ReLUs against float64 and the backward sums of 1.56 M
+# products cancel heavily, so the plain version in float32 (cuDNN) is
+# itself up to 1.7e-3 (linear objective) and 8e-5 (score) of the scale off
+# the float64 answer on an H100: the kernels are held to GRAD_RATIO times
+# the plain float32 version's own error, or GRAD_TOL of the scale where
+# that is larger. A wrong gradient is off by its own size.
+GRAD_TOL = 1e-4
+GRAD_RATIO = 4.0
+TRAIN_BATCH = 16  # scripts/train.py --batch_size default
+TRAIN_SAMPLES = 2 * TRAIN_BATCH  # one pipeline call, both directions batched
+TRAIN_STEPS = 3
 
 
 def emit(obj):
@@ -738,6 +783,314 @@ def phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd):
     emit({"phase": "full_k", "card": smi, "tol_rel": SERVE_TOL, "checks": checks})
 
 
+def phase_train_kernels(smi, kernels, dx_plain, dw_plain):
+    """The dx and dw kernels against their plain versions at every training
+    layer shape, float32 and bfloat16; then each timed at the training
+    batch. Returns ``(dx_layers, dw_layers)`` of timed records."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = GRID
+    dx_layers = NC_LAYERS[1:]  # layer 1's input is the correlation: no dx
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for li, (cin, cout) in enumerate(NC_LAYERS):
+            shape = (2, g, g, g, g)
+            x, w, _ = nc_inputs(shape, cin, cout, dtype, seed=50 + li)
+            gr = torch.randn(*shape, cout, device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(60 + li)).to(dtype)
+            results = [("dw", kernels["conv4d_dw"](x, gr, KSIZE),
+                        dw_plain(x, gr, KSIZE), DW_TOL[dtype])]
+            if (cin, cout) in dx_layers:
+                results.append(("dx", kernels["conv4d_dx"](gr, w).float(),
+                                dx_plain(gr.float(), w.float()), TOL[dtype]))
+            torch.cuda.synchronize()
+            for name, got, want, tol in results:
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+                checks.append({"kernel": name, "layer": li, "cin": cin,
+                               "cout": cout, "dtype": str(dtype).split(".")[1],
+                               "max_abs_err": err, "max_rel_err": err / scale,
+                               "tol_rel": tol, "ok": ok})
+                if not ok:
+                    emit({"phase": "train_kernels", "checks": checks})
+                    raise AssertionError(f"conv4d {name} kernel disagrees: {checks[-1]}")
+
+    # per-layer times at the training batch, in the training path's dtype
+    dtype = torch.bfloat16
+    shape = (TRAIN_SAMPLES, g, g, g, g)
+    timed = {"dx": [], "dw": []}
+    for li, (cin, cout) in enumerate(NC_LAYERS):
+        x, w, _ = nc_inputs(shape, cin, cout, dtype, seed=70 + li)
+        gr = torch.randn(*shape, cout, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(80 + li)).to(dtype)
+        # (name, kernel, plain version as timed, reference as in the
+        # 2-sample checks, tolerance of the reference's scale)
+        runs = [("dw", lambda: kernels["conv4d_dw"](x, gr, KSIZE),
+                 lambda: dw_plain(x, gr, KSIZE), lambda: dw_plain(x, gr, KSIZE),
+                 DW_TOL[dtype])]
+        if (cin, cout) in dx_layers:
+            runs.append(("dx", lambda: kernels["conv4d_dx"](gr, w),
+                         lambda: dx_plain(gr, w),
+                         lambda: dx_plain(gr.float(), w.float()), TOL[dtype]))
+        for name, kern, plain, reference, tol in runs:
+            ms = time_ms(kern, reps=3)
+            plain_ms = time_ms(plain, reps=1)
+            # at this batch the dw kernel runs another chunk and reduction
+            # plan than at 2 samples, so it is held to its tolerance here too
+            got, want = kern().float(), reference().float()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+            del got, want
+            # dx is a convolution of g (cout channels) into cin channels:
+            # the same multiply-adds on the grid as the forward
+            bms, by, flops = bound_ms(shape, cin, cout, dtype)
+            if name == "dw":  # reads x and g, writes a float32 dw
+                nbytes = np.prod(shape) * (cin + cout) * 2 + KSIZE**4 * cin * cout * 4
+                t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+                bms = 1e3 * max(t_ops, t_bytes)
+                by = "operations" if t_ops >= t_bytes else "bytes"
+            timed[name].append({
+                "layer": li, "shape": list(shape), "cin": cin, "cout": cout,
+                "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "gflop": flops / 1e9,
+                "tflops": flops / ms / 1e9, "max_abs_err": err,
+                "max_rel_err": err / scale, "tol_rel": tol, "ok": ok})
+            torch.cuda.empty_cache()
+            if not ok:
+                emit({"phase": "train_kernels", "checks": checks, "timed": timed})
+                raise AssertionError(
+                    f"conv4d {name} kernel disagrees at the training batch: "
+                    f"{timed[name][-1]}")
+    emit({"phase": "train_kernels", "card": smi, "checks": checks,
+          "timed": timed})
+    return timed["dx"], timed["dw"]
+
+
+def nc_grads(model, config, batch, objective, dtype=None):
+    """An objective and its NC gradients for ``batch``; with ``dtype`` the
+    correlation and the NC stack run in it.
+
+    ``objective``: ``"score"``, the positive term of the weak loss,
+    ``-match_score(corr_pos)`` (the weak loss itself is no test: on a
+    random trunk its two terms cancel to about 1e-8 against scores of
+    about 1.6e-3, so its gradient is float32 rounding); or a fixed random
+    ``[b, 25, 25, 25, 25]`` tensor dotted with the NC stack's output,
+    which holds the stack's gradients without the softmax and max."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features, match_pipeline
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.train.loss import match_score
+
+    leaves = model.neigh_consensus.trainable()
+    for t in leaves:
+        t.grad = None
+    fa = extract_features(model, config, batch["source_image"])
+    fb = extract_features(model, config, batch["target_image"])
+    if dtype is not None:
+        fa, fb = fa.to(dtype), fb.to(dtype)
+    if objective == "score":
+        loss = -match_score(match_pipeline(model.neigh_consensus, config, fa, fb))
+    else:
+        out = model.neigh_consensus(mutual_matching(correlation_4d(fa, fb)))
+        r = torch.randn(out.shape, device=out.device, generator=torch.Generator(
+            device=out.device).manual_seed(SEED + 5))
+        loss = (out * r.to(out.dtype)).sum() / out.numel()
+    loss.backward()
+    return float(loss.detach()), [t.grad.clone() for t in leaves]
+
+
+def synthetic_batch(n, seed):
+    """``n`` pairs of `SyntheticPairDataset` at 400 px, on the card."""
+    from ncnet_tpu_torch.data.loader import collate
+    from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
+    from ncnet_tpu_torch.train.step import device_batch
+
+    ds = SyntheticPairDataset(n=n, output_size=SQUARE_HW, seed=seed)
+    return device_batch(collate([ds[i] for i in range(n)]), "cuda")
+
+
+def train_stage_breakdown(model, config, batch, optimizer):
+    """CUDA-event times of one training step's stages, in order, on one
+    batch: trunk (both images), correlation + MM (both pipelines), NC
+    forward (both pipelines), post-NC MM + scores + loss, backward,
+    optimizer; and the whole step."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.train.loss import match_score_per_sample
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    dtype = torch.bfloat16 if config.half_precision else torch.float32
+    optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    ev[0].record()
+    fa = extract_features(model, config, batch["source_image"])
+    fb = extract_features(model, config, batch["target_image"])
+    ev[1].record()
+    corrs = [mutual_matching(correlation_4d(a, fb)).to(dtype)
+             for a in (fa, torch.roll(fa, -1, 0))]
+    ev[2].record()
+    filtered = [model.neigh_consensus(c) for c in corrs]
+    ev[3].record()
+    pos, neg = (match_score_per_sample(mutual_matching(c).float()) for c in filtered)
+    loss = neg.mean() - pos.mean()
+    ev[4].record()
+    loss.backward()
+    ev[5].record()
+    optimizer.step()
+    ev[6].record()
+    ev[6].synchronize()
+    names = ("trunk", "correlation_mm", "neigh_consensus_forward",
+             "mm_score_loss", "backward", "optimizer")
+    out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    out["step"] = ev[0].elapsed_time(ev[6])
+    return out
+
+
+def phase_train(smi, model, config, kernels, conv4d_plain):
+    """Gradient check, 3 trainer steps at the PF-Pascal config, the CLI;
+    returns the launches of the 3 steps per kernel."""
+    from ncnet_tpu_torch.data.loader import DataLoader
+    from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet
+    from ncnet_tpu_torch.train.checkpoint import load_checkpoint, restore
+    from ncnet_tpu_torch.train.step import (
+        create_train_state,
+        device_batch,
+        make_train_step,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # (a) NC gradients at full width, 2 pairs, float32 through the kernels
+    # against the plain differentiable conv4d (cuDNN conv3d + autograd) in
+    # float64; the same plain version in float32 is reported beside it
+    f32 = config.replace(half_precision=False)
+    batch = synthetic_batch(2, SEED + 3)
+    grad_check = []
+    for objective in ("linear", "score"):
+        loss_k, grads_k = nc_grads(model, f32, batch, objective)
+        conv = model.neigh_consensus.conv
+        model.neigh_consensus.conv = conv4d_plain
+        try:
+            loss_p, grads_p = nc_grads(model, f32, batch, objective, torch.float64)
+            _, grads_p32 = nc_grads(model, f32, batch, objective)
+        finally:
+            model.neigh_consensus.conv = conv
+        for i, (gk, gp, g32) in enumerate(zip(grads_k, grads_p, grads_p32)):
+            # the scale is the layer's (kernel and bias together): the last
+            # layer's bias gradient is a sum over every output position
+            # that nearly cancels, so its own max is no scale for rounding
+            layer = grads_p[i - i % 2:i - i % 2 + 2]
+            scale = max(float(t.abs().max()) for t in layer)
+            err = float((gk - gp).abs().max())
+            err32 = float((g32 - gp).abs().max())
+            grad_check.append({
+                "objective": objective,
+                "tensor": f"layer{i // 2}.{('kernel', 'bias')[i % 2]}",
+                "max_abs_err": err, "scale": scale,
+                "plain_f32_max_abs_err": err32, "loss": [loss_k, loss_p],
+                "ok": (bool(torch.isfinite(gk).all())
+                       and err <= max(GRAD_RATIO * err32, GRAD_TOL * scale)
+                       and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p))})
+    if not all(c["ok"] for c in grad_check):
+        emit({"phase": "train", "grad_check": grad_check})
+        raise AssertionError(f"NC gradients through the kernels disagree: {grad_check}")
+    for t in model.neigh_consensus.trainable():
+        t.grad = None
+
+    # (b) 3 trainer steps at the full configuration, bfloat16
+    bf16 = config.replace(half_precision=True)
+    ds = SyntheticPairDataset(n=TRAIN_BATCH * (TRAIN_STEPS + 1),
+                              output_size=SQUARE_HW, seed=SEED + 4)
+    loader = DataLoader(ds, TRAIN_BATCH, shuffle=True, seed=SEED, num_workers=4,
+                        drop_last=True)
+    batches = [device_batch(b, "cuda") for b in loader.iter_epoch(0)]
+    trunk0 = {k: v.clone() for k, v in model.feature_extraction.state_dict().items()}
+    nc0 = [t.detach().clone() for t in model.neigh_consensus.trainable()]
+    state = create_train_state(model, 5e-4)
+    step = make_train_step(bf16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    for name in kernels:
+        kernels[name].launches = 0
+    for b in batches[:TRAIN_STEPS]:
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        per_step.append({n: k.launches - before[n] for n, k in kernels.items()})
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"conv4d_fwd": 6, "conv4d_dx": 4, "conv4d_dw": 6, "band_gemm_fwd": 0}
+    problems = []
+    if any(p != want for p in per_step):
+        problems.append(f"launches per step {per_step} != {want}")
+    if not all(l.dtype == torch.float32 and l.shape == () and bool(torch.isfinite(l))
+               for l in losses):
+        problems.append(f"losses not finite float32 scalars: {losses}")
+    for t in state.optimizer.param_groups[0]["params"]:
+        st = state.optimizer.state[t]
+        if not (t.dtype == st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.float32):
+            problems.append("master weights or Adam state not float32")
+    moved = [float((t.detach() - t0).abs().max()) for t, t0 in
+             zip(state.optimizer.param_groups[0]["params"], nc0)]
+    # every NC tensor must move but the last layer's bias: its gradient is
+    # one sum over every output position, and on a random trunk the weak
+    # loss's positive and negative terms cancel in it below bfloat16's
+    # resolution once each is rounded to the bias's dtype (as in the JAX
+    # package), so it can be exactly zero
+    if not all(m > 0 for m in moved[:-1]):
+        problems.append(f"NC tensors other than layer 3's bias did not move: {moved}")
+    if not all(torch.equal(v, trunk0[k])
+               for k, v in model.feature_extraction.state_dict().items()):
+        problems.append("the trunk changed")
+    stages = train_stage_breakdown(model, bf16, batches[TRAIN_STEPS], state.optimizer)
+    if problems:
+        emit({"phase": "train", "problems": problems})
+        raise AssertionError("; ".join(problems))
+
+    # (c) the CLI in a subprocess; its checkpoint must load
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run(
+            [sys.executable, "-m", "ncnet_tpu_torch.train", "--synthetic",
+             "--allow_random_fe", "--max-steps", "2", "--result_model_dir", out],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"training CLI failed (rc {proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        ck = load_checkpoint(report["checkpoint"])
+        cli_model = ImMatchNet(ck.config, device="cuda")
+        restore(create_train_state(cli_model), ck)
+        restored = all(np.array_equal(t.detach().cpu().numpy(), np.asarray(ref))
+                       for p, ref_p in zip(cli_model.neigh_consensus.params(),
+                                           ck.params["neigh_consensus"])
+                       for t, ref in ((p["kernel"], ref_p["kernel"]),
+                                      (p["bias"], ref_p["bias"])))
+        cli = {k: report[k] for k in ("steps", "step_losses", "step_ms",
+                                      "peak_memory_bytes", "kernel_launches")}
+        cli["checkpoint_bytes"] = os.path.getsize(report["checkpoint"])
+    if not (report["steps"] == 2 and ck.step == 2 and restored
+            and report["kernel_launches"] == {"conv4d_fwd": 12, "conv4d_dx": 8,
+                                              "conv4d_dw": 12}):
+        raise AssertionError(f"training CLI report or checkpoint wrong: {cli}")
+    emit({"phase": "train", "card": smi, "config": bf16.to_dict(),
+          "batch": TRAIN_BATCH, "grad_check": grad_check, "losses": [float(l) for l in losses],
+          "step_ms": step_ms, "launches_per_step": per_step,
+          "launches": launches, "nc_param_max_move": moved,
+          "peak_memory_bytes": peak, "stages_ms": stages, "cli": cli})
+    return launches
+
+
 def kernel_line(name, source, replaces, launches, layers, work, smi):
     return {
         "name": name,
@@ -746,6 +1099,10 @@ def kernel_line(name, source, replaces, launches, layers, work, smi):
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(layer["max_abs_err"] for layer in layers),
+        # relative to the reference's scale where the timed run checks it
+        "max_rel_err": (max(layer["max_rel_err"] for layer in layers)
+                        if all("max_rel_err" in layer for layer in layers)
+                        else None),
         "ms": sum(layer["ms"] for layer in layers),
         "plain_ms": sum(layer["plain_ms"] for layer in layers),
         "bound_ms": sum(layer["bound_ms"] for layer in layers),
@@ -762,19 +1119,31 @@ def main():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs a card")
     # the port itself: this fails where chip_smoke.py stands without it
     from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
-    from ncnet_tpu_torch.kernels.conv4d import conv4d_fwd
+    from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
+    from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
     from ncnet_tpu_torch.ops.band import band_conv_bias_relu_plain
-    from ncnet_tpu_torch.ops.conv4d import conv4d_plain
+    from ncnet_tpu_torch.ops.conv4d import (
+        conv4d_dw_plain,
+        conv4d_dx_plain,
+        conv4d_plain,
+    )
 
+    kernels = {"conv4d_fwd": conv4d_fwd, "conv4d_dx": conv4d_dx,
+               "conv4d_dw": conv4d_dw, "band_gemm_fwd": band_gemm_fwd}
     smi = phase_device()
-    phase_build({"conv4d_fwd": conv4d_fwd, "band_gemm_fwd": band_gemm_fwd})
+    # conv4d_dx launches conv4d_fwd's library: three builds
+    phase_build({"conv4d_fwd": conv4d_fwd, "band_gemm_fwd": band_gemm_fwd,
+                 "conv4d_dw": conv4d_dw})
     layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
+    dx_layers, dw_layers = phase_train_kernels(smi, kernels, conv4d_dx_plain,
+                                               conv4d_dw_plain)
     band_layers = phase_band_kernels(smi, band_gemm_fwd, band_conv_bias_relu_plain)
     model, config = build_model()
     launches = phase_serve(smi, model, config, conv4d_fwd, conv4d_plain)
     band_launches = phase_serve_band(smi, model, config, conv4d_fwd,
                                      band_gemm_fwd, band_conv_bias_relu_plain)
     phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd)
+    train_launches = phase_train(smi, model, config, kernels, conv4d_plain)
     emit({"kernels": [
         kernel_line("conv4d_fwd", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:65", launches, layers,
@@ -786,6 +1155,20 @@ def main():
                     "the three band NC layers x 2 symmetric passes of one "
                     f"square degraded batch ({MAX_BATCH} pairs, K = {BAND_K}),"
                     " float32", smi),
+        kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
+                    "ncnet_tpu/kernels/conv4d_pallas.py:190",
+                    train_launches["conv4d_dx"], dx_layers,
+                    "the input gradients of NC layers 2 and 3 of one pipeline "
+                    f"call of a training step ({TRAIN_BATCH} pairs x 2 "
+                    "directions), bfloat16; launches over "
+                    f"{TRAIN_STEPS} steps", smi),
+        kernel_line("conv4d_dw", "ncnet_tpu_torch/csrc/conv4d_dw.cu",
+                    "ncnet_tpu/kernels/conv4d_pallas.py:211",
+                    train_launches["conv4d_dw"], dw_layers,
+                    "the weight gradients of the three NC layers of one "
+                    f"pipeline call of a training step ({TRAIN_BATCH} pairs x "
+                    f"2 directions), bfloat16; launches over {TRAIN_STEPS} "
+                    "steps", smi),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@ is ``{'feature_extraction': trunk, 'neigh_consensus': [{'kernel',
 * NC ``kernel [ki,kj,kk,kl,cin,cout]`` / ``bias`` unchanged (the layout
   the hand kernel takes).
 
-It is the inverse direction of ``ncnet_tpu/utils/convert_torch.py``.
+It is the inverse direction of ``ncnet_tpu/utils/convert_torch.py``;
+`to_jax_params` maps a port model back to the JAX tree, so a head trained
+in the port can be evaluated by the JAX package.
 `flatten` / `unflatten` give the ``.npz`` key scheme: tree paths joined by
 ``/`` with list positions as integers, e.g.
 ``feature_extraction/layer1/0/conv2/kernel``.
@@ -109,6 +111,26 @@ def load_jax_params(model, tree):
                 )
             target.copy_(torch.tensor(np.asarray(value)))
     return model
+
+
+def to_jax_params(model):
+    """An `ImMatchNet`'s weights as the JAX param tree (float32 numpy on
+    the host): the inverse of `load_jax_params`, OIHW -> HWIO."""
+    flat = {}
+    for name, value in model.state_dict().items():
+        arr = value.detach().cpu().numpy()
+        head, _, rel = name.partition(".")
+        if head == "feature_extraction":
+            if rel == "weight" or rel.endswith(".weight"):
+                rel = rel[: -len("weight")] + "kernel"
+                arr = arr.transpose(2, 3, 1, 0)
+            flat[f"feature_extraction{SEP}{rel.replace('.', SEP)}"] = arr
+        elif head == "neigh_consensus" and rel.startswith("layers."):
+            li, leaf = rel[len("layers."):].split(".")
+            flat[f"neigh_consensus{SEP}{li}{SEP}{leaf}"] = arr
+        else:
+            raise ValueError(f"state entry {name!r} has no place in the JAX tree")
+    return unflatten({k: np.ascontiguousarray(v) for k, v in flat.items()})
 
 
 def from_jax_params(tree, config, device=None):

@@ -56,3 +56,9 @@ def imagenet_normalize(image, scale_255=True):
     if scale_255:
         image = image / 255.0
     return (image - mean) / std
+
+
+def to_uint8_image(image):
+    """Rounded uint8 of a [0, 255]-range float image (the loader's
+    ``uint8_output`` wire format)."""
+    return np.rint(np.clip(image, 0.0, 255.0)).astype(np.uint8)

@@ -16,9 +16,14 @@ float32 contraction, and keeps 4 positions x up to 16 output channels of
 accumulators per thread (see the source's header). Tensor-core ``wgmma``
 on a padded channel width is a later step.
 
-The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.conv4d.conv4d`
-routes CPU tensors to the plain PyTorch version, and nothing here falls
-back to it.
+The input gradient of the convolution is the same kernel on spatially
+flipped, channel-transposed filters, ``dx = conv4d(g, flip(w)^T)`` (the
+JAX package's ``_vjp_bwd``): `conv4d_dx` is a second wrapper over the same
+built library, with its own launch count.
+
+The wrappers take CUDA tensors only: `ncnet_tpu_torch.ops.conv4d` routes
+CPU tensors to the plain PyTorch versions, and nothing here falls back to
+them.
 """
 
 import ctypes
@@ -101,6 +106,13 @@ class Conv4dForwardKernel:
             raise ValueError(f"shape {tuple(x.shape)} exceeds int32 dims")
 
     def __call__(self, x, w, bias=None):
+        out = self.run(x, w, bias)
+        self.launches += 1
+        return out
+
+    def run(self, x, w, bias=None):
+        """One launch, not counted here: `__call__` and `conv4d_dx` count
+        their own."""
         self.check(x, w, bias)
         b, i, j, k, l, cin = x.shape
         cout = w.shape[5]
@@ -124,9 +136,46 @@ class Conv4dForwardKernel:
                 f"conv4d kernel launch failed (code {code}): {msg}; "
                 f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}"
             )
+        return out
+
+
+def flip_transpose(w):
+    """``[ki,kj,kk,kl,cin,cout]`` -> the input-gradient filters
+    ``flip(w, taps)^T``, ``[ki,kj,kk,kl,cout,cin]``, contiguous."""
+    return w.flip((0, 1, 2, 3)).transpose(4, 5).contiguous()
+
+
+class Conv4dInputGradKernel:
+    """Callable wrapper: ``kernel(g, w) -> dx``, the input gradient of
+    ``conv4d(x, w, bias)`` for the output cotangent ``g``.
+
+    ``g``: CUDA ``[b, i, j, k, l, cout]``; ``w``: the forward's
+    ``[ks, ks, ks, ks, cin, cout]`` of g's dtype. Returns ``[b, i, j, k, l,
+    cin]`` in g's dtype: the forward kernel on ``flip(w)^T`` (prepared
+    here with plain torch, contiguous) with a zero bias. Odd ``ks`` with
+    symmetric padding make the identity exact; the forward's check
+    refuses even kernels. ``launches`` counts this wrapper's launches.
+    """
+
+    def __init__(self, forward):
+        self.launches = 0
+        self._forward = forward
+
+    def load(self):
+        """Build (first use) and load the forward's library."""
+        return self._forward.load()
+
+    def __call__(self, g, w):
+        if w.dim() != 6:
+            raise ValueError(
+                f"conv4d dx takes w [k,k,k,k,cin,cout], got {tuple(w.shape)}"
+            )
+        out = self._forward.run(g, flip_transpose(w), None)
         self.launches += 1
         return out
 
 
-#: The one wrapper the port launches the kernel through.
+#: The one wrapper the port launches the forward kernel through.
 conv4d_fwd = Conv4dForwardKernel()
+#: The input gradient: the same library, counted apart.
+conv4d_dx = Conv4dInputGradKernel(conv4d_fwd)

@@ -1,0 +1,115 @@
+"""Wrapper of the hand-written Hopper kernel for the 4D convolution's weight
+gradient.
+
+Replaces ``ncnet_tpu/kernels/conv4d_pallas.py::_dw_scan`` (the dw half of
+the Pallas kernel's custom VJP, an XLA scan of per-tap einsums there) with
+``csrc/conv4d_dw.cu``, CUDA C++ for ``sm_90a`` built by ``nvcc`` from the
+repository's source on first use and bound through ``ctypes``.
+
+What bounds it on the card: operations (the 16->16 layer's dw at the
+training batch is about 3.6 TFLOP on the grid against under 1 GB of
+inputs). The kernel is the folded GEMM of ``_dw_fold``: per ``(b, i, j)``
+row and ``(di, dj)`` tap pair one ``[ks*ks*C, K*L] @ [K*L, O]`` product,
+register-blocked on the CUDA cores, with a deterministic two-pass
+reduction across rows (no atomics; see the source's header).
+
+The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.conv4d` routes
+CPU tensors to the plain version, and nothing here falls back to it.
+"""
+
+import ctypes
+import os
+
+import torch
+
+from ncnet_tpu_torch.kernels import _build
+
+SOURCE = os.path.join(_build.CSRC, "conv4d_dw.cu")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Conv4dWeightGradKernel:
+    """Callable wrapper: ``kernel(x, g, ks) -> dw``.
+
+    ``x``: CUDA ``[b, i, j, k, l, cin]`` float32 or bfloat16, contiguous;
+    ``g``: ``[b, i, j, k, l, cout]`` of x's dtype, device and grid.
+    Returns float32 ``[ks, ks, ks, ks, cin, cout]`` (odd ``ks``).
+
+    ``launches`` counts the wrapper's launches (each runs the kernel's two
+    passes), and nothing else adds to it.
+    """
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = _build.KernelLibrary(
+            SOURCE, "conv4d_dw", "conv4d_dw",
+            [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        )
+
+    def load(self):
+        """Build (first use) and load the library; returns the ptxas log."""
+        return self._lib.load()
+
+    @staticmethod
+    def check(x, g, ks):
+        """Raise ValueError/TypeError on inputs the kernel does not take."""
+        if not x.is_cuda:
+            raise ValueError(
+                "conv4d dw kernel takes CUDA tensors; CPU tensors go through "
+                "ncnet_tpu_torch.ops.conv4d.conv4d_dw_plain"
+            )
+        if x.dtype not in _DTYPE_CODES:
+            raise TypeError(
+                f"conv4d dw kernel takes float32 or bfloat16, got {x.dtype}"
+            )
+        if x.dim() != 6 or g.dim() != 6 or x.shape[:5] != g.shape[:5]:
+            raise ValueError(
+                f"conv4d dw kernel takes x [b,i,j,k,l,cin] and g "
+                f"[b,i,j,k,l,cout] on one grid; got {tuple(x.shape)} and "
+                f"{tuple(g.shape)}"
+            )
+        if ks < 1 or ks % 2 == 0:
+            raise ValueError(f"conv4d dw kernel takes an odd kernel size, got {ks}")
+        if g.device != x.device or g.dtype != x.dtype:
+            raise ValueError(
+                f"g must share x's device and dtype ({x.device}, {x.dtype}); "
+                f"got ({g.device}, {g.dtype})"
+            )
+        if not (x.is_contiguous() and g.is_contiguous()):
+            raise ValueError("conv4d dw kernel takes contiguous x and g")
+        if x.shape[0] * x.shape[1] * x.shape[2] >= 2**31:
+            raise ValueError(f"shape {tuple(x.shape)} exceeds int32 rows")
+
+    def __call__(self, x, g, ks):
+        self.check(x, g, ks)
+        b, i, j, k, l, cin = x.shape
+        cout = g.shape[5]
+        dw = torch.empty((ks, ks, ks, ks, cin, cout), dtype=torch.float32,
+                         device=x.device)
+        args = (_DTYPE_CODES[x.dtype], b, i, j, k, l, cin, cout, ks)
+        size = ctypes.c_longlong(0)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code, msg = self._lib.launch(
+                x.data_ptr(), g.data_ptr(), None, dw.data_ptr(),
+                ctypes.byref(size), *args, stream,
+            )
+            if code == 0:
+                partial = torch.empty(size.value, dtype=torch.float32,
+                                      device=x.device)
+                code, msg = self._lib.launch(
+                    x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                    dw.data_ptr(), ctypes.byref(size), *args, stream,
+                )
+        if code != 0:
+            raise RuntimeError(
+                f"conv4d dw kernel launch failed (code {code}): {msg}; "
+                f"x {tuple(x.shape)} {x.dtype}, g {tuple(g.shape)}, ks {ks}"
+            )
+        self.launches += 1
+        return dw
+
+
+#: The one wrapper the port launches the kernel through.
+conv4d_dw = Conv4dWeightGradKernel()

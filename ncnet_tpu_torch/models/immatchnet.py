@@ -136,21 +136,31 @@ def _compute_dtype(config):
 
 
 def extract_features(model, config, image):
-    """``[b, h, w, 3]`` normalized image -> ``[b, h/16, w/16, c]``."""
-    return feature_extraction_apply(
-        model.feature_extraction,
-        image,
-        normalize=config.normalize_features,
-        dtype=_compute_dtype(config),
-        center=config.center_features,
-    )
+    """``[b, h, w, 3]`` normalized image -> ``[b, h/16, w/16, c]``.
+
+    The trunk is frozen: it runs under ``torch.no_grad()``, so training
+    differentiates the NC stack only and keeps no trunk activations."""
+    with torch.no_grad():
+        return feature_extraction_apply(
+            model.feature_extraction,
+            image,
+            normalize=config.normalize_features,
+            dtype=_compute_dtype(config),
+            center=config.center_features,
+        )
 
 
 def match_pipeline(neigh_consensus, config, feat_a, feat_b):
     """Features -> filtered correlation: corr -> MM -> NC -> MM, returned
     in float32. With ``config.nc_topk > 0`` the chain runs on the top-K band
     (`ncnet_tpu_torch.sparse`) and the filtered band is densified here,
-    exact zeros off-band."""
+    exact zeros off-band.
+
+    Differentiable in the NC parameters (dense path). With
+    ``half_precision`` the features (from `extract_features`), the
+    correlation and the NC stack are bfloat16, and the output goes back
+    to float32 at the post-NC mutual matching (the JAX package's
+    ``train/loss.py`` contract)."""
     check_supported(config)
     if config.nc_topk > 0:
         band, indices, grid_b = sparse_match_pipeline(

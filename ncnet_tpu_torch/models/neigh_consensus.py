@@ -101,6 +101,9 @@ class NeighConsensus(nn.Module):
     band NC layer the sparse path calls (`ncnet_tpu_torch.sparse`); they
     default to the dispatching `conv4d` and `band_conv_bias_relu`, and a
     check may set the plain versions to hold the kernel paths against them.
+
+    The parameters are created frozen (serving builds no autograd graph);
+    `trainable` makes them trainable on request.
     """
 
     def __init__(self, kernel_sizes=(3, 3, 3), channels=(10, 10, 1),
@@ -119,6 +122,15 @@ class NeighConsensus(nn.Module):
             layer.kernel = nn.Parameter(p["kernel"].to(device), requires_grad=False)
             layer.bias = nn.Parameter(p["bias"].to(device), requires_grad=False)
             self.layers.append(layer)
+
+    def trainable(self):
+        """Mark the NC parameters trainable and return them in layer order,
+        ``[kernel_0, bias_0, kernel_1, bias_1, ...]``: the list the
+        optimizer takes."""
+        leaves = [t for layer in self.layers for t in (layer.kernel, layer.bias)]
+        for t in leaves:
+            t.requires_grad_(True)
+        return leaves
 
     def params(self):
         """The layers as ``[{'kernel', 'bias'}, ...]`` (the JAX layout)."""

@@ -1,5 +1,5 @@
-"""The hand-written Hopper kernels (conv4d, band GEMM) against their plain
-versions, on a card.
+"""The hand-written Hopper kernels (conv4d forward, dx and dw, band GEMM)
+against their plain versions, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 the port is installed:
@@ -13,14 +13,20 @@ import pytest
 import torch
 
 from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
-from ncnet_tpu_torch.kernels.conv4d import conv4d_fwd
+from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
+from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
 from ncnet_tpu_torch.ops.band import (
     band_conv_bias_relu,
     band_conv_bias_relu_plain,
     band_neighbor_pointers,
     topk_band,
 )
-from ncnet_tpu_torch.ops.conv4d import conv4d, conv4d_plain
+from ncnet_tpu_torch.ops.conv4d import (
+    conv4d,
+    conv4d_dw_plain,
+    conv4d_dx_plain,
+    conv4d_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -165,3 +171,121 @@ def test_band_kernel_rejects_bad_inputs(card):
     out = band_gemm_fwd(x + 1, w + 1, bias - 0.5, torch.full_like(ptr, 4))
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_dx_kernel_matches_plain(card, case, dtype):
+    shape, k, cin, cout = CASES[case]
+    dt = getattr(torch, dtype)
+    _, w, _ = _inputs(shape, k, cin, cout, case, card)
+    g = torch.randn(*shape, cout, generator=torch.Generator(device=card)
+                    .manual_seed(100 + case), device=card)
+    g, w = g.to(dt), w.to(dt)
+    before = conv4d_dx.launches, conv4d_fwd.launches
+    got = conv4d_dx(g, w)
+    torch.cuda.synchronize()
+    assert (conv4d_dx.launches, conv4d_fwd.launches) == (before[0] + 1, before[1])
+    assert got.dtype == dt and got.shape == (*shape, cin)
+    want = conv4d_dx_plain(g.float(), w.float())
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    # the forward kernel's sums (see test_kernel_matches_plain): float32
+    # 1e-4 of the scale, bfloat16 the output's rounding on top
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_dw_kernel_matches_plain(card, case, dtype):
+    shape, k, cin, cout = CASES[case]
+    dt = getattr(torch, dtype)
+    x, _, _ = _inputs(shape, k, cin, cout, case, card)
+    g = torch.randn(*shape, cout, generator=torch.Generator(device=card)
+                    .manual_seed(200 + case), device=card)
+    x, g = x.to(dt), g.to(dt)
+    before = conv4d_dw.launches
+    got = conv4d_dw(x, g, k)
+    torch.cuda.synchronize()
+    assert conv4d_dw.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (k,) * 4 + (cin, cout)
+    want = conv4d_dw_plain(x, g, k)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # both sum the same float32 products (bfloat16 inputs are exact in
+    # float32) of up to b*i*j*k*l = 781,250 positions in other orders;
+    # neither rounds its result to bfloat16
+    assert err <= 1e-4 * scale, (err, scale)
+    # no atomics: a second launch is bitwise the first
+    assert torch.equal(conv4d_dw(x, g, k), got)
+
+
+def test_dw_kernel_rejects_bad_inputs(card):
+    x = torch.zeros(1, 3, 3, 3, 3, 2, device=card)
+    with pytest.raises(ValueError, match="device and dtype"):
+        conv4d_dw(x, torch.zeros(1, 3, 3, 3, 3, 1, device=card,
+                                 dtype=torch.bfloat16), 3)
+    with pytest.raises(ValueError, match="one grid"):
+        conv4d_dw(x, torch.zeros(1, 3, 3, 3, 4, 1, device=card), 3)
+    with pytest.raises(ValueError, match="odd"):
+        conv4d_dw(x, torch.zeros(1, 3, 3, 3, 3, 1, device=card), 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv4d_dw(x.half(), torch.zeros(1, 3, 3, 3, 3, 1, device=card).half(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv4d_dw(x.transpose(1, 2), torch.zeros(1, 3, 3, 3, 3, 1, device=card), 3)
+
+
+def _nc_grads(corr, params, conv, dtype):
+    """NC gradients of a scalar loss through ``conv`` on ``corr``."""
+    from ncnet_tpu_torch.models.neigh_consensus import neigh_consensus_apply
+
+    leaves = [t for p in params for t in (p["kernel"], p["bias"])]
+    for t in leaves:
+        t.grad = None
+    out = neigh_consensus_apply(params, corr.to(dtype), conv=conv)
+    loss = (out.float() * torch.linspace(-1, 1, out.numel(), device=out.device)
+            .reshape(out.shape)).sum()
+    loss.backward()
+    return [t.grad.clone() for t in leaves]
+
+
+def test_nc_gradients_through_kernels_match_plain(card):
+    from ncnet_tpu_torch.models.neigh_consensus import init_neigh_consensus
+    from ncnet_tpu_torch.ops.conv4d import Conv4dFunction
+
+    params = [{k: v.to(card).requires_grad_(True) for k, v in p.items()}
+              for p in init_neigh_consensus((3, 3, 3), (4, 4, 1))]
+    corr = torch.rand(2, 6, 5, 6, 5, generator=torch.Generator(device=card)
+                      .manual_seed(3), device=card)
+
+    class Plain(Conv4dFunction):
+        """The same Function with every pass on the plain versions."""
+
+        @staticmethod
+        def forward(ctx, x, w, bias):
+            ctx.save_for_backward(x, w)
+            ctx.bias_dtype = None if bias is None else bias.dtype
+            return conv4d_plain(x, w, bias)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            g = g.contiguous()
+            dx = conv4d_dx_plain(g, w) if ctx.needs_input_grad[0] else None
+            dw = conv4d_dw_plain(x, g, w.shape[0]).to(w.dtype)
+            db = g.sum(dim=(0, 1, 2, 3, 4), dtype=torch.float32).to(ctx.bias_dtype)
+            return dx, dw, db
+
+    before = conv4d_fwd.launches, conv4d_dx.launches, conv4d_dw.launches
+    got = _nc_grads(corr, params, conv4d, torch.float32)
+    torch.cuda.synchronize()
+    after = conv4d_fwd.launches, conv4d_dx.launches, conv4d_dw.launches
+    # one symmetric-batched pass: 3 forward launches, dx for layers 2 and 3
+    # only (the correlation needs no gradient), dw for all three
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 2, 3)
+    want = _nc_grads(corr, params, Plain.apply, torch.float32)
+    for gk, gp in zip(got, want):
+        scale = float(gp.abs().max())
+        # float32 sums in other orders through three layers and back
+        assert float((gk - gp).abs().max()) <= 1e-4 * scale

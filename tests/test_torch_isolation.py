@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -70,6 +71,7 @@ def _entry_points():
     from ncnet_tpu_torch.models.resnet import ResNet101Trunk
     from ncnet_tpu_torch.serve.__main__ import main as serve_main
     from ncnet_tpu_torch.serve.engine import ServeEngine
+    from ncnet_tpu_torch.train.__main__ import main as train_main
 
     small = ImMatchNetConfig(feature_extraction_cnn="patch16",
                              ncons_kernel_sizes=(3,), ncons_channels=(1,))
@@ -85,6 +87,8 @@ def _entry_points():
         "python -m ncnet_tpu_torch.serve --degrade": lambda: serve_main(
             ["--synthetic", "1", "--cnn", "patch16", "--degrade", "16"]),
         "ImMatchNet(nc_topk)": lambda: ImMatchNet(small.replace(nc_topk=16)),
+        "python -m ncnet_tpu_torch.train": lambda: train_main(
+            ["--synthetic", "--allow_random_fe", "--fe_arch", "patch16"]),
     }
 
 
@@ -94,3 +98,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it(name):
         pytest.skip("a card is present: device=None runs on it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
+
+
+@pytest.mark.parametrize("entry", ["train.loop.train", "make_train_step"])
+def test_trainer_follows_the_model_device(entry, tmp_path):
+    """The trainer takes no device of its own: it runs where the model
+    lives, so a model built on the CPU trains there without touching CUDA
+    (on a default-device model it is `ImMatchNet` that raises, above)."""
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+    from ncnet_tpu_torch.train.loop import train
+    from ncnet_tpu_torch.train.step import create_train_state, make_train_step
+
+    config = ImMatchNetConfig(feature_extraction_cnn="patch16",
+                              ncons_kernel_sizes=(3,), ncons_channels=(1,),
+                              half_precision=False)
+    model = ImMatchNet(config, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    batch = {k: rng.randn(2, 32, 32, 3).astype(np.float32)
+             for k in ("source_image", "target_image")}
+    before = [t.detach().clone() for t in model.neigh_consensus.trainable()]
+    if entry == "make_train_step":
+        state, loss = make_train_step(config)(create_train_state(model), batch)
+    else:
+        state, history = train(config, model, [batch], num_epochs=1,
+                               checkpoint_dir=str(tmp_path), log=lambda *a: None)
+        loss = torch.tensor(history["step_losses"][-1])
+    after = model.neigh_consensus.trainable()
+    assert state.step == 1 and bool(torch.isfinite(loss))
+    assert loss.device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in after)
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+    assert not torch.cuda.is_initialized()
