@@ -9,7 +9,12 @@ Phases, one JSON line each:
 2. build   — the three kernel libraries (conv4d forward, which dx reuses;
              conv4d dw; band GEMM) are built with nvcc from the
              repository's sources, one nvcc each, started together
-             (seconds and ptxas's register/spill report).
+             (seconds and ptxas's register/spill report); then each
+             library's HMMA/HGMMA (tensor-core) instructions per kernel
+             function, from ``cuobjdump -sass``: the bfloat16 routes of
+             conv4d forward and dw (functions named ``bf16_tc``) must
+             have some in every function, or the phase fails; without
+             cuobjdump the phase says so.
 3. kernels — the conv4d kernel against its plain PyTorch version (TF32
              off) at the PF-Pascal NC layer shapes (batch 2x2 on the 25^4
              grid), a rectangular and a tiny grid, float32 and bfloat16;
@@ -47,10 +52,12 @@ Phases, one JSON line each:
              versions (TF32 off) at every training layer shape (dx: the
              16->16 and 16->1 layers, whose inputs need a gradient; dw:
              all three) at 2 samples on the 25^4 grid, float32 and
-             bfloat16; then each timed at the training batch (16 pairs x 2
-             symmetric directions = 32 samples per pipeline call, the
-             bfloat16 of the training path) beside its plain version and
-             its bound.
+             bfloat16; then the forward, dx and dw timed at the training
+             batch (16 pairs x 2 symmetric directions = 32 samples per
+             pipeline call, the bfloat16 of the training path) beside
+             their plain versions and bounds, each timed launch held to
+             its tolerance, and the forward and dw called twice on the
+             same inputs: the two results must be bitwise equal.
 9. train   — (a) the NC gradients at the PF-Pascal width (ResNet-101,
              400 px, 5-5-5 / 16-16-1), 2 pairs, of a random linear
              functional of the NC output and of the weak loss's positive
@@ -123,6 +130,8 @@ GRAD_RATIO = 4.0
 TRAIN_BATCH = 16  # scripts/train.py --batch_size default
 TRAIN_SAMPLES = 2 * TRAIN_BATCH  # one pipeline call, both directions batched
 TRAIN_STEPS = 3
+# the libraries whose bfloat16 route runs on the tensor cores
+BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw")
 
 
 def emit(obj):
@@ -141,7 +150,10 @@ def phase_device():
 
 
 def phase_build(kernels):
-    """Build every kernel, one nvcc each, all started together."""
+    """Build every kernel, one nvcc each, all started together; count each
+    library's tensor-core instructions."""
+    from ncnet_tpu_torch.kernels._build import tensor_core_summary
+
     t0 = time.perf_counter()
     done, errors = {}, {}
 
@@ -155,6 +167,16 @@ def phase_build(kernels):
             }
         except Exception as exc:  # reported below, then the run fails
             errors[name] = repr(exc)
+            return
+        counts = kernel.tensor_core_counts()
+        if counts is None:
+            done[name]["tensor_cores"] = "cuobjdump absent: not counted"
+            return
+        summary = tensor_core_summary(counts)
+        done[name]["tensor_cores"] = {**summary, "per_function": counts}
+        if name in BF16_TC_ROUTES and summary["bf16_route_min_mma"] == 0:
+            errors[name] = (f"the bfloat16 route has no tensor-core "
+                            f"instruction in some function: {counts}")
 
     threads = [threading.Thread(target=one, args=item) for item in kernels.items()]
     for t in threads:
@@ -783,10 +805,12 @@ def phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd):
     emit({"phase": "full_k", "card": smi, "tol_rel": SERVE_TOL, "checks": checks})
 
 
-def phase_train_kernels(smi, kernels, dx_plain, dw_plain):
+def phase_train_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
     """The dx and dw kernels against their plain versions at every training
-    layer shape, float32 and bfloat16; then each timed at the training
-    batch. Returns ``(dx_layers, dw_layers)`` of timed records."""
+    layer shape, float32 and bfloat16; then the forward, dx and dw timed at
+    the training batch, each held to its tolerance, the forward and dw to
+    a bitwise repeat. Returns ``(fwd_layers, dx_layers, dw_layers)`` of
+    timed records."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = GRID
@@ -820,14 +844,17 @@ def phase_train_kernels(smi, kernels, dx_plain, dw_plain):
     # per-layer times at the training batch, in the training path's dtype
     dtype = torch.bfloat16
     shape = (TRAIN_SAMPLES, g, g, g, g)
-    timed = {"dx": [], "dw": []}
+    timed = {"fwd": [], "dx": [], "dw": []}
     for li, (cin, cout) in enumerate(NC_LAYERS):
-        x, w, _ = nc_inputs(shape, cin, cout, dtype, seed=70 + li)
+        x, w, b = nc_inputs(shape, cin, cout, dtype, seed=70 + li)
         gr = torch.randn(*shape, cout, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(80 + li)).to(dtype)
         # (name, kernel, plain version as timed, reference as in the
         # 2-sample checks, tolerance of the reference's scale)
-        runs = [("dw", lambda: kernels["conv4d_dw"](x, gr, KSIZE),
+        runs = [("fwd", lambda: kernels["conv4d_fwd"](x, w, b),
+                 lambda: fwd_plain(x, w, b),
+                 lambda: fwd_plain(x.float(), w.float(), b), TOL[dtype]),
+                ("dw", lambda: kernels["conv4d_dw"](x, gr, KSIZE),
                  lambda: dw_plain(x, gr, KSIZE), lambda: dw_plain(x, gr, KSIZE),
                  DW_TOL[dtype])]
         if (cin, cout) in dx_layers:
@@ -839,10 +866,15 @@ def phase_train_kernels(smi, kernels, dx_plain, dw_plain):
             plain_ms = time_ms(plain, reps=1)
             # at this batch the dw kernel runs another chunk and reduction
             # plan than at 2 samples, so it is held to its tolerance here too
-            got, want = kern().float(), reference().float()
+            got, again = kern(), kern()
+            # one thread sums each output in a fixed order, no atomics
+            bitwise = bool(torch.equal(got, again))
+            del again
+            got, want = got.float(), reference().float()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+            ok = (bool(torch.isfinite(got).all()) and err <= tol * scale
+                  and (bitwise or name == "dx"))
             del got, want
             # dx is a convolution of g (cout channels) into cin channels:
             # the same multiply-adds on the grid as the forward
@@ -857,7 +889,8 @@ def phase_train_kernels(smi, kernels, dx_plain, dw_plain):
                 "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "gflop": flops / 1e9,
                 "tflops": flops / ms / 1e9, "max_abs_err": err,
-                "max_rel_err": err / scale, "tol_rel": tol, "ok": ok})
+                "max_rel_err": err / scale, "tol_rel": tol,
+                "bitwise_repeat": bitwise, "ok": ok})
             torch.cuda.empty_cache()
             if not ok:
                 emit({"phase": "train_kernels", "checks": checks, "timed": timed})
@@ -866,7 +899,7 @@ def phase_train_kernels(smi, kernels, dx_plain, dw_plain):
                     f"{timed[name][-1]}")
     emit({"phase": "train_kernels", "card": smi, "checks": checks,
           "timed": timed})
-    return timed["dx"], timed["dw"]
+    return timed["fwd"], timed["dx"], timed["dw"]
 
 
 def nc_grads(model, config, batch, objective, dtype=None):
@@ -1091,13 +1124,15 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
     return launches
 
 
-def kernel_line(name, source, replaces, launches, layers, work, smi):
+def kernel_line(name, source, replaces, launches, layers, work, smi,
+                launches_by_path=None):
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": launches,
+        "launches_by_path": launches_by_path,
         "max_abs_err": max(layer["max_abs_err"] for layer in layers),
         # relative to the reference's scale where the timed run checks it
         "max_rel_err": (max(layer["max_rel_err"] for layer in layers)
@@ -1135,8 +1170,8 @@ def main():
     phase_build({"conv4d_fwd": conv4d_fwd, "band_gemm_fwd": band_gemm_fwd,
                  "conv4d_dw": conv4d_dw})
     layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
-    dx_layers, dw_layers = phase_train_kernels(smi, kernels, conv4d_dx_plain,
-                                               conv4d_dw_plain)
+    fwd_train_layers, dx_layers, dw_layers = phase_train_kernels(
+        smi, kernels, conv4d_plain, conv4d_dx_plain, conv4d_dw_plain)
     band_layers = phase_band_kernels(smi, band_gemm_fwd, band_conv_bias_relu_plain)
     model, config = build_model()
     launches = phase_serve(smi, model, config, conv4d_fwd, conv4d_plain)
@@ -1146,9 +1181,17 @@ def main():
     train_launches = phase_train(smi, model, config, kernels, conv4d_plain)
     emit({"kernels": [
         kernel_line("conv4d_fwd", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
-                    "ncnet_tpu/kernels/conv4d_pallas.py:65", launches, layers,
+                    "ncnet_tpu/kernels/conv4d_pallas.py:65",
+                    launches + train_launches["conv4d_fwd"],
+                    [{**la, "path": "serve"} for la in layers]
+                    + [{**la, "path": "train"} for la in fwd_train_layers],
                     "the three NC layers of one square serving batch "
-                    f"({MAX_BATCH} pairs x 2 directions), float32", smi),
+                    f"({MAX_BATCH} pairs x 2 directions), float32, and of "
+                    f"one pipeline call of a training step ({TRAIN_BATCH} "
+                    "pairs x 2 directions), bfloat16; launches: the served "
+                    f"batches' and those of {TRAIN_STEPS} training steps",
+                    smi, {"serve": launches,
+                          "train": train_launches["conv4d_fwd"]}),
         kernel_line("band_gemm_fwd", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:83", band_launches,
                     band_layers,

@@ -17,31 +17,64 @@
 // 16->16 layer's dw at 32 samples is about 3.6 TFLOP on the grid against
 // under 1 GB of x and g, thousands of FLOP per byte.
 //
-// Design (a first, simple and correct kernel; wgmma/TMA come later): the
-// folded GEMM of ncnet_tpu/ops/conv4d.py::_dw_fold. For one (b, i, j) row
-// and one (di, dj) tap pair the contribution is one
+// Both routes compute the folded GEMM of ncnet_tpu/ops/conv4d.py::_dw_fold:
+// for one (b, i, j) row and one (di, dj) tap pair the contribution is one
 // [ks*ks*C, K*L] @ [K*L, O] product.
 //   * pass 1: one block per (chunk of (b, i, j) rows, (di, dj) tap pair).
 //     For each row of its chunk whose input row (i+di-p, j+dj-p) is on the
 //     grid, the block stages the zero-padded (k, l, c) halo of that input
-//     row and the g row in shared memory as float32. Each thread owns one
-//     (dk, dl) tap, a tile of CT input and OT output channels, and a group
-//     of the K*L positions, and keeps CT x OT float32 accumulators in
-//     registers (register-blocked FFMA on the CUDA cores);
+//     row and the g row in shared memory and adds the product into
+//     float32 registers;
 //   * every kFlushRows rows the registers are added into the thread's own
 //     slots of a partial buffer in global memory, so no float chain is
-//     longer than kFlushRows * (K*L / position groups) products;
+//     longer than kFlushRows rows' worth of a position group's products;
 //   * pass 2: one thread per dw element sums the partials of every chunk
 //     and position group in a fixed order. No atomics: a repeated call is
-//     bitwise reproducible;
-//   * the staged halo stores each position with a stride that keeps a
-//     warp's float4 reads in distinct banks; threads that share an output
-//     tile read the same g value (a broadcast).
+//     bitwise reproducible.
+//
+// bfloat16 (the training path) runs on the tensor cores, bf16 x bf16 ->
+// float32 as the JAX scan's preferred_element_type=f32 (the products are
+// exact in float32; only the order of the sums differs):
+//   * for each (dk, dl) tap the row's product is a GEMM with M = input
+//     channels (16 a tile; C padded with zeros), N = output channels (8 or
+//     16 a block), K = positions in k-steps of 16 (625 padded to 640 with
+//     zero g rows), on mma.sync.m16n8k16 bf16 -> f32;
+//   * the A fragment (x^T) is one ldmatrix.x4.trans of the staged halo,
+//     whose lanes address the positions shifted by (dk, dl) directly (each
+//     position keeps 16 channels as two swizzled 16-byte chunks): no
+//     im2col copy. The B fragment (g) is one ldmatrix.trans per k-step,
+//     used for every tap the warp owns;
+//   * a warp owns up to 5 (tap, channel group) m-tiles (up to 40 float32
+//     accumulators a thread) over every other k-step: 10 warps = 5 tap
+//     groups x 2 position groups at the 16->16 layer;
+//   * C == 1 (the 1->16 layer): M runs over the (dk, dl) taps themselves
+//     (25 padded to 32, 2 m-tiles a warp) and the A fragment is built from
+//     scalar shared loads of the one-channel halo;
+//   * O == 1 (the 16->1 layer; ks <= 8): padding N = o to 8 would leave
+//     7/8 of every MMA zero, so N runs over dl instead. The block spreads
+//     the g row into gt[u][dl] = g[k, l' - dl] over u = k*(L+2p) + l'
+//     (zero off the row), and then dw[dk, dl, c] = sum_u x_halo[u +
+//     dk*(L+2p), c] * gt[u][dl]: one GEMM per (dk, channel group), 725
+//     values of u a row, a fifth of the MMAs and A loads of the per-tap
+//     form;
+//   * the halo and the g row are staged in bfloat16 (never widened) and
+//     double-buffered with cp.async (16-byte chunks, zero-filled off the
+//     grid), so the next row's copy overlaps this row's MMAs; shapes whose
+//     rows are not 16-byte chunks (C or O not a multiple of 8) stage with
+//     plain loads;
+//   * the row chunks are sized for 4 waves of the card's resident blocks.
+// float32 (the gradient check) keeps the CUDA-core route: each thread owns
+// one (dk, dl) tap, a tile of CT input and OT output channels and a group
+// of the K*L positions, with CT x OT float32 accumulators (register-blocked
+// FFMA); the float32 halo stores each position with a stride that keeps a
+// warp's float4 reads in distinct banks. TF32 would change the numbers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -72,9 +105,6 @@ struct Plan {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <int N>
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
@@ -299,6 +329,438 @@ int dispatch(const void* x, const void* g, float* partial, const Plan& s,
   return launch_partial<T, 16, 4>(x, g, partial, s, st);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 route: tensor cores (see the header).
+
+constexpr int kTcMaxMPW = 5;    // m16 tiles a warp (channels x taps)
+constexpr int kTapMaxMPW = 2;   // m16 tiles a warp when M is the taps
+constexpr int kTcMaxWarps = 10;
+constexpr int kTcThreads = kTcMaxWarps * 32;
+constexpr int kTcWaves = 4;     // pass-1 blocks aimed at per resident slot
+
+// What the GEMM's M, N and K run over.
+constexpr int kModeChannels = 0;  // M = (dk, dl, 16 c), N = o, K = positions
+constexpr int kModeTaps = 1;      // C == 1: M = (dk, dl), N = o, K = positions
+constexpr int kModeShiftG = 2;    // O == 1: M = (dk, 16 c), N = dl, K = (k, l')
+
+struct TcPlan {
+  int B, I, J, K, L, C, O, ks;
+  int mode;
+  int CG;           // 16-channel groups; 0 on the taps mode
+  int nM;           // m16 tiles in all
+  int MW, MPW, KW;  // warps over m-tiles, m-tiles a warp, warps over k-steps
+  int n_mg;         // blocks over m-tile groups of MW * MPW
+  int NT;           // n8 tiles a block (8 * NT output channels)
+  int n_ot;         // blocks over output-channel tiles
+  int NKS;          // k-steps of 16: positions K*L, or (k, l') K*(L+2p)
+  int HP;           // staged halo positions (K+2p) * (L+2p)
+  int x_bytes;      // staged halo bytes per buffer
+  int g_bytes;      // staged g bytes per buffer (the raw row on kModeShiftG)
+  int gt_bytes;     // the shifted g copy of kModeShiftG (one buffer)
+  int tab_bytes;
+  int vec_x, vec_g;  // stage with cp.async (16-byte chunks, aligned)
+  int rows_per_chunk, n_chunks;
+  size_t smem;
+  int64_t workspace;  // partial floats
+};
+
+// NT: n8 tiles a block; kMode: one of the modes above.
+template <int NT, int kMode>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    conv4d_dw_bf16_tc(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ g,
+                      float* __restrict__ partial, const TcPlan s) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  using namespace mma16;
+  constexpr bool kTap = kMode == kModeTaps;
+  constexpr bool kShift = kMode == kModeShiftG;
+  constexpr int kMPW = kTap ? kTapMaxMPW : kTcMaxMPW;
+  const int p = s.ks / 2;
+  const int cols = s.L + 2 * p;
+  const int KL = s.K * s.L;
+  const int T = s.ks * s.ks;
+  const int OT = 8 * NT;
+  const int chunk = blockIdx.x;
+  const int mg = blockIdx.y % s.n_mg;
+  const int ot = (blockIdx.y / s.n_mg) % s.n_ot;
+  const int dij = blockIdx.y / (s.n_mg * s.n_ot);
+  const int di = dij / s.ks;
+  const int dj = dij % s.ks;
+  const int o0 = ot * OT;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int kw = warp / s.MW;
+  const int m_first = (mg * s.MW + warp % s.MW) * s.MPW;
+  const int n_mt = max(0, min(s.MPW, s.nM - m_first));
+  const int stage_bytes = s.x_bytes + s.g_bytes;
+  int* tab = reinterpret_cast<int*>(tc_smem);  // [NKS*16]
+  unsigned char* bufs = tc_smem + s.tab_bytes;
+  uint16_t* gt = reinterpret_cast<uint16_t*>(bufs + 2 * stage_bytes);
+
+  // the halo index of each position at tap (0, 0); positions past K*L
+  // read position 0 against g rows of zeros
+  for (int e = tid; e < s.NKS * 16; e += nthreads)
+    tab[e] = e < KL ? (e / s.L) * cols + e % s.L : 0;
+
+  // per m-tile: channels, the halo record offset of its (tap, channel
+  // group); taps, the offsets of this lane's rows g and g+8; shifted g,
+  // the record offset of its (dk, channel group) and its last record
+  int moff[kMPW][2];
+#pragma unroll
+  for (int mt = 0; mt < kMPW; ++mt) {
+    const int mi = m_first + mt;
+    if (kTap) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = mi * 16 + (lane >> 2) + h * 8;
+        moff[mt][h] = t < T ? (t / s.ks) * cols + t % s.ks : 0;
+      }
+    } else if (kShift) {
+      const int cg = mi % s.CG;
+      moff[mt][0] = mi < s.nM ? cg * s.HP + (mi / s.CG) * cols : 0;
+      moff[mt][1] = cg * s.HP + s.HP - 1;
+    } else {
+      const int t = mi / s.CG;
+      moff[mt][0] = mi < s.nM
+                        ? (mi % s.CG) * s.HP + (t / s.ks) * cols + t % s.ks
+                        : 0;
+      moff[mt][1] = 0;
+    }
+  }
+
+  float acc[kMPW][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMPW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  bool first = true;
+  int pending = 0;
+
+  // this warp's slots: partial[chunk][dij][kw][dkl][c][o]
+  const int64_t per_tap = (int64_t)T * s.C * s.O;
+  float* slot = partial + (((int64_t)chunk * T + dij) * s.KW + kw) * per_tap;
+  auto flush = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < kMPW; ++mt) {
+      if (mt >= n_mt) break;
+      const int mi = m_first + mt;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = (lane >> 2) + (e >> 1) * 8;
+          const int col = nt * 8 + 2 * (lane & 3) + (e & 1);
+          int t, c, o;
+          bool ok;
+          if (kTap) {
+            t = mi * 16 + row, c = 0, o = o0 + col;
+            ok = t < T && o < s.O;
+          } else if (kShift) {  // the column is dl
+            t = (mi / s.CG) * s.ks + col, c = (mi % s.CG) * 16 + row, o = 0;
+            ok = col < s.ks && c < s.C;
+          } else {
+            t = mi / s.CG, c = (mi % s.CG) * 16 + row, o = o0 + col;
+            ok = c < s.C && o < s.O;
+          }
+          if (ok) {
+            float* d = slot + ((int64_t)t * s.C + c) * s.O + o;
+            *d = first ? acc[mt][nt][e] : *d + acc[mt][nt][e];
+          }
+          acc[mt][nt][e] = 0.f;
+        }
+    }
+    first = false;
+    pending = 0;
+  };
+
+  const int64_t row_x = (int64_t)KL * s.C;
+  const int64_t row_g = (int64_t)KL * s.O;
+  const int rows_total = s.B * s.I * s.J;
+  const int r0 = chunk * s.rows_per_chunk;
+  const int r1 = min(rows_total, r0 + s.rows_per_chunk);
+  auto on_grid = [&](int r) {
+    const int ii = (r / s.J) % s.I + di - p;
+    const int jj = r % s.J + dj - p;
+    return ii >= 0 && ii < s.I && jj >= 0 && jj < s.J;
+  };
+  auto next_row = [&](int r) {
+    while (r < r1 && !on_grid(r)) ++r;
+    return r;
+  };
+  // kModeShiftG stages the g row raw from the 16-byte chunk that holds
+  // its first element: the row starts `lead` elements into the buffer
+  auto lead = [&](int r) {
+    return s.vec_g ? (int)(((uintptr_t)(g + (int64_t)r * row_g) & 15) / 2) : 0;
+  };
+
+  auto stage = [&](int r, int buf) {
+    unsigned char* xs = bufs + buf * stage_bytes;
+    unsigned char* gs = xs + s.x_bytes;
+    const int j = r % s.J;
+    const int i = (r / s.J) % s.I;
+    const int b = r / (s.I * s.J);
+    const __nv_bfloat16* xr =
+        x + (((int64_t)b * s.I + i + di - p) * s.J + j + dj - p) * row_x;
+    const __nv_bfloat16* gr = g + (int64_t)r * row_g;
+    stage_halo(xs, xr, 0, s.K + 2 * p, cols, p, s.K, s.L, s.C, s.CG, s.HP,
+               s.vec_x, tid, nthreads);
+    if (kShift) {  // the raw g row (O == 1), spread into gt by `shift_g`
+      if (s.vec_g) {
+        const int n_el = lead(r) + KL;
+        const int64_t left = (int64_t)rows_total * KL - ((int64_t)r * KL - lead(r));
+        for (int e = tid; e < (n_el + 7) / 8; e += nthreads) {
+          const int64_t rest = 2 * (left - 8 * (int64_t)e);
+          cp_async16(gs + 16 * e, gr - lead(r) + 8 * e,
+                     rest < 16 ? (int)rest : 16);
+        }
+      } else {
+        uint16_t* graw = reinterpret_cast<uint16_t*>(gs);
+        for (int e = tid; e < KL; e += nthreads) graw[e] = bf16_bits(gr[e]);
+      }
+      return;
+    }
+    // the g row as [position][OT], zero past K*L and past O
+    const int npos = s.NKS * 16;
+    if (s.vec_g) {
+      for (int e = tid; e < npos * NT; e += nthreads) {
+        const int q = e % NT;
+        const int pos = e / NT;
+        const bool ok = pos < KL && o0 + q * 8 < s.O;
+        const __nv_bfloat16* src =
+            ok ? gr + (int64_t)pos * s.O + o0 + q * 8 : gr;
+        cp_async16(gs + swizzle(pos, q, NT), src, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < npos * OT; e += nthreads) {
+        const int o = e % OT;
+        const int pos = e / OT;
+        const bool ok = pos < KL && o0 + o < s.O;
+        *reinterpret_cast<uint16_t*>(gs + swizzle(pos, o >> 3, NT) +
+                                     (o & 7) * 2) =
+            ok ? bf16_bits(gr[(int64_t)pos * s.O + o0 + o]) : (uint16_t)0;
+      }
+    }
+  };
+
+  // kModeShiftG: gt[u][dl] = g[k, l' - dl] for u = k*(L+2p) + l' (zero
+  // where l' - dl is off the row, past the rows, or dl >= ks), so that
+  //   dw[dk, dl, c] = sum_u x_halo[u + dk*(L+2p), c] * gt[u][dl]
+  // is one GEMM per (dk, channel group) with N = dl
+  auto shift_g = [&](int buf, int r) {
+    const uint16_t* graw =
+        reinterpret_cast<const uint16_t*>(bufs + buf * stage_bytes + s.x_bytes) +
+        lead(r);
+    const int dl = tid & 7;  // a thread keeps one dl and walks u
+    const int ustep = nthreads / 8;
+    int u = tid / 8;
+    int k = u / cols;
+    int l = u % cols;
+    for (; u < s.NKS * 16; u += ustep) {
+      const int lg = l - dl;
+      gt[u * 8 + dl] = (k < s.K && dl < s.ks && lg >= 0 && lg < s.L)
+                           ? graw[k * s.L + lg]
+                           : (uint16_t)0;
+      for (l += ustep; l >= cols; l -= cols) ++k;
+    }
+  };
+
+  auto compute = [&](int buf) {
+    const unsigned char* xs = bufs + buf * stage_bytes;
+    const uint32_t xs_addr = smem_addr(xs);
+    const uint32_t gs_addr = smem_addr(kShift ? (const void*)gt : xs + s.x_bytes);
+    const uint16_t* xh = reinterpret_cast<const uint16_t*>(xs);
+    const int q8 = lane >> 3;
+    for (int st = kw; st < s.NKS; st += s.KW) {
+      // B: the g rows of 16 positions (shifted g: 16 values of u), shared
+      // by every m-tile of the warp
+      uint32_t bf[NT][2];
+      const int pos_b = st * 16 + (q8 & 1) * 8 + (lane & 7);
+      if constexpr (NT == 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, gs_addr + swizzle(pos_b, q8 >> 1, 2));
+        bf[0][0] = r[0], bf[0][1] = r[1], bf[1][0] = r[2], bf[1][1] = r[3];
+      } else {
+        ldmatrix_x2_trans(bf[0][0], bf[0][1], gs_addr + swizzle(pos_b, 0, 1));
+      }
+      if constexpr (kTap) {
+        // A = the shifted one-channel halo, [tap][position]: this lane's
+        // columns are positions 2c, 2c+1, 2c+8, 2c+9 of the k-step
+        int hb[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          hb[q] = tab[st * 16 + 2 * (lane & 3) + (q & 1) + (q >> 1) * 8];
+#pragma unroll
+        for (int mt = 0; mt < kMPW; ++mt) {
+          if (mt >= n_mt) break;
+          const int t0 = moff[mt][0], t1 = moff[mt][1];
+          const uint32_t a[4] = {pack(xh[hb[0] + t0], xh[hb[1] + t0]),
+                                 pack(xh[hb[0] + t1], xh[hb[1] + t1]),
+                                 pack(xh[hb[2] + t0], xh[hb[3] + t0]),
+                                 pack(xh[hb[2] + t1], xh[hb[3] + t1])};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
+        }
+      } else {
+        // A = x^T, [channel][position]: ldmatrix.trans of the shifted
+        // halo records, one row address per lane (shifted g: the records
+        // u + dk*(L+2p), kept inside the staged halo)
+        const int row_a = st * 16 + (q8 >> 1) * 8 + (lane & 7);
+        const int hb = kShift ? row_a : tab[row_a];
+#pragma unroll
+        for (int mt = 0; mt < kMPW; ++mt) {
+          if (mt >= n_mt) break;
+          const int rec = kShift ? min(moff[mt][0] + hb, moff[mt][1])
+                                 : moff[mt][0] + hb;
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, xs_addr + swizzle(rec, q8 & 1, 2));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
+        }
+      }
+    }
+  };
+
+  // double-buffered over the chunk's rows whose input row is on the grid:
+  // the next row's copy is in flight while this row's MMAs run
+  int r = next_row(r0);
+  if (r < r1) stage(r, 0);
+  cp_async_commit();
+  int buf = 0;
+  while (r < r1) {
+    const int rn = next_row(r + 1);
+    if (rn < r1) stage(rn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (kShift) {
+      shift_g(buf, r);
+      __syncthreads();
+    }
+    if (n_mt > 0) compute(buf);
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+    if (++pending == kFlushRows) flush();
+    r = rn;
+    buf ^= 1;
+  }
+  if (first || pending) flush();  // a chunk with no row writes zeros
+}
+
+template <int NT, int kMode>
+int occupancy(const TcPlan& s, int threads, int* per_sm) {
+  auto kernel = conv4d_dw_bf16_tc<NT, kMode>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                            threads, s.smem);
+}
+
+template <int NT, int kMode>
+int launch_tc(const void* x, const void* g, float* partial, const TcPlan& s,
+              cudaStream_t stream) {
+  auto kernel = conv4d_dw_bf16_tc<NT, kMode>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(s.n_chunks, s.ks * s.ks * s.n_ot * s.n_mg);
+  kernel<<<grid, s.MW * s.KW * 32, s.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(g), partial, s);
+  return (int)cudaGetLastError();
+}
+
+// The instantiations: (NT, mode) of a plan. `occupancy` if per_sm is set,
+// else the launch.
+int by_instance(const void* x, const void* g, float* partial,
+                const TcPlan& s, cudaStream_t st, int threads, int* per_sm) {
+  if (s.mode == kModeShiftG)
+    return per_sm ? occupancy<1, kModeShiftG>(s, threads, per_sm)
+                  : launch_tc<1, kModeShiftG>(x, g, partial, s, st);
+  if (s.mode == kModeTaps)
+    return s.NT == 1 ? (per_sm ? occupancy<1, kModeTaps>(s, threads, per_sm)
+                               : launch_tc<1, kModeTaps>(x, g, partial, s, st))
+                     : (per_sm ? occupancy<2, kModeTaps>(s, threads, per_sm)
+                               : launch_tc<2, kModeTaps>(x, g, partial, s, st));
+  return s.NT == 1
+             ? (per_sm ? occupancy<1, kModeChannels>(s, threads, per_sm)
+                       : launch_tc<1, kModeChannels>(x, g, partial, s, st))
+             : (per_sm ? occupancy<2, kModeChannels>(s, threads, per_sm)
+                       : launch_tc<2, kModeChannels>(x, g, partial, s, st));
+}
+
+int make_tc_plan(int B, int I, int J, int K, int L, int C, int O, int ks,
+                 const void* x, const void* g, TcPlan* out) {
+  TcPlan s{};
+  s.B = B, s.I = I, s.J = J, s.K = K, s.L = L, s.C = C, s.O = O, s.ks = ks;
+  const int T = ks * ks;
+  const int p = ks / 2;
+  const int cols = L + 2 * p;
+  s.mode = C == 1 ? kModeTaps
+                  : (O == 1 && ks <= 8 ? kModeShiftG : kModeChannels);
+  const bool tap = s.mode == kModeTaps;
+  const bool shift = s.mode == kModeShiftG;
+  s.CG = tap ? 0 : (C + 15) / 16;
+  s.nM = tap ? (T + 15) / 16 : (shift ? ks : T) * s.CG;
+  s.NT = O <= 8 ? 1 : 2;
+  s.n_ot = shift ? 1 : (O + 8 * s.NT - 1) / (8 * s.NT);
+  const int max_mpw = tap ? kTapMaxMPW : kTcMaxMPW;
+  const int mb = s.nM < kTcMaxWarps * max_mpw ? s.nM : kTcMaxWarps * max_mpw;
+  s.MW = (mb + max_mpw - 1) / max_mpw;
+  s.MPW = (mb + s.MW - 1) / s.MW;
+  s.KW = kTcMaxWarps / s.MW;
+  s.n_mg = (s.nM + s.MW * s.MPW - 1) / (s.MW * s.MPW);
+  if ((int64_t)T * s.n_ot * s.n_mg > 65535) return kErrBadShape;
+  s.NKS = ((shift ? K * cols : K * L) + 15) / 16;
+  s.HP = (K + 2 * p) * cols;
+  s.x_bytes = tap ? (s.HP * 2 + 15) / 16 * 16 : s.CG * s.HP * 32;
+  s.g_bytes = shift ? (K * L * 2 + 15) / 16 * 16 + 16
+                    : s.NKS * 16 * s.NT * 16;
+  s.gt_bytes = shift ? s.NKS * 16 * 16 : 0;
+  s.tab_bytes = (s.NKS * 16 * 4 + 15) / 16 * 16;
+  s.vec_x = !tap && C % 8 == 0 && (uintptr_t)x % 16 == 0;
+  s.vec_g = (shift || O % 8 == 0) && (uintptr_t)g % 16 == 0;
+  s.smem = (size_t)s.tab_bytes + 2 * ((size_t)s.x_bytes + s.g_bytes) +
+           s.gt_bytes;
+
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (s.smem > (size_t)max_smem) return kErrSharedMemory;
+  const int code = by_instance(x, g, nullptr, s, nullptr, s.MW * s.KW * 32,
+                               &per_sm);
+  if (code != 0) return code;
+  if (per_sm < 1) per_sm = 1;
+
+  // enough blocks for kTcWaves waves of the card's resident slots
+  const int rows = B * I * J;
+  const int per_chunk_blocks = T * s.n_ot * s.n_mg;
+  int chunks = (kTcWaves * per_sm * sms + per_chunk_blocks - 1) /
+               per_chunk_blocks;
+  if (chunks < 1) chunks = 1;
+  if (chunks > rows) chunks = rows;
+  s.rows_per_chunk = (rows + chunks - 1) / chunks;
+  s.n_chunks = (rows + s.rows_per_chunk - 1) / s.rows_per_chunk;
+  s.workspace = (int64_t)s.n_chunks * T * s.KW * T * C * O;
+  *out = s;
+  return 0;
+}
+
+int dispatch_tc(const void* x, const void* g, float* partial, const TcPlan& s,
+                cudaStream_t st) {
+  return by_instance(x, g, partial, s, st, 0, nullptr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -312,24 +774,40 @@ int conv4d_dw(const void* x, const void* g, float* partial, float* dw,
               long long* workspace, int dtype, int B, int I, int J, int K,
               int L, int C, int O, int ks, void* stream) {
   if (dtype != 0 && dtype != 1) return kErrDtype;
-  Plan s;
-  int code = make_plan(B, I, J, K, L, C, O, ks, &s);
-  if (code != 0) return code;
-  if (partial == nullptr) {
-    *workspace = (long long)s.workspace;
-    return 0;
-  }
-  if (*workspace < (long long)s.workspace) return kErrWorkspace;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  code = dtype == 0 ? dispatch<float>(x, g, partial, s, st)
-                    : dispatch<__nv_bfloat16>(x, g, partial, s, st);
+  int code, n_chunks, n_pg;
+  if (dtype == 1) {
+    TcPlan s;
+    code = make_tc_plan(B, I, J, K, L, C, O, ks, x, g, &s);
+    if (code != 0) return code;
+    if (partial == nullptr) {
+      *workspace = (long long)s.workspace;
+      return 0;
+    }
+    if (*workspace < (long long)s.workspace) return kErrWorkspace;
+    code = dispatch_tc(x, g, partial, s, st);
+    n_chunks = s.n_chunks;
+    n_pg = s.KW;
+  } else {
+    Plan s;
+    code = make_plan(B, I, J, K, L, C, O, ks, &s);
+    if (code != 0) return code;
+    if (partial == nullptr) {
+      *workspace = (long long)s.workspace;
+      return 0;
+    }
+    if (*workspace < (long long)s.workspace) return kErrWorkspace;
+    code = dispatch<float>(x, g, partial, s, st);
+    n_chunks = s.n_chunks;
+    n_pg = s.n_pg;
+  }
   if (code != 0) return code;
   const int ks2 = ks * ks;
   const int per_tap = ks2 * C * O;
   const int64_t n = (int64_t)ks2 * per_tap;
   const int blocks = (int)((n + kReduceThreads - 1) / kReduceThreads);
   conv4d_dw_reduce<<<blocks, kReduceThreads, 0, st>>>(
-      partial, dw, s.n_chunks, ks2, s.n_pg, per_tap);
+      partial, dw, n_chunks, ks2, n_pg, per_tap);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,8 @@
 // with zero padding p = ks/2, an odd hypercubic ks^4 kernel, channels-last
 // activations x [B,I,J,K,L,C] (the packed [B,I,J,K*L*C] layout of the JAX
 // package) and weights w [ks,ks,ks,ks,C,O]. float32 or bfloat16 in and out,
-// float32 accumulation, the bias added once in float32.
+// float32 accumulation, the bias added once in float32. The input gradient
+// is the same call on flip(w)^T with a zero bias.
 //
 // Replaces: ncnet_tpu/kernels/conv4d_pallas.py::_fwd_kernel (TPU Pallas).
 //
@@ -16,29 +17,56 @@
 // 281 GFLOP per served pair (both symmetric directions) while moving well
 // under 0.1 GB, so the arithmetic intensity is thousands of FLOP per byte.
 //
-// Design (a first, simple and correct kernel; wgmma/TMA come later):
-//   * one block per (b, i, j) output row and per tile of up to 640 (k, l)
-//     output positions (the whole 25x25 plane fits one tile) and per tile of
-//     OT output channels;
-//   * the TPU kernel's blocking (ki A-rows DMA'd per (b, i) grid step, an
-//     im2col over (dl, c)) is not carried over: for each (di, dj) tap pair
-//     whose input row (i+di-p, j+dj-p) lies on the grid, the block stages
-//     the zero-padded (k, l, c) halo of that row and the [ks, ks, C, OT]
-//     weight slice in shared memory, converted to float32;
-//   * the remaining (dk, dl, c) taps are folded into one contraction of up
-//     to ks^2*C per staged row; each thread keeps 4 positions x OT output
-//     channels of float32 accumulators in registers, reads one activation
-//     per position and a broadcast float4 of weights per step, so the
-//     inner loop is register-blocked FFMA on the CUDA cores;
-//   * the staged halo stores each (k, l) position with an odd stride in
-//     floats, so a warp's activation reads fall in distinct banks;
-//   * grids smaller than the kernel and rectangular grids need no special
-//     case: rows off the grid are skipped, halo cells off the grid are 0.
+// Both routes keep one block per (b, i, j) output row and per tile of
+// output positions: for each (di, dj) tap pair whose input row
+// (i+di-p, j+dj-p) lies on the grid, the block stages the zero-padded
+// (k, l, c) halo of that row and the [ks, ks, C, O] weight slice in shared
+// memory and folds the remaining (dk, dl, c) taps into one contraction.
+// Rows off the grid are skipped, halo cells off the grid are 0, so small
+// and rectangular grids need no special case.
+//
+// bfloat16 (the training path: forward and dx) runs on the tensor cores,
+// bf16 x bf16 -> float32 as the JAX kernel's preferred_element_type=f32:
+//   * per staged row the contraction is a GEMM with M = output positions
+//     (640 a block: 8 warps x 5 m16 tiles, 40 float32 accumulators a
+//     thread at 16 outputs), N = output channels (8 or 16 a block),
+//     K = (dk, dl, c) in k-steps of 16;
+//   * C >= 2: K runs over taps x 16-channel groups (C padded with zeros).
+//     The halo keeps each position's 16 channels as two swizzled 16-byte
+//     chunks, so the A fragment is one ldmatrix.x4 whose lanes address the
+//     shifted positions (k+dk, l+dl) directly: no im2col copy. The B
+//     fragment is ldmatrix.trans of the staged [tap*c][o] weight slice,
+//     loaded once per k-step and used by all 5 m-tiles of a warp;
+//   * C == 1 (the 1->16 forward, the 16->1 layer's dx): K runs over the
+//     (dk, dl) taps themselves (25 padded to 32), and the A fragment is
+//     built from scalar shared loads of the one-channel halo;
+//   * O == 1 (the 16->1 forward; ks <= 8): padding N = o to 8 would leave
+//     7/8 of every MMA zero, so N runs over dl instead. Per dk a warp
+//     computes Z[u][dl] = sum_c x_halo[u + dk*(L+2p), c] * w[dk, dl, c]
+//     over the halo rows u its 80 positions reach (at most 7 m16 tiles,
+//     K = c), parks Z in its own shared rows, and each lane adds
+//     Z[u(pos) + dl][dl] over dl for its positions: a fifth of the MMAs
+//     and A loads of the per-tap form, no block-wide barrier;
+//   * the halo and weights are staged in bfloat16 (never widened) and
+//     double-buffered with cp.async (16-byte chunks, zero-filled off the
+//     grid), so the next (di, dj) row's copy overlaps this row's MMAs;
+//     shapes whose rows are not 16-byte chunks (C or O not a multiple of
+//     8) stage with plain loads;
+//   * every output is summed by one thread in a fixed order: a repeated
+//     call is bitwise equal.
+// float32 (serving) keeps the CUDA-core route: each thread holds 4
+// positions x OT output channels of float32 accumulators, reads one
+// activation per position and a broadcast float4 of weights per step
+// (register-blocked FFMA); the staged halo stores each position with an
+// odd float stride, so a warp's activation reads fall in distinct banks.
+// TF32 would keep three digits, short of the serving check's 1e-4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -59,19 +87,12 @@ struct Shape {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 template <typename T, int OT>
@@ -208,6 +229,423 @@ int launch(const void* x, const void* w, const float* bias, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 route: tensor cores (see the header).
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcMT = 5;                       // m16 tiles a warp
+constexpr int kTcTile = kTcWarps * kTcMT * 16;  // 640 positions a block
+constexpr int kZRows = 112;  // Z rows a warp on kModeDlN (7 m16 tiles)
+constexpr int kZStride = 9;  // floats a Z row: odd, so gathers miss no bank
+
+// What the GEMM's M, N and K run over.
+constexpr int kModeChannels = 0;  // M = positions, N = o, K = (dk, dl, 16 c)
+constexpr int kModeTaps = 1;      // C == 1: M = positions, N = o, K = (dk, dl)
+constexpr int kModeDlN = 2;       // O == 1: M = halo positions, N = dl, K = c
+
+struct TcShape {
+  int B, I, J, K, L, C, O, ks;
+  int mode;
+  int CG;       // 16-channel groups; 0 when C == 1 (K over the taps)
+  int NK;       // k-steps of 16 per staged (di, dj) row
+  int HP;       // halo positions of the largest position tile
+  int x_bytes;  // staged halo bytes per buffer (a multiple of 16)
+  int w_bytes;  // staged weight bytes per buffer
+  int vec_x;    // stage the halo with cp.async (C % 8 == 0, 16-byte aligned)
+  int vec_w;    // stage the weights with cp.async (O % 8 == 0, aligned)
+};
+
+// NT: n8 tiles a block (8 * NT output channels); kMode: one of the modes.
+template <int NT, int kMode>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    conv4d_fwd_bf16_tc(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       const float* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ out, const TcShape s) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  using namespace mma16;
+  constexpr bool kTap = kMode == kModeTaps;
+  constexpr bool kDlN = kMode == kModeDlN;
+  const int p = s.ks / 2;
+  const int KL = s.K * s.L;
+  const int cols = s.L + 2 * p;
+  const int T = s.ks * s.ks;
+  const int OT = 8 * NT;
+  const int n_otiles = (s.O + OT - 1) / OT;
+  const int tile = blockIdx.x / n_otiles;
+  const int o0 = (blockIdx.x % n_otiles) * OT;
+  const int j = blockIdx.y;
+  const int b = blockIdx.z / s.I;
+  const int i = blockIdx.z % s.I;
+  const int p0 = tile * kTcTile;
+  const int p1 = min(p0 + kTcTile, KL);
+  const int kmin = p0 / s.L;
+  const int rows = (p1 - 1) / s.L - kmin + 1 + 2 * p;
+  const int hp = rows * cols;  // this tile's staged halo positions
+  const int stage_bytes = s.x_bytes + s.w_bytes;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int m_warp = warp * kTcMT * 16;  // first position of the warp
+  const int n_mt = max(0, min(kTcMT, (p1 - p0 - m_warp + 15) / 16));
+
+  // the halo index of an output position at tap (0, 0); rows past the
+  // tile read position 0 (their sums are never stored)
+  auto halo_of = [&](int m) {
+    const int pos = p0 + m;
+    return pos < p1 ? (pos / s.L - kmin) * cols + pos % s.L : 0;
+  };
+  int hrow[kTcMT][2];  // general: [mt][0] = ldmatrix row; tap: rows g, g+8
+#pragma unroll
+  for (int mt = 0; mt < kTcMT; ++mt) {
+    const int m = m_warp + mt * 16;
+    if (kTap) {
+      hrow[mt][0] = halo_of(m + (lane >> 2));
+      hrow[mt][1] = halo_of(m + (lane >> 2) + 8);
+    } else {
+      hrow[mt][0] = halo_of(m + (lane & 15));
+      hrow[mt][1] = 0;
+    }
+  }
+
+  float acc[kTcMT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kTcMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  auto on_rows = [&](int v) {
+    const int ii = i + v / s.ks - p;
+    const int jj = j + v % s.ks - p;
+    return ii >= 0 && ii < s.I && jj >= 0 && jj < s.J;
+  };
+  auto next_tap = [&](int v) {
+    while (v < T && !on_rows(v)) ++v;
+    return v;
+  };
+
+  const int64_t row_elems = (int64_t)KL * s.C;
+  auto stage = [&](int v, int buf) {
+    unsigned char* xs = tc_smem + buf * stage_bytes;
+    unsigned char* ws = xs + s.x_bytes;
+    const int ii = i + v / s.ks - p;
+    const int jj = j + v % s.ks - p;
+    const __nv_bfloat16* xr =
+        x + (((int64_t)b * s.I + ii) * s.J + jj) * row_elems;
+    stage_halo(xs, xr, kmin, rows, cols, p, s.K, s.L, s.C, s.CG, s.HP,
+               s.vec_x, tid, kTcThreads);
+    // the weight slice as [k row][OT]: k row = (tap, c) of the contraction
+    const __nv_bfloat16* wr = w + (int64_t)v * T * s.C * s.O;
+    auto row_tc = [&](int krow, int& t, int& c) {
+      if (kTap) {
+        t = krow;
+        c = 0;
+        return t < T;
+      }
+      const int kstep = krow >> 4;
+      t = s.CG == 1 ? kstep : kstep / s.CG;
+      c = (s.CG == 1 ? 0 : kstep % s.CG) * 16 + (krow & 15);
+      return c < s.C;
+    };
+    if (kDlN) {  // [(dk, 16 c)][8 dl]: B of the per-dk GEMM
+      for (int e = tid; e < s.NK * 16 * 8; e += kTcThreads) {
+        const int dl = e & 7;
+        const int kstep = e >> 7;  // (dk, channel group)
+        const int c = (kstep % s.CG) * 16 + ((e >> 3) & 15);
+        const int t = (kstep / s.CG) * s.ks + dl;
+        reinterpret_cast<uint16_t*>(ws)[e] =
+            (c < s.C && dl < s.ks) ? bf16_bits(wr[(int64_t)t * s.C + c])
+                                   : (uint16_t)0;
+      }
+      return;
+    }
+    const int krows = s.NK * 16;
+    if (s.vec_w) {
+      for (int e = tid; e < krows * NT; e += kTcThreads) {
+        const int q = e % NT;
+        const int krow = e / NT;
+        int t, c;
+        const bool ok = row_tc(krow, t, c) && o0 + q * 8 < s.O;
+        const __nv_bfloat16* src =
+            ok ? wr + ((int64_t)t * s.C + c) * s.O + o0 + q * 8 : wr;
+        cp_async16(ws + swizzle(krow, q, NT), src, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < krows * OT; e += kTcThreads) {
+        const int o = e % OT;
+        const int krow = e / OT;
+        int t, c;
+        const bool ok = row_tc(krow, t, c) && o0 + o < s.O;
+        *reinterpret_cast<uint16_t*>(ws + swizzle(krow, o >> 3, NT) +
+                                     (o & 7) * 2) =
+            ok ? bf16_bits(wr[((int64_t)t * s.C + c) * s.O + o0 + o])
+               : (uint16_t)0;
+      }
+    }
+  };
+
+  auto compute = [&](int buf) {
+    const unsigned char* xs = tc_smem + buf * stage_bytes;
+    const uint32_t xs_addr = smem_addr(xs);
+    const uint32_t ws_addr = smem_addr(xs + s.x_bytes);
+    const uint16_t* xh = reinterpret_cast<const uint16_t*>(xs);
+    const int mi = lane >> 3;
+    // B: the [tap*c][o] weights of k-step st, used by all 5 m-tiles
+    auto load_b = [&](int st, uint32_t (&bf)[NT][2]) {
+      const int krow = st * 16 + (mi & 1) * 8 + (lane & 7);
+      if constexpr (NT == 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, ws_addr + swizzle(krow, mi >> 1, 2));
+        bf[0][0] = r[0], bf[0][1] = r[1], bf[1][0] = r[2], bf[1][1] = r[3];
+      } else {
+        ldmatrix_x2_trans(bf[0][0], bf[0][1], ws_addr + swizzle(krow, 0, 1));
+      }
+    };
+    if constexpr (kTap) {
+      for (int st = 0; st < s.NK; ++st) {
+        uint32_t bf[NT][2];
+        load_b(st, bf);
+        int off[4];  // taps of this lane's A columns 2c, 2c+1, 2c+8, 2c+9
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = st * 16 + 2 * (lane & 3) + (q & 1) + (q >> 1) * 8;
+          off[q] = t < T ? (t / s.ks) * cols + t % s.ks : 0;
+        }
+#pragma unroll
+        for (int mt = 0; mt < kTcMT; ++mt) {
+          if (mt >= n_mt) break;
+          const int h0 = hrow[mt][0], h1 = hrow[mt][1];
+          const uint32_t a[4] = {pack(xh[h0 + off[0]], xh[h0 + off[1]]),
+                                 pack(xh[h1 + off[0]], xh[h1 + off[1]]),
+                                 pack(xh[h0 + off[2]], xh[h0 + off[3]]),
+                                 pack(xh[h1 + off[2]], xh[h1 + off[3]])};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
+        }
+      }
+    } else {
+      // k-step st = (dk * ks + dl) * CG + cg: the halo records of tap
+      // (dk, dl) start dk * (L+2p) + dl positions on
+      int st = 0;
+      for (int dk = 0; dk < s.ks; ++dk)
+        for (int dl = 0; dl < s.ks; ++dl)
+          for (int cg = 0; cg < s.CG; ++cg, ++st) {
+            uint32_t bf[NT][2];
+            load_b(st, bf);
+            const int rec = cg * s.HP + dk * cols + dl;
+#pragma unroll
+            for (int mt = 0; mt < kTcMT; ++mt) {
+              if (mt >= n_mt) break;
+              uint32_t a[4];
+              ldmatrix_x4(a,
+                          xs_addr + swizzle(rec + hrow[mt][0], lane >> 4, 2));
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                mma_bf16(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
+            }
+          }
+    }
+  };
+
+  // kModeDlN: per dk, Z[u][dl] = sum_c x_halo[u + dk*(L+2p), c] *
+  // w[dk, dl, c] over the halo rows u of this warp's 80 positions (one
+  // GEMM, N = dl), then out[pos] += sum_dl Z[u(pos) + dl][dl] from the
+  // warp's own shared rows: a fifth of the per-tap form's MMAs at O = 1
+  const int zm0 = p0 + m_warp;
+  const int zm1 = min(zm0 + kTcMT * 16, p1);
+  const int umin = halo_of(m_warp);
+  const int n_zt = n_mt > 0
+      ? (halo_of(zm1 - 1 - p0) - umin + s.ks + 15) / 16 : 0;  // <= 7
+  int uo[3];
+  float zout[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int pos = zm0 + lane + 32 * q;
+    uo[q] = pos < zm1 ? halo_of(pos - p0) - umin : 0;
+  }
+  float* zw = reinterpret_cast<float*>(tc_smem + 2 * stage_bytes) +
+              warp * kZRows * kZStride;
+  auto compute_dln = [&](int buf) {
+    const unsigned char* xs = tc_smem + buf * stage_bytes;
+    const uint32_t xs_addr = smem_addr(xs);
+    const uint32_t ws_addr = smem_addr(xs + s.x_bytes);
+    for (int dk = 0; dk < s.ks; ++dk) {
+      float z[kZRows / 16][4];
+#pragma unroll
+      for (int mt = 0; mt < kZRows / 16; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[mt][e] = 0.f;
+      for (int cg = 0; cg < s.CG; ++cg) {
+        uint32_t b0, b1;
+        ldmatrix_x2_trans(b0, b1,
+                          ws_addr + ((dk * s.CG + cg) * 16 +
+                                     ((lane >> 3) & 1) * 8 + (lane & 7)) * 16);
+#pragma unroll
+        for (int mt = 0; mt < kZRows / 16; ++mt) {
+          if (mt >= n_zt) break;
+          const int u = min(umin + dk * cols + mt * 16 + (lane & 15), hp - 1);
+          uint32_t a[4];
+          ldmatrix_x4(a, xs_addr + swizzle(cg * s.HP + u, lane >> 4, 2));
+          mma_bf16(z[mt], a, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kZRows / 16; ++mt) {
+        if (mt >= n_zt) break;
+        float* zr = zw + (mt * 16 + (lane >> 2)) * kZStride + 2 * (lane & 3);
+        zr[0] = z[mt][0];
+        zr[1] = z[mt][1];
+        zr[8 * kZStride] = z[mt][2];
+        zr[8 * kZStride + 1] = z[mt][3];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        if (zm0 + lane + 32 * q < zm1)
+          for (int dl = 0; dl < s.ks; ++dl)
+            zout[q] += zw[(uo[q] + dl) * kZStride + dl];
+      __syncwarp();  // the gathers are done before the next dk's rows land
+    }
+  };
+
+  // double-buffered over the (di, dj) rows on the grid: the copy of the
+  // next row is in flight while this row's MMAs run
+  int v = next_tap(0);  // (p, p) is always on the grid
+  stage(v, 0);
+  cp_async_commit();
+  int buf = 0;
+  while (v < T) {
+    const int vn = next_tap(v + 1);
+    if (vn < T) stage(vn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (n_mt > 0) {
+      if constexpr (kDlN)
+        compute_dln(buf);
+      else
+        compute(buf);
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+    v = vn;
+    buf ^= 1;
+  }
+
+  __nv_bfloat16* dst =
+      out + (((int64_t)b * s.I + i) * s.J + j) * (int64_t)KL * s.O;
+  if constexpr (kDlN) {  // O == 1
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int pos = zm0 + lane + 32 * q;
+      if (pos < zm1) dst[pos] = __float2bfloat16_rn(zout[q] + bias[0]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int mt = 0; mt < kTcMT; ++mt) {
+    if (mt >= n_mt) break;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int pos = p0 + m_warp + mt * 16 + (lane >> 2) + half * 8;
+        const int o = o0 + nt * 8 + 2 * (lane & 3);  // and o + 1
+        if (pos >= p1 || o >= s.O) continue;
+        const float v0 = acc[mt][nt][2 * half] + bias[o];
+        __nv_bfloat16* d = dst + (int64_t)pos * s.O + o;
+        if (o + 1 < s.O && s.O % 2 == 0) {  // a 4-byte aligned pair
+          *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(
+              v0, acc[mt][nt][2 * half + 1] + bias[o + 1]);
+        } else {
+          d[0] = __float2bfloat16_rn(v0);
+          if (o + 1 < s.O)
+            d[1] = __float2bfloat16_rn(acc[mt][nt][2 * half + 1] + bias[o + 1]);
+        }
+      }
+  }
+}
+
+template <int NT, int kMode>
+int launch_tc(const void* x, const void* w, const float* bias, void* out,
+              const TcShape& s, int n_tiles, size_t smem,
+              cudaStream_t stream) {
+  auto kernel = conv4d_fwd_bf16_tc<NT, kMode>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_otiles = (s.O + 8 * NT - 1) / (8 * NT);
+  const dim3 grid(n_tiles * n_otiles, s.J, s.B * s.I);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), bias,
+      static_cast<__nv_bfloat16*>(out), s);
+  return (int)cudaGetLastError();
+}
+
+int max_shared_memory(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// The bfloat16 route: plan, check shared memory, launch.
+int conv4d_fwd_bf16(const void* x, const void* w, const float* bias,
+                    void* out, int B, int I, int J, int K, int L, int C,
+                    int O, int ks, cudaStream_t stream) {
+  const int p = ks / 2;
+  const int KL = K * L;
+  const int cols = L + 2 * p;
+  const int n_tiles = (KL + kTcTile - 1) / kTcTile;
+  int rows_max = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int p0 = t * kTcTile;
+    const int p1 = KL < p0 + kTcTile ? KL : p0 + kTcTile;
+    const int rows = (p1 - 1) / L - p0 / L + 1 + 2 * p;
+    if (rows > rows_max) rows_max = rows;
+  }
+  // kModeDlN's Z rows of a warp's 80 positions: at most 79 + 2p per row
+  // boundary they cross, plus ks
+  const int z_rows = kTcMT * 16 - 1 + 2 * p * ((kTcMT * 16 - 1) / L + 1) + ks;
+  TcShape s{B, I, J, K, L, C, O, ks};
+  s.mode = C == 1 ? kModeTaps
+                  : (O == 1 && ks <= 8 && z_rows <= kZRows ? kModeDlN
+                                                           : kModeChannels);
+  const bool tap = s.mode == kModeTaps;
+  const int NT = O <= 8 ? 1 : 2;
+  s.CG = tap ? 0 : (C + 15) / 16;
+  s.NK = tap ? (ks * ks + 15) / 16
+             : (s.mode == kModeDlN ? ks : ks * ks) * s.CG;
+  s.HP = rows_max * cols;
+  s.x_bytes = tap ? (s.HP * 2 + 15) / 16 * 16 : s.CG * s.HP * 32;
+  s.w_bytes = s.NK * 16 * NT * 16;
+  s.vec_x = !tap && C % 8 == 0 && (uintptr_t)x % 16 == 0;
+  s.vec_w = O % 8 == 0 && (uintptr_t)w % 16 == 0;
+  const size_t smem =
+      2 * ((size_t)s.x_bytes + s.w_bytes) +
+      (s.mode == kModeDlN ? (size_t)kTcWarps * kZRows * kZStride * 4 : 0);
+  int max_smem = 0;
+  const int err = max_shared_memory(&max_smem);
+  if (err != 0) return err;
+  if (smem > (size_t)max_smem) return kErrSharedMemory;
+  if (s.mode == kModeDlN)
+    return launch_tc<1, kModeDlN>(x, w, bias, out, s, n_tiles, smem, stream);
+  if (NT == 1)
+    return tap ? launch_tc<1, kModeTaps>(x, w, bias, out, s, n_tiles, smem,
+                                         stream)
+               : launch_tc<1, kModeChannels>(x, w, bias, out, s, n_tiles,
+                                             smem, stream);
+  return tap ? launch_tc<2, kModeTaps>(x, w, bias, out, s, n_tiles, smem,
+                                       stream)
+             : launch_tc<2, kModeChannels>(x, w, bias, out, s, n_tiles, smem,
+                                           stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -222,6 +660,10 @@ int conv4d_fwd(const void* x, const void* w, const void* bias, void* out,
       ks < 1 || ks % 2 == 0)
     return kErrBadShape;
   if ((int64_t)B * I > 65535 || J > 65535) return kErrGrid;
+  if (dtype == 1)
+    return conv4d_fwd_bf16(x, w, static_cast<const float*>(bias), out, B, I,
+                           J, K, L, C, O, ks, static_cast<cudaStream_t>(stream));
+  if (dtype != 0) return kErrDtype;
   const int p = ks / 2;
   const int KL = K * L;
   const int cols = L + 2 * p;
@@ -248,19 +690,9 @@ int conv4d_fwd(const void* x, const void* w, const void* bias, void* out,
 
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (OT == 1) return launch<float, 1>(x, w, b, out, s, n_tiles, smem, st);
-    if (OT == 8) return launch<float, 8>(x, w, b, out, s, n_tiles, smem, st);
-    return launch<float, 16>(x, w, b, out, s, n_tiles, smem, st);
-  }
-  if (dtype == 1) {
-    if (OT == 1)
-      return launch<__nv_bfloat16, 1>(x, w, b, out, s, n_tiles, smem, st);
-    if (OT == 8)
-      return launch<__nv_bfloat16, 8>(x, w, b, out, s, n_tiles, smem, st);
-    return launch<__nv_bfloat16, 16>(x, w, b, out, s, n_tiles, smem, st);
-  }
-  return kErrDtype;
+  if (OT == 1) return launch<float, 1>(x, w, b, out, s, n_tiles, smem, st);
+  if (OT == 8) return launch<float, 8>(x, w, b, out, s, n_tiles, smem, st);
+  return launch<float, 16>(x, w, b, out, s, n_tiles, smem, st);
 }
 
 const char* conv4d_fwd_error_string(int code) {

@@ -1,15 +1,19 @@
 """Build and load of the hand-written CUDA kernels.
 
 Each kernel is one ``csrc/*.cu`` file with a plain ``extern "C"`` launcher
-(no PyTorch headers, so ``nvcc`` takes seconds). `build` compiles it on
-first use into ``_build/<name>-<sha256 prefix>/lib<name>.so``, keyed on
-the source's bytes and the flags, and `KernelLibrary` loads it with
-``ctypes`` once per process.
+(no PyTorch headers, so ``nvcc`` takes seconds); the ``csrc/*.cuh``
+headers are shared. `build` compiles it on first use into
+``_build/<name>-<sha256 prefix>/lib<name>.so``, keyed on the bytes of the
+source and the headers and on the flags, and `KernelLibrary` loads it with
+``ctypes`` once per process. `tensor_core_counts` reads what was compiled:
+the ``HMMA``/``HGMMA`` (tensor-core) instructions of each kernel function,
+from ``cuobjdump -sass``.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,6 +25,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+#: SASS opcodes of the tensor cores: mma.sync (HMMA) and wgmma (HGMMA)
+_TENSOR_CORE_OP = re.compile(r"\b(HMMA|HGMMA)\b")
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 
 
 def find_nvcc(label, source):
@@ -36,6 +45,18 @@ def find_nvcc(label, source):
     )
 
 
+def source_digest(source, csrc=CSRC):
+    """sha256 of ``source``, every ``*.cuh`` header of ``csrc`` (which the
+    sources include) and the flags: the key of a build."""
+    with open(source, "rb") as f:
+        src = f.read()
+    for header in sorted(os.listdir(csrc)):
+        if header.endswith(".cuh"):
+            with open(os.path.join(csrc, header), "rb") as f:
+                src += f.read()
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
 def build(source, label):
     """Compile ``source`` into a shared library unless one built from the
     same bytes and flags exists; returns ``(path, ptxas_log)``.
@@ -45,9 +66,7 @@ def build(source, label):
     name that is renamed into place, so a build that is cut off leaves no
     library behind.
     """
-    with open(source, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = source_digest(source)
     name = os.path.splitext(os.path.basename(source))[0]
     out_dir = os.path.join(BUILD_DIR, f"{name}-{digest[:16]}")
     lib = os.path.join(out_dir, f"lib{name}.so")
@@ -71,6 +90,47 @@ def build(source, label):
         return lib, f.read()
 
 
+def sass_tensor_core_counts(sass):
+    """``{kernel function: number of HMMA/HGMMA instructions}`` in the text
+    of ``cuobjdump -sass``; every function of the text is a key."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            fn = m.group(1)
+            counts.setdefault(fn, 0)
+        elif fn is not None and _TENSOR_CORE_OP.search(line):
+            counts[fn] += 1
+    return counts
+
+
+#: the name every kernel function of a bfloat16 tensor-core route carries
+BF16_ROUTE = "bf16_tc"
+
+
+def tensor_core_summary(counts):
+    """What `sass_tensor_core_counts` says of the bfloat16 routes: how many
+    of their functions there are, their HMMA/HGMMA count in all and the
+    least of any one function, and the count of every other function."""
+    bf16 = [n for fn, n in counts.items() if BF16_ROUTE in fn]
+    return {
+        "bf16_route_functions": len(bf16),
+        "bf16_route_mma": sum(bf16),
+        "bf16_route_min_mma": min(bf16, default=0),
+        "other_mma": sum(n for fn, n in counts.items() if BF16_ROUTE not in fn),
+    }
+
+
+def find_cuobjdump():
+    """``cuobjdump`` beside ``nvcc``, or None where the toolkit has none."""
+    try:
+        nvcc = find_nvcc("cuobjdump", "the toolkit")
+    except RuntimeError:
+        return None
+    path = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    return path if os.path.exists(path) else shutil.which("cuobjdump")
+
+
 class KernelLibrary:
     """One kernel's shared library, built and loaded on first use.
 
@@ -86,12 +146,14 @@ class KernelLibrary:
         self._argtypes = argtypes
         self._fn = None
         self._error_string = None
+        self.path = None
         self._lock = threading.Lock()
 
     def load(self):
         """Build (first use) and load the library; returns the ptxas log."""
         with self._lock:
             path, log = build(self.source, self.label)
+            self.path = path
             if self._fn is None:
                 lib = ctypes.CDLL(path)
                 fn = getattr(lib, self._symbol)
@@ -111,3 +173,15 @@ class KernelLibrary:
             self.load()
         code = self._fn(*args)
         return code, ("" if code == 0 else self._error_string(code).decode())
+
+    def tensor_core_counts(self):
+        """Build (first use) and disassemble the library: ``{kernel
+        function: HMMA/HGMMA count}``, or None where ``cuobjdump`` is
+        absent."""
+        self.load()
+        tool = find_cuobjdump()
+        if tool is None:
+            return None
+        proc = subprocess.run([tool, "-sass", self.path], capture_output=True,
+                              text=True, check=True)
+        return sass_tensor_core_counts(proc.stdout)

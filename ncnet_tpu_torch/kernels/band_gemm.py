@@ -59,6 +59,11 @@ class BandGemmForwardKernel:
         """Build (first use) and load the library; returns the ptxas log."""
         return self._lib.load()
 
+    def tensor_core_counts(self):
+        """``{kernel function: HMMA/HGMMA count}`` of the built library, or
+        None without ``cuobjdump``."""
+        return self._lib.tensor_core_counts()
+
     @staticmethod
     def check(x, w, bias, ptr):
         """Raise ValueError/TypeError on inputs the kernel does not take."""

@@ -8,13 +8,21 @@ takes seconds).
 
 What bounds it on the card: operations. The three NC layers of the 400 px
 PF-Pascal config do about 281 GFLOP per served pair against well under
-0.1 GB moved, thousands of FLOP per byte. The kernel's answer, for now, is
-register blocking on the CUDA cores: one block per ``(b, i, j)`` output
-row stages the zero-padded halo of each contributing input row and the
-matching weight slice in shared memory, folds the remaining taps into one
-float32 contraction, and keeps 4 positions x up to 16 output channels of
-accumulators per thread (see the source's header). Tensor-core ``wgmma``
-on a padded channel width is a later step.
+0.1 GB moved, thousands of FLOP per byte. One block per ``(b, i, j)``
+output row stages the zero-padded halo of each contributing input row and
+the matching weight slice in shared memory and folds the remaining taps
+into one contraction (see the source's header). Each dtype has its route:
+
+* bfloat16 (training: the forward and dx) runs on the tensor cores,
+  ``mma.sync`` m16n8k16 bf16 x bf16 -> float32, with the halo and weights
+  staged in bfloat16 by ``cp.async`` and double-buffered across rows;
+* float32 (serving, the gradient check) runs register-blocked FFMA on the
+  CUDA cores: TF32 would keep three digits, short of the 1e-4 the serving
+  check holds the card to.
+
+The kernel functions of the bfloat16 route carry ``bf16_tc`` in their
+names; ``tensor_core_counts`` counts their ``HMMA`` instructions in the
+built library.
 
 The input gradient of the convolution is the same kernel on spatially
 flipped, channel-transposed filters, ``dx = conv4d(g, flip(w)^T)`` (the
@@ -59,6 +67,11 @@ class Conv4dForwardKernel:
     def load(self):
         """Build (first use) and load the library; returns the ptxas log."""
         return self._lib.load()
+
+    def tensor_core_counts(self):
+        """``{kernel function: HMMA/HGMMA count}`` of the built library, or
+        None without ``cuobjdump``."""
+        return self._lib.tensor_core_counts()
 
     @staticmethod
     def check(x, w, bias):

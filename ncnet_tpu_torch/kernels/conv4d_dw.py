@@ -10,8 +10,11 @@ What bounds it on the card: operations (the 16->16 layer's dw at the
 training batch is about 3.6 TFLOP on the grid against under 1 GB of
 inputs). The kernel is the folded GEMM of ``_dw_fold``: per ``(b, i, j)``
 row and ``(di, dj)`` tap pair one ``[ks*ks*C, K*L] @ [K*L, O]`` product,
-register-blocked on the CUDA cores, with a deterministic two-pass
-reduction across rows (no atomics; see the source's header).
+with a deterministic two-pass reduction across rows (no atomics; see the
+source's header). bfloat16 (the training path) runs it on the tensor
+cores (``mma.sync`` m16n8k16 bf16 x bf16 -> float32, the halo and g row
+staged in bfloat16 by ``cp.async``, double-buffered; functions named
+``bf16_tc``); float32 runs register-blocked FFMA on the CUDA cores.
 
 The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.conv4d` routes
 CPU tensors to the plain version, and nothing here falls back to it.
@@ -50,6 +53,11 @@ class Conv4dWeightGradKernel:
     def load(self):
         """Build (first use) and load the library; returns the ptxas log."""
         return self._lib.load()
+
+    def tensor_core_counts(self):
+        """``{kernel function: HMMA/HGMMA count}`` of the built library, or
+        None without ``cuobjdump``."""
+        return self._lib.tensor_core_counts()
 
     @staticmethod
     def check(x, g, ks):

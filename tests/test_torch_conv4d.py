@@ -4,6 +4,8 @@ device dispatch and the kernel wrapper's input checks. The hand kernel
 itself is held against the plain version in tests/test_torch_cuda.py,
 which needs a card."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,3 +120,70 @@ def test_kernel_wrapper_rejects_non_contiguous():
     with pytest.raises(ValueError, match="contiguous"):
         Conv4dForwardKernel.check(x, w, None)
 
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_118conv4d_fwd_bf16_tcILi2ELi0EEEvPK13__nv_bfloat16
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0a30*/                   HMMA.16816.F32.BF16 R24, R40, R36, R24 ;
+        /*0a40*/                   HMMA.16816.F32.BF16 R28, R40, R38, R28 ;
+\t\tFunction : _ZN12_GLOBAL__N_118conv4d_fwd_bf16_tcILi1ELi2EEEvPK13__nv_bfloat16
+        /*0b00*/                   HGMMA.64x16x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0b10*/                   LDSM.16.MT88.4 R4, [R2] ;
+\t\tFunction : _ZN12_GLOBAL__N_117conv4d_fwd_kernelIfLi16EEEvPKT_
+        /*0a30*/                   FFMA R1, R2, R3, R1 ;
+"""
+
+
+def test_sass_tensor_core_counts_per_function():
+    from ncnet_tpu_torch.kernels._build import sass_tensor_core_counts
+
+    counts = sass_tensor_core_counts(SASS)
+    assert list(counts.values()) == [2, 1, 0]
+    assert all(fn.startswith("_ZN12_GLOBAL__N_1") for fn in counts)
+
+
+@pytest.mark.parametrize(
+    "counts,want",
+    [
+        ({"a_bf16_tc_1": 2, "b_bf16_tc_2": 5, "f32": 0},
+         {"bf16_route_functions": 2, "bf16_route_mma": 7,
+          "bf16_route_min_mma": 2, "other_mma": 0}),
+        # one bfloat16 function without a tensor-core instruction shows
+        ({"a_bf16_tc_1": 0, "b_bf16_tc_2": 5, "f32": 3},
+         {"bf16_route_functions": 2, "bf16_route_mma": 5,
+          "bf16_route_min_mma": 0, "other_mma": 3}),
+        ({"f32": 0},
+         {"bf16_route_functions": 0, "bf16_route_mma": 0,
+          "bf16_route_min_mma": 0, "other_mma": 0}),
+    ],
+)
+def test_tensor_core_summary(counts, want):
+    from ncnet_tpu_torch.kernels._build import tensor_core_summary
+
+    assert tensor_core_summary(counts) == want
+
+
+def test_build_key_covers_shared_headers(tmp_path):
+    """A change to a csrc header rebuilds every library that includes it."""
+    from ncnet_tpu_torch.kernels._build import CSRC, source_digest
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = source_digest(str(src), str(tmp_path))
+    assert source_digest(str(src), str(tmp_path)) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert source_digest(str(src), str(tmp_path)) != first
+    # the package's sources include its header, which the key reads
+    assert "mma_bf16.cuh" in sorted(os.listdir(CSRC))
+
+
+def test_tensor_core_counts_none_without_cuobjdump(monkeypatch):
+    from ncnet_tpu_torch.kernels import _build
+
+    lib = _build.KernelLibrary("k.cu", "k", "k", [])
+    monkeypatch.setattr(lib, "load", lambda: "")
+    monkeypatch.setattr(_build, "find_cuobjdump", lambda: None)
+    assert lib.tensor_core_counts() is None

@@ -236,6 +236,75 @@ def test_dw_kernel_rejects_bad_inputs(card):
         conv4d_dw(x.transpose(1, 2), torch.zeros(1, 3, 3, 3, 3, 1, device=card), 3)
 
 
+BF16_CASES = [
+    # the bfloat16 route's edges: (x shape [b,i,j,k,l], k, cin, cout)
+    ((2, 5, 4, 6, 7), 3, 1, 1),        # C = 1 and O = 1
+    ((2, 6, 5, 7, 9), 5, 9, 1),        # O = 1, C not a multiple of 8
+    ((2, 5, 6, 7, 5), 3, 1, 9),        # C = 1, O not a multiple of 8
+    ((1, 5, 4, 30, 3), 5, 16, 1),      # O = 1 on a narrow row (L = 3)
+    ((2, 25, 25, 25, 25), 3, 1, 16),   # the InLoc/IVD layers (ks = 3)
+    ((2, 25, 25, 25, 25), 3, 16, 1),
+    ((1, 6, 5, 41, 17), 5, 16, 16),    # K*L = 697: two position tiles
+    ((1, 25, 25, 19, 25), 5, 16, 1),   # A 25x25 against B 19x25
+    ((1, 3, 4, 3, 5), 5, 32, 16),      # two 16-channel groups
+    ((2, 3, 4, 3, 3), 5, 16, 16),      # grid smaller than the kernel
+]
+
+
+@pytest.mark.parametrize("case", range(len(BF16_CASES)))
+def test_bf16_route_edges_match_plain_and_repeat(card, case):
+    shape, k, cin, cout = BF16_CASES[case]
+    x, w, b = _inputs(shape, k, cin, cout, 300 + case, card)
+    g = torch.randn(*shape, cout, generator=torch.Generator(device=card)
+                    .manual_seed(400 + case), device=card)
+    x, w, g = x.bfloat16(), w.bfloat16(), g.bfloat16()
+    runs = [
+        ("fwd", lambda: conv4d_fwd(x, w, b),
+         lambda: conv4d_plain(x.float(), w.float(), b), 1e-2),
+        ("dx", lambda: conv4d_dx(g, w),
+         lambda: conv4d_dx_plain(g.float(), w.float()), 1e-2),
+        # exact products, float32 sums in another order (as the float32 dw)
+        ("dw", lambda: conv4d_dw(x, g, k), lambda: conv4d_dw_plain(x, g, k),
+         1e-4),
+    ]
+    for name, kern, plain, tol in runs:
+        got = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = float((got.float() - want).abs().max())
+        scale = float(want.abs().max())
+        assert err <= tol * scale, (name, err, scale)
+        # one thread sums each output in a fixed order, no atomics
+        assert torch.equal(got, again), name
+
+
+def test_dw_bf16_bitwise_repeat_at_pf_pascal(card):
+    """The 16->16 layer's dw at 2 samples: the plan's chunks and the
+    second pass sum in a fixed order, so two calls agree bit for bit."""
+    x, _, _ = _inputs((2, 25, 25, 25, 25), 5, 16, 16, 7, card)
+    g = torch.randn(2, 25, 25, 25, 25, 16, generator=torch.Generator(
+        device=card).manual_seed(8), device=card)
+    x, g = x.bfloat16(), g.bfloat16()
+    first = conv4d_dw(x, g, 5)
+    assert all(torch.equal(conv4d_dw(x, g, 5), first) for _ in range(3))
+
+
+def test_bf16_routes_hold_tensor_core_instructions(card):
+    from ncnet_tpu_torch.kernels._build import tensor_core_summary
+
+    for kernel in (conv4d_fwd, conv4d_dw):
+        counts = kernel.tensor_core_counts()
+        if counts is None:
+            pytest.skip("cuobjdump is not installed: the SASS is not readable")
+        summary = tensor_core_summary(counts)
+        # forward: 4 instantiations (2 output widths x channels/taps, and
+        # O = 1); dw: channels, taps (2 output widths each) and O = 1
+        assert summary["bf16_route_functions"] >= 4, counts
+        assert summary["bf16_route_min_mma"] > 0, counts
+        assert summary["other_mma"] == 0, counts  # float32 stays on FFMA
+
+
 def _nc_grads(corr, params, conv, dtype):
     """NC gradients of a scalar loss through ``conv`` on ``corr``."""
     from ncnet_tpu_torch.models.neigh_consensus import neigh_consensus_apply
