@@ -20,13 +20,19 @@ Phases, one JSON line each:
              grid), a rectangular and a tiny grid, float32 and bfloat16;
              then each layer timed with CUDA events at the serving path's
              square-batch shape, beside its plain version and its bound.
-4. band_kernels — the band kernel against its plain version (gather then
-             matmul, TF32 off) on real K = 16 mutual bands built by the
-             port from random features on 25x25 grids (the three PF-Pascal
-             layer shapes, both passes), a 25x25 against 19x25 band, K =
-             50, a tiny grid; float32 and bfloat16; then each layer and
-             pass timed at the served square batch (4 pairs), beside the
-             plain version, the non-null pointer share and the bound.
+4. band_kernels — the band kernel, which derives each entry's neighbours
+             from the band's indices, against its plain version (pointer
+             table, gather, matmul, TF32 off) on real K = 16 mutual bands
+             built by the port from random features on 25x25 grids (the
+             three PF-Pascal layer shapes, both passes), a 25x25 against
+             19x25 band, K = 50, the complete band at 192 px (12x12, K =
+             144; 12x12 against 9x12, K = 108), a tiny grid; float32 and
+             bfloat16; then each layer and pass timed at the served square
+             batch (4 pairs; CUDA events around the wrapper's calls, the
+             kernel's own device time from ``torch.profiler``, and the
+             host's time to issue one call), beside
+             the plain version, the non-null tap share and the bound, held
+             to its tolerance and to a bitwise repeat.
 5. serve   — ImMatchNet at the PF-Pascal config (ResNet-101, NC 5-5-5 /
              16-16-1, 400 px) with random weights from a seed behind the
              port's ServeEngine: 8 requests at the 400x400 bucket and 4 at
@@ -44,7 +50,9 @@ Phases, one JSON line each:
              times per degraded batch and conv4d 3 per standard square
              batch (6 per rectangular); one degraded request per bucket
              must agree with the band forward through the plain band layer
-             on the card. Then the band forward's stage times.
+             on the card; no pointer table may be built while serving (a
+             call counter on ``band_neighbor_pointers``). Then the band
+             forward's stage times, again with no table built.
 7. full_k  — at 192 px (12x12 grids, K = 144 = hB*wB, and 12x9 with K =
              108) the band forward through the band kernel equals the
              dense forward through the conv4d kernel.
@@ -57,7 +65,11 @@ Phases, one JSON line each:
              pipeline call, the bfloat16 of the training path) beside
              their plain versions and bounds, each timed launch held to
              its tolerance, and the forward and dw called twice on the
-             same inputs: the two results must be bitwise equal.
+             same inputs: the two results must be bitwise equal. Then dw
+             on the 48x48 grid of 768 px (past the grids whose whole halo
+             fitted a block), all three layers, float32 and bfloat16, at 1
+             sample against the plain version with a bitwise repeat, and
+             timed in bfloat16 at the 4 samples of a 768 px pipeline call.
 9. train   — (a) the NC gradients at the PF-Pascal width (ResNet-101,
              400 px, 5-5-5 / 16-16-1), 2 pairs, of a random linear
              functional of the NC output and of the weak loss's positive
@@ -70,7 +82,9 @@ Phases, one JSON line each:
              finite float32 losses, float32 masters and Adam state, every
              NC kernel moved, trunk bitwise unchanged, and exactly 6 conv4d
              forward, 4 dx and 6 dw launches per step; then one step's
-             stage times and the peak memory; (c) ``python -m
+             stage times and the peak memory; (c) one step at 768 px
+             (48x48 grids), batch 2: a finite loss and 6 / 4 / 6 launches;
+             (d) ``python -m
              ncnet_tpu_torch.train --synthetic --allow_random_fe
              --max-steps 2`` in a subprocess: its report comes back and its
              checkpoint loads.
@@ -79,6 +93,7 @@ Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 last line. Needs one card; exits non-zero without CUDA.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -130,6 +145,8 @@ GRAD_RATIO = 4.0
 TRAIN_BATCH = 16  # scripts/train.py --batch_size default
 TRAIN_SAMPLES = 2 * TRAIN_BATCH  # one pipeline call, both directions batched
 TRAIN_STEPS = 3
+# 768 px: the 48x48 grid on which dw stages windows of k-rows
+WIDE_HW, WIDE_GRID = (768, 768), 48
 # the libraries whose bfloat16 route runs on the tensor cores
 BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw")
 
@@ -226,6 +243,37 @@ def time_ms(fn, reps):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_ms(fn, reps):
+    """Mean host time of one call of ``fn``: the wall time of ``reps``
+    calls issued back to back, before the card is waited for. Where it
+    exceeds the device time, the card idles between the launches."""
+    fn()  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return 1e3 * host
+
+
+def device_ms(fn, key, reps):
+    """Mean device time of the kernels whose name holds ``key`` over
+    ``reps`` calls of ``fn``, from ``torch.profiler``'s CUDA trace, or
+    None where the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                if key in e.key)
+    return total / reps / 1e3 if total > 0 else None
 
 
 def phase_kernels(smi, conv4d_fwd, conv4d_plain):
@@ -495,19 +543,33 @@ def real_band(b, grid_a, grid_b, k, seed):
     return topk_band(corr, k, values_from=mutual_matching(corr), mutual=True)
 
 
-def band_tables(indices, grid_b):
-    """The two pointer tables of one band (the plain pass's, and the
-    symmetric pass's over the B-major entries), as the NC stack builds them."""
-    from ncnet_tpu_torch.sparse.nc import (
-        b_major_order,
-        plain_pointers,
-        swapped_pointers,
-    )
+def band_geometries(indices, grid_b):
+    """The two passes' geometries of one band (the plain pass's, and the
+    symmetric pass's over the B-major entries), as the NC stack makes them."""
+    from ncnet_tpu_torch.ops.band import BandGeometry, b_major_order
 
-    kern = (KSIZE,) * 4
-    perm, inv = b_major_order(indices)
-    return {"plain": plain_pointers(indices, grid_b, kern),
-            "swapped": swapped_pointers(indices, grid_b, kern, perm, inv)}
+    return {"plain": BandGeometry(indices, grid_b),
+            "swapped": BandGeometry(indices, grid_b, *b_major_order(indices))}
+
+
+@contextlib.contextmanager
+def counting_pointer_builds():
+    """Count the calls of ``ops.band.band_neighbor_pointers`` (every pointer
+    table the port builds) inside the block: ``with ... as calls``,
+    ``calls[0]`` after it."""
+    from ncnet_tpu_torch.ops import band
+
+    real, calls = band.band_neighbor_pointers, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    band.band_neighbor_pointers = counted
+    try:
+        yield calls
+    finally:
+        band.band_neighbor_pointers = real
 
 
 def band_layer_inputs(b, n, cin, cout, dtype, seed):
@@ -521,60 +583,74 @@ def band_layer_inputs(b, n, cin, cout, dtype, seed):
     return x.to(dtype), w.to(dtype), bias
 
 
-def band_bound_ms(ptr, cin, cout, dtype):
-    """The least time of one band layer on the card: the FLOPs of the
-    non-null taps over the peak of ``dtype``, against the bytes (pointers,
-    entries, weights, bias, output, each once) over HBM bandwidth."""
-    b, n, taps = ptr.shape
-    nnz = int((ptr != n).sum())
+def band_bound_ms(geom, cin, cout, dtype):
+    """The least time of one band layer on the card: the FLOPs of the taps
+    on the band (this band's, counted from the plain version's pointer
+    table) over the peak of ``dtype``, against the bytes the kernel must
+    move (entries, indices, ``inv`` on the symmetric pass, weights, bias,
+    output, each once) over HBM bandwidth. No pointer table: the kernel
+    builds none, and reads no ``perm`` (the entries arrive permuted)."""
+    b, ha, wa, k = geom.indices.shape
+    n = ha * wa * k
+    taps = KSIZE**4
+    nnz = int((geom.pointers((KSIZE,) * 4) != n).sum())
     elt = torch.finfo(dtype).bits // 8
     flops = 2.0 * nnz * cin * cout
-    nbytes = (ptr.numel() * 4 + b * n * (cin + cout) * elt
+    nbytes = (b * n * (cin + cout) * elt + b * n * 4 * (2 if geom.swapped else 1)
               + taps * cin * cout * elt + 4 * cout)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "nonnull_share": nnz / ptr.numel(),
+            "nonnull_share": nnz / (b * n * taps),
             "gflop_nonnull": flops / 1e9,
-            "gflop_all_taps": 2.0 * ptr.numel() * cin * cout / 1e9,
+            "gflop_all_taps": 2.0 * b * n * taps * cin * cout / 1e9,
             "mbytes": nbytes / 1e6}
+
+
+def band_kernel_call(band_gemm_fwd, x, w, b, geom):
+    """The band kernel's wrapper on one layer of a pass."""
+    return band_gemm_fwd(x, w, b, geom.indices, geom.grid_b, geom.inv)
 
 
 def phase_band_kernels(smi, band_gemm_fwd, band_plain):
     """The band kernel against its plain version on real bands; then each
     layer and pass timed at the served square batch."""
     g = GRID
-    cases = []  # (label, indices-derived table, cin, cout)
+    cases = []  # (label, geometry, cin, cout)
     _, idx = real_band(2, (g, g), (g, g), BAND_K, seed=20)
-    tables = band_tables(idx, (g, g))
-    n = idx[0].numel()
-    for name, ptr in tables.items():
-        lo, hi = int(ptr.min()), int(ptr.max())
-        if lo < 0 or hi > n:
-            raise AssertionError(f"{name} pointers outside [0, {n}]: {lo}..{hi}")
+    for name, geom in band_geometries(idx, (g, g)).items():
         for cin, cout in NC_LAYERS:
-            cases.append((f"25x25/25x25 K{BAND_K} {name}", ptr, cin, cout))
+            cases.append((f"25x25/25x25 K{BAND_K} {name}", geom, cin, cout))
     _, idx = real_band(2, (g, g), (19, g), BAND_K, seed=21)
     cases.append((f"25x25/19x25 K{BAND_K} swapped",
-                  band_tables(idx, (19, g))["swapped"], 16, 16))
+                  band_geometries(idx, (19, g))["swapped"], 16, 16))
     _, idx = real_band(2, (g, g), (g, g), 50, seed=22)
-    cases.append(("25x25/25x25 K50 plain", band_tables(idx, (g, g))["plain"], 16, 16))
+    cases.append(("25x25/25x25 K50 plain", band_geometries(idx, (g, g))["plain"],
+                  16, 16))
+    # the complete band of phase full_k's 192 px grids
+    _, idx = real_band(2, (12, 12), (12, 12), 144, seed=24)
+    for name, geom in band_geometries(idx, (12, 12)).items():
+        cases.append((f"12x12/12x12 K144 {name}", geom, 16, 16))
+    _, idx = real_band(2, (12, 12), (9, 12), 108, seed=25)
+    cases.append(("12x12/9x12 K108 swapped",
+                  band_geometries(idx, (9, 12))["swapped"], 1, 16))
     _, idx = real_band(2, (3, 2), (4, 3), 5, seed=23)
-    tiny = band_tables(idx, (4, 3))
+    tiny = band_geometries(idx, (4, 3))
     cases += [("3x2/4x3 K5 plain", tiny["plain"], 1, 16),
               ("3x2/4x3 K5 swapped", tiny["swapped"], 16, 1)]
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
-        for ci, (label, ptr, cin, cout) in enumerate(cases):
-            x, w, b = band_layer_inputs(ptr.shape[0], ptr.shape[1], cin, cout,
+        for ci, (label, geom, cin, cout) in enumerate(cases):
+            n = geom.indices[0].numel()
+            x, w, b = band_layer_inputs(geom.indices.shape[0], n, cin, cout,
                                         dtype, seed=ci)
-            got = band_gemm_fwd(x, w, b, ptr).float()
-            want = band_plain(x.float(), w.float(), b.to(dtype).float(), ptr)
+            got = band_kernel_call(band_gemm_fwd, x, w, b, geom).float()
+            want = band_plain(x.float(), w.float(), b.to(dtype).float(), geom)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
             ok = bool(torch.isfinite(got).all()) and err <= BAND_TOL[dtype] * scale
-            checks.append({"case": label, "n": ptr.shape[1], "cin": cin,
+            checks.append({"case": label, "n": n, "cin": cin,
                            "cout": cout, "dtype": str(dtype).split(".")[1],
                            "max_abs_err": err, "max_rel_err": err / scale,
                            "tol_rel": BAND_TOL[dtype], "ok": ok})
@@ -585,20 +661,38 @@ def phase_band_kernels(smi, band_gemm_fwd, band_plain):
     # per-layer, per-pass times at the served square batch (MAX_BATCH
     # pairs; the band runs its two symmetric passes one after the other)
     _, idx = real_band(MAX_BATCH, (g, g), (g, g), BAND_K, seed=30)
-    tables = band_tables(idx, (g, g))
+    geoms = band_geometries(idx, (g, g))
     layers = []
     for li, (cin, cout) in enumerate(NC_LAYERS):
-        for name, ptr in tables.items():
-            x, w, b = band_layer_inputs(MAX_BATCH, ptr.shape[1], cin, cout,
-                                        torch.float32, seed=40 + li)
-            ms = time_ms(lambda: band_gemm_fwd(x, w, b, ptr), reps=10)
-            plain_ms = time_ms(lambda: band_plain(x, w, b, ptr), reps=3)
-            err = float((band_gemm_fwd(x, w, b, ptr)
-                         - band_plain(x, w, b, ptr)).abs().max())
-            layers.append({"layer": li, "pass": name, "shape": list(ptr.shape),
+        for name, geom in geoms.items():
+            x, w, b = band_layer_inputs(MAX_BATCH, geom.indices[0].numel(), cin,
+                                        cout, torch.float32, seed=40 + li)
+            ms = time_ms(lambda: band_kernel_call(band_gemm_fwd, x, w, b, geom),
+                         reps=20)
+            dev_ms = device_ms(
+                lambda: band_kernel_call(band_gemm_fwd, x, w, b, geom),
+                "band_nc_fwd", reps=20)
+            call_ms = host_ms(
+                lambda: band_kernel_call(band_gemm_fwd, x, w, b, geom), reps=20)
+            plain_ms = time_ms(lambda: band_plain(x, w, b, geom), reps=3)
+            got = band_kernel_call(band_gemm_fwd, x, w, b, geom)
+            bitwise = bool(torch.equal(
+                band_kernel_call(band_gemm_fwd, x, w, b, geom), got))
+            want = band_plain(x, w, b, geom)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            ok = err <= BAND_TOL[torch.float32] * scale and bitwise
+            layers.append({"layer": li, "pass": name, "shape": list(x.shape),
                            "cin": cin, "cout": cout, "dtype": "float32",
-                           "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                           **band_bound_ms(ptr, cin, cout, torch.float32)})
+                           "ms": ms, "device_ms": dev_ms, "host_ms": call_ms,
+                           "plain_ms": plain_ms,
+                           "max_abs_err": err, "max_rel_err": err / scale,
+                           "bitwise_repeat": bitwise,
+                           "ok": ok, **band_bound_ms(geom, cin, cout, torch.float32)})
+            if not ok:
+                emit({"phase": "band_kernels", "checks": checks, "timed": layers})
+                raise AssertionError(
+                    f"band kernel disagrees at the served batch: {layers[-1]}")
     emit({"phase": "band_kernels", "card": smi, "checks": checks,
           "timed": layers})
     return layers
@@ -639,12 +733,13 @@ def phase_serve_band(smi, model, config, conv4d_fwd, band_gemm_fwd, band_plain):
                        ((SQUARE_HW, RECT_HW), payload_spec(payloads[5]))])
         warmup_s = time.perf_counter() - t_warm
         served.clear()
-        conv4d_fwd.launches = band_gemm_fwd.launches = 0
-        t_serve = time.perf_counter()
-        futures = run_clients(engine, requests, payloads, variants)
-        results = [f.result(timeout=600) for f in futures]  # raises on a failed future
-        serve_s = time.perf_counter() - t_serve
-    band_launches, conv_launches = band_gemm_fwd.launches, conv4d_fwd.launches
+        with counting_pointer_builds() as tables:
+            conv4d_fwd.launches = band_gemm_fwd.launches = 0
+            t_serve = time.perf_counter()
+            futures = run_clients(engine, requests, payloads, variants)
+            results = [f.result(timeout=600) for f in futures]  # raises on a failed future
+            serve_s = time.perf_counter() - t_serve
+            band_launches, conv_launches = band_gemm_fwd.launches, conv4d_fwd.launches
     report = engine.report()
 
     check_matches(requests, results)
@@ -659,6 +754,10 @@ def phase_serve_band(smi, model, config, conv4d_fwd, band_gemm_fwd, band_plain):
     if band_launches != 6 * n_deg:
         raise AssertionError(
             f"band launches {band_launches} != 6 x {n_deg} degraded batches")
+    if tables[0] != 0:
+        raise AssertionError(
+            f"the served band batches built {tables[0]} pointer tables; the "
+            "kernel derives its taps from the band and needs none")
     if conv_launches != 3 * n_std_sq + 6 * n_std_rect:
         raise AssertionError(
             f"conv4d launches {conv_launches} != 3 x {n_std_sq} square + 6 x "
@@ -704,6 +803,7 @@ def phase_serve_band(smi, model, config, conv4d_fwd, band_gemm_fwd, band_plain):
           "requests": len(requests), "pinned_degraded": variants.count("degraded"),
           "degraded_batches": n_deg, "standard_square_batches": n_std_sq,
           "standard_rect_batches": n_std_rect, "band_launches": band_launches,
+          "pointer_tables_built": tables[0],
           "conv4d_launches": conv_launches, "warmup_s": warmup_s,
           "serve_s": serve_s, "pairs_per_s": report["pairs_per_s"],
           "latency_p50_ms": report["latency_p50_ms"],
@@ -717,8 +817,9 @@ def phase_serve_band(smi, model, config, conv4d_fwd, band_gemm_fwd, band_plain):
 def band_stage_breakdown(model, config, payloads, reps=3):
     """CUDA-event times of the band serving forward's stages on one square
     batch (``len(payloads)`` pairs), each timed alone after a warm-up. The
-    NC stage builds its pointer tables itself, so it includes the
-    ``pointer_build`` stage."""
+    NC stage builds no pointer table (its kernel derives the taps from the
+    band): the stages are timed under a call counter on
+    ``band_neighbor_pointers``, which must read 0."""
     from ncnet_tpu_torch.models.immatchnet import extract_features
     from ncnet_tpu_torch.ops.band import topk_band
     from ncnet_tpu_torch.ops.correlation import correlation_4d
@@ -763,17 +864,20 @@ def band_stage_breakdown(model, config, payloads, reps=3):
                               torch.stack(corr_to_matches(
                                   c, invert_matching_direction=True, **kw))], 2)
 
-        return {
-            "pairs": len(payloads),
-            "trunk": time_ms(lambda: (
-                extract_features(model, config, batch["source_image"]),
-                extract_features(model, config, batch["target_image"])), reps),
-            "corr_mm_topk": time_ms(select, reps),
-            "pointer_build": time_ms(lambda: band_tables(indices, grid_b), reps),
-            "neigh_consensus_incl_pointers": time_ms(nc, reps),
-            "band_mm_readout": time_ms(readout, reps),
-            "forward": time_ms(lambda: apply(model, batch), reps),
-        }
+        with counting_pointer_builds() as tables:
+            stages = {
+                "pairs": len(payloads),
+                "trunk": time_ms(lambda: (
+                    extract_features(model, config, batch["source_image"]),
+                    extract_features(model, config, batch["target_image"])), reps),
+                "corr_mm_topk": time_ms(select, reps),
+                "neigh_consensus": time_ms(nc, reps),
+                "band_mm_readout": time_ms(readout, reps),
+                "forward": time_ms(lambda: apply(model, batch), reps),
+            }
+    if tables[0] != 0:
+        raise AssertionError(f"the band forward built {tables[0]} pointer tables")
+    return {**stages, "pointer_tables_built": tables[0]}
 
 
 def phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd):
@@ -897,9 +1001,50 @@ def phase_train_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
                 raise AssertionError(
                     f"conv4d {name} kernel disagrees at the training batch: "
                     f"{timed[name][-1]}")
+    wide = dw_wide_grid(kernels["conv4d_dw"], dw_plain)
     emit({"phase": "train_kernels", "card": smi, "checks": checks,
-          "timed": timed})
+          "timed": timed, "dw_48x48": wide})
     return timed["fwd"], timed["dx"], timed["dw"]
+
+
+def dw_wide_grid(conv4d_dw, dw_plain):
+    """dw on the 48x48 grid of 768 px, where a block stages a window of
+    k-rows (a whole-grid staging no longer fits): each layer and dtype at
+    1 sample against the plain version (DW_TOL of max |dw|) with a bitwise
+    repeat, and the bfloat16 kernel timed at the 4 samples of one 768 px
+    pipeline call (2 pairs x 2 directions)."""
+    g = WIDE_GRID
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for li, (cin, cout) in enumerate(NC_LAYERS):
+            shape = (1, g, g, g, g)
+            x, _, _ = nc_inputs(shape, cin, cout, dtype, seed=90 + li)
+            gr = torch.randn(*shape, cout, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(95 + li)).to(dtype)
+            got, again = conv4d_dw(x, gr, KSIZE), conv4d_dw(x, gr, KSIZE)
+            want = dw_plain(x, gr, KSIZE)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            bitwise = bool(torch.equal(got, again))
+            ok = (bool(torch.isfinite(got).all()) and err <= DW_TOL[dtype] * scale
+                  and bitwise)
+            rec = {"layer": li, "cin": cin, "cout": cout, "grid": g,
+                   "dtype": str(dtype).split(".")[1], "max_abs_err": err,
+                   "max_rel_err": err / scale, "tol_rel": DW_TOL[dtype],
+                   "bitwise_repeat": bitwise, "ok": ok}
+            del x, gr, got, again, want
+            if dtype == torch.bfloat16:
+                shape = (4, g, g, g, g)
+                x, _, _ = nc_inputs(shape, cin, cout, dtype, seed=97 + li)
+                gr = torch.randn(*shape, cout, device="cuda").to(dtype)
+                rec["ms_4_samples"] = time_ms(lambda: conv4d_dw(x, gr, KSIZE), reps=3)
+                del x, gr
+            records.append(rec)
+            torch.cuda.empty_cache()
+            if not ok:
+                emit({"phase": "train_kernels", "dw_48x48": records})
+                raise AssertionError(f"conv4d dw disagrees on the 48x48 grid: {rec}")
+    return records
 
 
 def nc_grads(model, config, batch, objective, dtype=None):
@@ -935,13 +1080,13 @@ def nc_grads(model, config, batch, objective, dtype=None):
     return float(loss.detach()), [t.grad.clone() for t in leaves]
 
 
-def synthetic_batch(n, seed):
-    """``n`` pairs of `SyntheticPairDataset` at 400 px, on the card."""
+def synthetic_batch(n, seed, hw=SQUARE_HW):
+    """``n`` pairs of `SyntheticPairDataset` at ``hw``, on the card."""
     from ncnet_tpu_torch.data.loader import collate
     from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
     from ncnet_tpu_torch.train.step import device_batch
 
-    ds = SyntheticPairDataset(n=n, output_size=SQUARE_HW, seed=seed)
+    ds = SyntheticPairDataset(n=n, output_size=hw, seed=seed)
     return device_batch(collate([ds[i] for i in range(n)]), "cuda")
 
 
@@ -1089,7 +1234,23 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
         emit({"phase": "train", "problems": problems})
         raise AssertionError("; ".join(problems))
 
-    # (c) the CLI in a subprocess; its checkpoint must load
+    # (c) one step at 768 px (48x48 grids), batch 2: dw stages windows
+    wide_batch = synthetic_batch(2, SEED + 6, WIDE_HW)
+    torch.cuda.synchronize()
+    before = {n: k.launches for n, k in kernels.items()}
+    t0 = time.perf_counter()
+    state, wide_loss = step(state, wide_batch)
+    torch.cuda.synchronize()
+    wide = {"hw": list(WIDE_HW), "batch": 2, "loss": float(wide_loss),
+            "step_ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {n: k.launches - before[n] for n, k in kernels.items()}}
+    del wide_batch
+    torch.cuda.empty_cache()
+    if wide["launches"] != want or not bool(torch.isfinite(wide_loss)):
+        emit({"phase": "train", "wide_step": wide})
+        raise AssertionError(f"the 768 px step failed: {wide}")
+
+    # (d) the CLI in a subprocess; its checkpoint must load
     with tempfile.TemporaryDirectory() as out:
         proc = subprocess.run(
             [sys.executable, "-m", "ncnet_tpu_torch.train", "--synthetic",
@@ -1120,7 +1281,8 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
           "batch": TRAIN_BATCH, "grad_check": grad_check, "losses": [float(l) for l in losses],
           "step_ms": step_ms, "launches_per_step": per_step,
           "launches": launches, "nc_param_max_move": moved,
-          "peak_memory_bytes": peak, "stages_ms": stages, "cli": cli})
+          "peak_memory_bytes": peak, "stages_ms": stages, "wide_step": wide,
+          "cli": cli})
     return launches
 
 
@@ -1156,7 +1318,7 @@ def main():
     from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
     from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
     from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
-    from ncnet_tpu_torch.ops.band import band_conv_bias_relu_plain
+    from ncnet_tpu_torch.ops.band import band_layer_plain
     from ncnet_tpu_torch.ops.conv4d import (
         conv4d_dw_plain,
         conv4d_dx_plain,
@@ -1172,11 +1334,11 @@ def main():
     layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
     fwd_train_layers, dx_layers, dw_layers = phase_train_kernels(
         smi, kernels, conv4d_plain, conv4d_dx_plain, conv4d_dw_plain)
-    band_layers = phase_band_kernels(smi, band_gemm_fwd, band_conv_bias_relu_plain)
+    band_layers = phase_band_kernels(smi, band_gemm_fwd, band_layer_plain)
     model, config = build_model()
     launches = phase_serve(smi, model, config, conv4d_fwd, conv4d_plain)
     band_launches = phase_serve_band(smi, model, config, conv4d_fwd,
-                                     band_gemm_fwd, band_conv_bias_relu_plain)
+                                     band_gemm_fwd, band_layer_plain)
     phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd)
     train_launches = phase_train(smi, model, config, kernels, conv4d_plain)
     emit({"kernels": [
@@ -1197,7 +1359,8 @@ def main():
                     band_layers,
                     "the three band NC layers x 2 symmetric passes of one "
                     f"square degraded batch ({MAX_BATCH} pairs, K = {BAND_K}),"
-                    " float32", smi),
+                    " float32; taps derived from the band's indices, no "
+                    "pointer table", smi),
         kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:190",
                     train_launches["conv4d_dx"], dx_layers,

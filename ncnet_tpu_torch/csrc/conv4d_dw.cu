@@ -22,9 +22,15 @@
 // [ks*ks*C, K*L] @ [K*L, O] product.
 //   * pass 1: one block per (chunk of (b, i, j) rows, (di, dj) tap pair).
 //     For each row of its chunk whose input row (i+di-p, j+dj-p) is on the
-//     grid, the block stages the zero-padded (k, l, c) halo of that input
-//     row and the g row in shared memory and adds the product into
-//     float32 registers;
+//     grid, the block walks the row in windows of kwin k-rows: it stages
+//     the window's zero-padded (k, l, c) halo (kwin + 2p rows of the input
+//     row) and the window's kwin*L positions of g in shared memory and adds
+//     the product into float32 registers. The windows are the fewest that
+//     keep two blocks on an SM, with K spread evenly over them (all of K at
+//     the PF-Pascal grid, so one window a row; 4 of 12 rows at 48x48), so
+//     the shared memory no longer grows with K; only a single
+//     k-row too wide for the block is refused (L of about 590 at 16
+//     channels);
 //   * every kFlushRows rows the registers are added into the thread's own
 //     slots of a partial buffer in global memory, so no float chain is
 //     longer than kFlushRows rows' worth of a position group's products;
@@ -57,9 +63,10 @@
 //     dk*(L+2p), c] * gt[u][dl]: one GEMM per (dk, channel group), 725
 //     values of u a row, a fifth of the MMAs and A loads of the per-tap
 //     form;
-//   * the halo and the g row are staged in bfloat16 (never widened) and
-//     double-buffered with cp.async (16-byte chunks, zero-filled off the
-//     grid), so the next row's copy overlaps this row's MMAs; shapes whose
+//   * each window's halo and g rows are staged in bfloat16 (never widened)
+//     and double-buffered with cp.async (16-byte chunks, zero-filled off
+//     the grid), so the next window's copy overlaps this one's MMAs (the
+//     positions of a window, not of a row, are the GEMM's K); shapes whose
 //     rows are not 16-byte chunks (C or O not a multiple of 8) stage with
 //     plain loads;
 //   * the row chunks are sized for 4 waves of the card's resident blocks.
@@ -87,6 +94,7 @@ constexpr int kReduceThreads = 256;
 constexpr int kErrBadShape = -1;
 constexpr int kErrSharedMemory = -2;
 constexpr int kErrUnits = -3;
+constexpr int kSmemReserve = 1024;  // shared memory the runtime keeps a block
 constexpr int kErrDtype = -4;
 constexpr int kErrWorkspace = -5;
 
@@ -99,12 +107,55 @@ struct Plan {
   int n_pg;            // position groups (threads = n_pg * units)
   int rows_per_chunk;  // (b, i, j) rows per pass-1 block
   int n_chunks;
-  int x_floats;        // staged halo floats (a multiple of 4)
+  int kwin, n_win;     // k-rows a staged window holds; windows a row
+  int x_floats;        // staged halo floats of a window (a multiple of 4)
   size_t smem;
   int64_t workspace;   // partial floats
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+
+// What a plan needs of the card: its SMs, and the shared memory a block
+// may take to leave room for a second block on its SM (`pair`) or at all
+// (`max`, the opt-in limit).
+struct Device {
+  int sms;
+  size_t pair, max;
+};
+
+int query_device(Device* d) {
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err != cudaSuccess) return (int)err;
+  d->sms = sms;
+  d->max = (size_t)max_smem;
+  d->pair = (size_t)(per_sm / 2 - kSmemReserve);
+  return 0;
+}
+
+// The window of k-rows a block stages: the fewest windows whose staged
+// footprint `smem_of(kwin)` lets two blocks share an SM (else fits a block
+// at all), with the K rows spread evenly over them, so no window computes
+// past the grid; 0 when a single k-row does not fit.
+template <typename SmemOf>
+int choose_window(int K, const Device& d, SmemOf smem_of) {
+  const size_t budgets[2] = {d.pair, d.max};
+  for (size_t budget : budgets)
+    for (int kwin = K; kwin >= 1; --kwin)
+      if (smem_of(kwin) <= budget) {
+        const int n_win = (K + kwin - 1) / kwin;
+        return (K + n_win - 1) / n_win;
+      }
+  return 0;
+}
 
 template <int N>
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
@@ -130,11 +181,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ __align__(16) float smem[];
   const int p = s.ks / 2;
   const int cols = s.L + 2 * p;
-  const int halo = (s.K + 2 * p) * cols;
+  const int halo = (s.kwin + 2 * p) * cols;
   const int KL = s.K * s.L;
   const int ks2 = s.ks * s.ks;
-  float* sx = smem;               // [K+2p][L+2p][cs]
-  float* sg = smem + s.x_floats;  // [K*L][os]
+  float* sx = smem;               // [kwin+2p][L+2p][cs]
+  float* sg = smem + s.x_floats;  // [kwin*L][os]
 
   const int chunk = blockIdx.x;
   const int dij = blockIdx.y;
@@ -151,9 +202,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int dl = dkl % s.ks;
   const int c0 = ct * CT;
   const int o0 = ot * OT;
-  const int per = (KL + s.n_pg - 1) / s.n_pg;
-  const int q0 = min(KL, pg * per);
-  const int q1 = min(KL, q0 + per);
+  // this group's share of a window's positions
+  const int per = (s.kwin * s.L + s.n_pg - 1) / s.n_pg;
+  const int q0 = pg * per;
   const int xoff = (dk * cols + dl) * s.cs + c0;
 
   // this thread's slots: partial[chunk][dij][pg][dkl][c][o]
@@ -197,38 +248,45 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int ii = i + di - p;
     const int jj = j + dj - p;
     if (ii < 0 || ii >= s.I || jj < 0 || jj >= s.J) continue;  // uniform
-    __syncthreads();  // the previous row's reads of sx/sg are done
     const T* xr = x + (((int64_t)b * s.I + ii) * s.J + jj) * row_x;
-    for (int e = tid; e < halo * s.cs; e += nthreads) {
-      const int c = e % s.cs;
-      const int cell = e / s.cs;
-      const int kk = cell / cols - p;
-      const int ll = cell % cols - p;
-      sx[e] = (c < s.C && kk >= 0 && kk < s.K && ll >= 0 && ll < s.L)
-                  ? to_f32(xr[((int64_t)kk * s.L + ll) * s.C + c])
-                  : 0.f;
-    }
     const T* gr = g + (((int64_t)b * s.I + i) * s.J + j) * row_g;
-    for (int e = tid; e < KL * s.os; e += nthreads) {
-      const int o = e % s.os;
-      sg[e] = o < s.O ? to_f32(gr[(int64_t)(e / s.os) * s.O + o]) : 0.f;
-    }
-    __syncthreads();
+    for (int win = 0; win < s.n_win; ++win) {
+      const int k0 = win * s.kwin;
+      const int npos = min(s.kwin, s.K - k0) * s.L;  // the window's positions
+      __syncthreads();  // the previous window's reads of sx/sg are done
+      for (int e = tid; e < halo * s.cs; e += nthreads) {
+        const int c = e % s.cs;
+        const int cell = e / s.cs;
+        const int kk = k0 + cell / cols - p;
+        const int ll = cell % cols - p;
+        sx[e] = (c < s.C && kk >= 0 && kk < s.K && ll >= 0 && ll < s.L)
+                    ? to_f32(xr[((int64_t)kk * s.L + ll) * s.C + c])
+                    : 0.f;
+      }
+      const T* gw = gr + (int64_t)k0 * s.L * s.O;
+      for (int e = tid; e < npos * s.os; e += nthreads) {
+        const int o = e % s.os;
+        sg[e] = o < s.O ? to_f32(gw[(int64_t)(e / s.os) * s.O + o]) : 0.f;
+      }
+      __syncthreads();
 
-    int k = q0 / s.L;
-    int l = q0 % s.L;
-    for (int q = q0; q < q1; ++q) {
-      float xv[CT];
-      float gv[OT];
-      load_vec<CT>(sx + xoff + (k * cols + l) * s.cs, xv);
-      load_vec<OT>(sg + q * s.os + o0, gv);
+      const int q1 = min(npos, q0 + per);
+      int k = q0 / s.L;
+      int l = q0 % s.L;
+      for (int q = q0; q < q1; ++q) {
+        float xv[CT];
+        float gv[OT];
+        load_vec<CT>(sx + xoff + (k * cols + l) * s.cs, xv);
+        load_vec<OT>(sg + q * s.os + o0, gv);
 #pragma unroll
-      for (int c = 0; c < CT; ++c)
+        for (int c = 0; c < CT; ++c)
 #pragma unroll
-        for (int o = 0; o < OT; ++o) acc[c][o] = fmaf(xv[c], gv[o], acc[c][o]);
-      if (++l == s.L) {
-        l = 0;
-        ++k;
+          for (int o = 0; o < OT; ++o)
+            acc[c][o] = fmaf(xv[c], gv[o], acc[c][o]);
+        if (++l == s.L) {
+          l = 0;
+          ++k;
+        }
       }
     }
     if (++pending == kFlushRows) flush();
@@ -272,21 +330,25 @@ int make_plan(int B, int I, int J, int K, int L, int C, int O, int ks,
   p.n_pg = kMaxThreads / p.units;
   if (p.n_pg > K * L) p.n_pg = K * L;
   const int p2 = ks / 2;
-  const int halo = (K + 2 * p2) * (L + 2 * p2);
-  p.x_floats = (halo * p.cs + 3) / 4 * 4;
-  p.smem = ((size_t)p.x_floats + (size_t)K * L * p.os) * sizeof(float);
+  const int cols = L + 2 * p2;
+  auto x_floats = [&](int kwin) {
+    return ((kwin + 2 * p2) * cols * p.cs + 3) / 4 * 4;
+  };
+  auto smem_of = [&](int kwin) {
+    return ((size_t)x_floats(kwin) + (size_t)kwin * L * p.os) * sizeof(float);
+  };
 
-  int dev = 0, sms = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (p.smem > (size_t)max_smem) return kErrSharedMemory;
+  Device d;
+  const int code = query_device(&d);
+  if (code != 0) return code;
+  p.kwin = choose_window(K, d, smem_of);
+  if (p.kwin == 0) return kErrSharedMemory;
+  p.n_win = (K + p.kwin - 1) / p.kwin;
+  p.x_floats = x_floats(p.kwin);
+  p.smem = smem_of(p.kwin);
 
   const int rows = B * I * J;
+  const int sms = d.sms;
   int chunks = (kBlocksPerSm * sms + ks * ks - 1) / (ks * ks);
   if (chunks < 1) chunks = 1;
   if (chunks > rows) chunks = rows;
@@ -352,20 +414,28 @@ struct TcPlan {
   int n_mg;         // blocks over m-tile groups of MW * MPW
   int NT;           // n8 tiles a block (8 * NT output channels)
   int n_ot;         // blocks over output-channel tiles
-  int NKS;          // k-steps of 16: positions K*L, or (k, l') K*(L+2p)
-  int HP;           // staged halo positions (K+2p) * (L+2p)
+  int kwin, n_win;  // k-rows a staged window holds; windows a row
+  int NKS;          // k-steps of 16 a window: positions kwin*L, or (k, l')
+                    // kwin*(L+2p)
+  int HP;           // staged halo positions (kwin+2p) * (L+2p)
   int x_bytes;      // staged halo bytes per buffer
   int g_bytes;      // staged g bytes per buffer (the raw row on kModeShiftG)
   int gt_bytes;     // the shifted g copy of kModeShiftG (one buffer)
   int tab_bytes;
   int vec_x, vec_g;  // stage with cp.async (16-byte chunks, aligned)
   int rows_per_chunk, n_chunks;
-  size_t smem;
+  int smem;
   int64_t workspace;  // partial floats
 };
+// The kernel's parameter: past 128 bytes nvcc compiled the O = 1
+// instantiation to more instructions, and it ran a third slower on an H100
+// at the PF-Pascal grid.
+static_assert(sizeof(TcPlan) <= 128, "TcPlan is the kernel's parameter");
 
-// NT: n8 tiles a block; kMode: one of the modes above.
-template <int NT, int kMode>
+// NT: n8 tiles a block; kMode: one of the modes above; kWin: a row takes
+// more than one window (else the window is the whole row, and the loop
+// over windows folds away).
+template <int NT, int kMode, bool kWin>
 __global__ void __launch_bounds__(kTcThreads, 2)
     conv4d_dw_bf16_tc(const __nv_bfloat16* __restrict__ x,
                       const __nv_bfloat16* __restrict__ g,
@@ -399,10 +469,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   unsigned char* bufs = tc_smem + s.tab_bytes;
   uint16_t* gt = reinterpret_cast<uint16_t*>(bufs + 2 * stage_bytes);
 
-  // the halo index of each position at tap (0, 0); positions past K*L
-  // read position 0 against g rows of zeros
+  // the halo index of each window position at tap (0, 0); positions past
+  // the window read position 0 against g rows of zeros
   for (int e = tid; e < s.NKS * 16; e += nthreads)
-    tab[e] = e < KL ? (e / s.L) * cols + e % s.L : 0;
+    tab[e] = e < s.kwin * s.L ? (e / s.L) * cols + e % s.L : 0;
 
   // per m-tile: channels, the halo record offset of its (tap, channel
   // group); taps, the offsets of this lane's rows g and g+8; shifted g,
@@ -491,13 +561,24 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     while (r < r1 && !on_grid(r)) ++r;
     return r;
   };
-  // kModeShiftG stages the g row raw from the 16-byte chunk that holds
-  // its first element: the row starts `lead` elements into the buffer
-  auto lead = [&](int r) {
-    return s.vec_g ? (int)(((uintptr_t)(g + (int64_t)r * row_g) & 15) / 2) : 0;
+  // the first g element of window `win` of row r (a row's windows are
+  // consecutive k-rows of its g row)
+  auto g_window = [&](int r, int win) {
+    return kWin ? g + (int64_t)r * row_g + (int64_t)win * s.kwin * s.L * s.O
+                : g + (int64_t)r * row_g;
+  };
+  // k-rows in window `win`
+  auto win_rows = [&](int win) {
+    return kWin ? min(s.kwin, s.K - win * s.kwin) : s.K;
+  };
+  const int n_win = kWin ? s.n_win : 1;
+  // kModeShiftG stages a window's g raw from the 16-byte chunk that holds
+  // its first element: the window starts `lead` elements into the buffer
+  auto lead = [&](int r, int win) {
+    return s.vec_g ? (int)(((uintptr_t)g_window(r, win) & 15) / 2) : 0;
   };
 
-  auto stage = [&](int r, int buf) {
+  auto stage = [&](int r, int win, int buf) {
     unsigned char* xs = bufs + buf * stage_bytes;
     unsigned char* gs = xs + s.x_bytes;
     const int j = r % s.J;
@@ -505,55 +586,59 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     const int b = r / (s.I * s.J);
     const __nv_bfloat16* xr =
         x + (((int64_t)b * s.I + i + di - p) * s.J + j + dj - p) * row_x;
-    const __nv_bfloat16* gr = g + (int64_t)r * row_g;
-    stage_halo(xs, xr, 0, s.K + 2 * p, cols, p, s.K, s.L, s.C, s.CG, s.HP,
-               s.vec_x, tid, nthreads);
-    if (kShift) {  // the raw g row (O == 1), spread into gt by `shift_g`
+    const __nv_bfloat16* gw = g_window(r, win);
+    const int wpos = win_rows(win) * s.L;  // the window's positions
+    stage_halo(xs, xr, kWin ? win * s.kwin : 0, s.kwin + 2 * p, cols, p, s.K,
+               s.L, s.C, s.CG, s.HP, s.vec_x, tid, nthreads);
+    if (kShift) {  // the raw g window (O == 1), spread into gt by `shift_g`
       if (s.vec_g) {
-        const int n_el = lead(r) + KL;
-        const int64_t left = (int64_t)rows_total * KL - ((int64_t)r * KL - lead(r));
+        const int ld = lead(r, win);
+        const int n_el = ld + wpos;
+        // elements from the first staged one to the end of g
+        const int64_t left = (int64_t)rows_total * KL - (gw - ld - g);
         for (int e = tid; e < (n_el + 7) / 8; e += nthreads) {
           const int64_t rest = 2 * (left - 8 * (int64_t)e);
-          cp_async16(gs + 16 * e, gr - lead(r) + 8 * e,
-                     rest < 16 ? (int)rest : 16);
+          cp_async16(gs + 16 * e, gw - ld + 8 * e, rest < 16 ? (int)rest : 16);
         }
       } else {
         uint16_t* graw = reinterpret_cast<uint16_t*>(gs);
-        for (int e = tid; e < KL; e += nthreads) graw[e] = bf16_bits(gr[e]);
+        for (int e = tid; e < wpos; e += nthreads) graw[e] = bf16_bits(gw[e]);
       }
       return;
     }
-    // the g row as [position][OT], zero past K*L and past O
+    // the g window as [position][OT], zero past its positions and past O
     const int npos = s.NKS * 16;
     if (s.vec_g) {
       for (int e = tid; e < npos * NT; e += nthreads) {
         const int q = e % NT;
         const int pos = e / NT;
-        const bool ok = pos < KL && o0 + q * 8 < s.O;
+        const bool ok = pos < wpos && o0 + q * 8 < s.O;
         const __nv_bfloat16* src =
-            ok ? gr + (int64_t)pos * s.O + o0 + q * 8 : gr;
+            ok ? gw + (int64_t)pos * s.O + o0 + q * 8 : gw;
         cp_async16(gs + swizzle(pos, q, NT), src, ok ? 16 : 0);
       }
     } else {
       for (int e = tid; e < npos * OT; e += nthreads) {
         const int o = e % OT;
         const int pos = e / OT;
-        const bool ok = pos < KL && o0 + o < s.O;
+        const bool ok = pos < wpos && o0 + o < s.O;
         *reinterpret_cast<uint16_t*>(gs + swizzle(pos, o >> 3, NT) +
                                      (o & 7) * 2) =
-            ok ? bf16_bits(gr[(int64_t)pos * s.O + o0 + o]) : (uint16_t)0;
+            ok ? bf16_bits(gw[(int64_t)pos * s.O + o0 + o]) : (uint16_t)0;
       }
     }
   };
 
-  // kModeShiftG: gt[u][dl] = g[k, l' - dl] for u = k*(L+2p) + l' (zero
-  // where l' - dl is off the row, past the rows, or dl >= ks), so that
+  // kModeShiftG: gt[u][dl] = g[k, l' - dl] for u = k*(L+2p) + l' over the
+  // window's k-rows (zero where l' - dl is off the row, past the window's
+  // rows, or dl >= ks), so that
   //   dw[dk, dl, c] = sum_u x_halo[u + dk*(L+2p), c] * gt[u][dl]
   // is one GEMM per (dk, channel group) with N = dl
-  auto shift_g = [&](int buf, int r) {
+  auto shift_g = [&](int buf, int r, int win) {
     const uint16_t* graw =
         reinterpret_cast<const uint16_t*>(bufs + buf * stage_bytes + s.x_bytes) +
-        lead(r);
+        lead(r, win);
+    const int nk = win_rows(win);
     const int dl = tid & 7;  // a thread keeps one dl and walks u
     const int ustep = nthreads / 8;
     int u = tid / 8;
@@ -561,7 +646,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     int l = u % cols;
     for (; u < s.NKS * 16; u += ustep) {
       const int lg = l - dl;
-      gt[u * 8 + dl] = (k < s.K && dl < s.ks && lg >= 0 && lg < s.L)
+      gt[u * 8 + dl] = (k < nk && dl < s.ks && lg >= 0 && lg < s.L)
                            ? graw[k * s.L + lg]
                            : (uint16_t)0;
       for (l += ustep; l >= cols; l -= cols) ++k;
@@ -626,26 +711,30 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     }
   };
 
-  // double-buffered over the chunk's rows whose input row is on the grid:
-  // the next row's copy is in flight while this row's MMAs run
-  int r = next_row(r0);
-  if (r < r1) stage(r, 0);
+  // double-buffered over the windows of the chunk's rows whose input row
+  // is on the grid: the next window's copy is in flight while this
+  // window's MMAs run
+  int r = next_row(r0), win = 0;
+  if (r < r1) stage(r, 0, 0);
   cp_async_commit();
   int buf = 0;
   while (r < r1) {
-    const int rn = next_row(r + 1);
-    if (rn < r1) stage(rn, buf ^ 1);
+    const bool last = win + 1 == n_win;  // the row's last window
+    const int rn = last ? next_row(r + 1) : r;
+    const int wn = last ? 0 : win + 1;
+    if (rn < r1) stage(rn, wn, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     if (kShift) {
-      shift_g(buf, r);
+      shift_g(buf, r, win);
       __syncthreads();
     }
     if (n_mt > 0) compute(buf);
     __syncthreads();  // every warp is done with `buf` before it is refilled
-    if (++pending == kFlushRows) flush();
+    if (last && ++pending == kFlushRows) flush();
     r = rn;
+    win = wn;
     buf ^= 1;
   }
   if (first || pending) flush();  // a chunk with no row writes zeros
@@ -653,7 +742,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
 template <int NT, int kMode>
 int occupancy(const TcPlan& s, int threads, int* per_sm) {
-  auto kernel = conv4d_dw_bf16_tc<NT, kMode>;
+  auto kernel = s.n_win > 1 ? conv4d_dw_bf16_tc<NT, kMode, true>
+                            : conv4d_dw_bf16_tc<NT, kMode, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
   if (err != cudaSuccess) return (int)err;
@@ -664,7 +754,8 @@ int occupancy(const TcPlan& s, int threads, int* per_sm) {
 template <int NT, int kMode>
 int launch_tc(const void* x, const void* g, float* partial, const TcPlan& s,
               cudaStream_t stream) {
-  auto kernel = conv4d_dw_bf16_tc<NT, kMode>;
+  auto kernel = s.n_win > 1 ? conv4d_dw_bf16_tc<NT, kMode, true>
+                            : conv4d_dw_bf16_tc<NT, kMode, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
   if (err != cudaSuccess) return (int)err;
@@ -716,29 +807,36 @@ int make_tc_plan(int B, int I, int J, int K, int L, int C, int O, int ks,
   s.KW = kTcMaxWarps / s.MW;
   s.n_mg = (s.nM + s.MW * s.MPW - 1) / (s.MW * s.MPW);
   if ((int64_t)T * s.n_ot * s.n_mg > 65535) return kErrBadShape;
-  s.NKS = ((shift ? K * cols : K * L) + 15) / 16;
-  s.HP = (K + 2 * p) * cols;
-  s.x_bytes = tap ? (s.HP * 2 + 15) / 16 * 16 : s.CG * s.HP * 32;
-  s.g_bytes = shift ? (K * L * 2 + 15) / 16 * 16 + 16
-                    : s.NKS * 16 * s.NT * 16;
-  s.gt_bytes = shift ? s.NKS * 16 * 16 : 0;
-  s.tab_bytes = (s.NKS * 16 * 4 + 15) / 16 * 16;
   s.vec_x = !tap && C % 8 == 0 && (uintptr_t)x % 16 == 0;
   s.vec_g = (shift || O % 8 == 0) && (uintptr_t)g % 16 == 0;
-  s.smem = (size_t)s.tab_bytes + 2 * ((size_t)s.x_bytes + s.g_bytes) +
-           s.gt_bytes;
+  // the staged sizes of a window of kwin k-rows
+  auto size = [&](int kwin, TcPlan* t) {
+    t->NKS = ((shift ? kwin * cols : kwin * L) + 15) / 16;
+    t->HP = (kwin + 2 * p) * cols;
+    t->x_bytes = tap ? (t->HP * 2 + 15) / 16 * 16 : t->CG * t->HP * 32;
+    t->g_bytes = shift ? (kwin * L * 2 + 15) / 16 * 16 + 16
+                       : t->NKS * 16 * t->NT * 16;
+    t->gt_bytes = shift ? t->NKS * 16 * 16 : 0;
+    t->tab_bytes = (t->NKS * 16 * 4 + 15) / 16 * 16;
+    const size_t smem = (size_t)t->tab_bytes +
+                        2 * ((size_t)t->x_bytes + t->g_bytes) + t->gt_bytes;
+    t->smem = (int)smem;
+    return smem;
+  };
 
-  int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (s.smem > (size_t)max_smem) return kErrSharedMemory;
-  const int code = by_instance(x, g, nullptr, s, nullptr, s.MW * s.KW * 32,
-                               &per_sm);
+  Device d;
+  int code = query_device(&d);
+  if (code != 0) return code;
+  s.kwin = choose_window(K, d, [&](int kwin) {
+    TcPlan t = s;
+    return size(kwin, &t);
+  });
+  if (s.kwin == 0) return kErrSharedMemory;
+  s.n_win = (K + s.kwin - 1) / s.kwin;
+  size(s.kwin, &s);
+  const int sms = d.sms;
+  int per_sm = 0;
+  code = by_instance(x, g, nullptr, s, nullptr, s.MW * s.KW * 32, &per_sm);
   if (code != 0) return code;
   if (per_sm < 1) per_sm = 1;
 
@@ -817,7 +915,9 @@ const char* conv4d_dw_error_string(int code) {
       return "shape not taken: every dim >= 1, an odd kernel size, and "
              "B*I*J and K*L within int32";
     case kErrSharedMemory:
-      return "the staged halo and g row exceed the block's shared memory";
+      return "one k-row window (its (1+2p) x (L+2p) halo and L positions of "
+             "g) exceeds the block's shared memory: the grid's last dim L is "
+             "too wide (about 590 at 16 channels)";
     case kErrUnits:
       return "too many (tap, channel tile) units for one block: "
              "ks^2 * ceil(C/CT) * ceil(O/OT) must be <= 384";

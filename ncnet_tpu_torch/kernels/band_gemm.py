@@ -2,27 +2,25 @@
 
 Replaces the TPU kernel ``ncnet_tpu/kernels/band_gemm_pallas.py:83``
 ``_fused_kernel`` (public ``band_conv_bias_relu_pallas``) with
-``csrc/band_gemm_fwd.cu``: one fused gather + GEMM + bias + ReLU per band
-NC layer, ``relu(bias + sum_t x[ptr[n, t]] @ w[t])``, built by ``nvcc``
-from the repository's source on first use and bound through ``ctypes``.
+``csrc/band_gemm_fwd.cu``: one fused neighbour gather + GEMM + bias + ReLU
+per band NC layer, ``relu(bias + sum_t x[nbr(n, t)] @ w[t])``, built by
+``nvcc`` from the repository's source on first use and bound through
+``ctypes``.
 
-What bounds it on the card: bytes. At the 400 px PF-Pascal config with a
-K = 16 band, the pointer table is 25 MB per layer pass and sample, and a
-served pair is 7.2 GFLOP over both symmetric passes counting every tap
-(most taps are null), against 281 GFLOP for the dense NC stack. The
-kernel reads each pointer once, coalesced, into shared memory; skips null
-taps with no FLOP and no read; gathers only the non-null neighbours' rows
-from the L2-resident entry list; and writes each output row once, so the
-gathered ``[N, T*c]`` block of the plain version never exists (see the
-source's header).
+The kernel finds each entry's neighbours from the band itself (its sorted
+B-indices), not from a pointer table: no ``[b, N, T]`` table exists on the
+card. What bounds it there: operations, if anything (at the 400 px
+PF-Pascal config with a K = 16 band about 2.3% of the 625 taps are on the
+band, 0.3 GFLOP a 16->16 layer at 4 samples, against a few MB of entries,
+indices and weights); in practice the tap derivation and the gathers from
+L2 (see the source's header).
 
-The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.band.
-band_conv_bias_relu` routes CPU tensors to the plain PyTorch version, and
-nothing here falls back to it.
+The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.band.band_layer`
+routes CPU tensors to the plain PyTorch version, and nothing here falls
+back to it.
 """
 
 import ctypes
-import math
 import os
 
 import torch
@@ -35,13 +33,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class BandGemmForwardKernel:
-    """Callable wrapper: ``kernel(x, w, bias, ptr) -> out``.
+    """Callable wrapper: ``kernel(x, w, bias, indices, grid_b, inv=None) -> out``.
 
-    ``x``: CUDA ``[b, N, cin]`` float32 or bfloat16 entry list, contiguous.
+    ``x``: CUDA ``[b, N, cin]`` float32 or bfloat16 entry list, contiguous,
+    ``N = hA*wA*K``.
     ``w``: ``[k1, k2, k3, k4, cin, cout]`` of x's dtype and device.
     ``bias``: ``[cout]`` on x's device, rounded to x's dtype as the
     reference casts it.
-    ``ptr``: ``[b, N, T]`` int32, ``T = k1*k2*k3*k4``; ``N`` is the null slot.
+    ``indices``: ``[b, hA, wA, K]`` int32, the band's B-indices sorted
+    ascending per A cell (`ncnet_tpu_torch.ops.band.topk_band`).
+    ``grid_b``: ``(hB, wB)``.
+    ``inv``: ``[b, N]`` int32, the inverse of the B-major order
+    (`ncnet_tpu_torch.ops.band.b_major_order`), a permutation of
+    ``[0, N)``: given, the symmetric pass over the B-major entries (swapped
+    taps; entry e's row is ``inv[e]``); absent, the plain pass.
     Returns ``[b, N, cout]`` in x's dtype, after bias and ReLU.
 
     ``launches`` counts the kernel launches this wrapper made, and nothing
@@ -52,7 +57,7 @@ class BandGemmForwardKernel:
         self.launches = 0
         self._lib = _build.KernelLibrary(
             SOURCE, "band_gemm", "band_gemm_fwd",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
         )
 
     def load(self):
@@ -65,32 +70,46 @@ class BandGemmForwardKernel:
         return self._lib.tensor_core_counts()
 
     @staticmethod
-    def check(x, w, bias, ptr):
+    def check(x, w, bias, indices, grid_b, inv=None):
         """Raise ValueError/TypeError on inputs the kernel does not take."""
         if not x.is_cuda:
             raise ValueError(
                 "band kernel takes CUDA tensors; CPU tensors go through "
-                "ncnet_tpu_torch.ops.band.band_conv_bias_relu (the plain "
-                "version)"
+                "ncnet_tpu_torch.ops.band.band_layer (the plain version)"
             )
         if x.dtype not in _DTYPE_CODES:
             raise TypeError(
                 f"band kernel takes float32 or bfloat16, got {x.dtype}"
             )
-        if x.dim() != 3 or w.dim() != 6 or ptr.dim() != 3:
+        if x.dim() != 3 or w.dim() != 6 or indices.dim() != 4:
             raise ValueError(
-                f"band kernel takes x [b,N,cin], w [k,k,k,k,cin,cout] and ptr "
-                f"[b,N,T]; got {tuple(x.shape)}, {tuple(w.shape)} and "
-                f"{tuple(ptr.shape)}"
+                f"band kernel takes x [b,N,cin], w [k,k,k,k,cin,cout] and "
+                f"indices [b,hA,wA,K]; got {tuple(x.shape)}, "
+                f"{tuple(w.shape)} and {tuple(indices.shape)}"
             )
-        if ptr.dtype != torch.int32:
-            raise TypeError(f"band kernel takes int32 pointers, got {ptr.dtype}")
-        taps = math.prod(w.shape[:4])
-        if tuple(ptr.shape) != (x.shape[0], x.shape[1], taps):
+        int_inputs = (("indices", indices),) + (
+            () if inv is None else (("inv", inv),))
+        for name, t in int_inputs:
+            if t.dtype != torch.int32:
+                raise TypeError(f"band kernel takes int32 {name}, got {t.dtype}")
+        b, n = x.shape[:2]
+        ha, wa, k = indices.shape[1:]
+        hb, wb = (int(d) for d in grid_b)
+        if indices.shape[0] != b or ha * wa * k != n:
             raise ValueError(
-                f"ptr {tuple(ptr.shape)} does not match x {tuple(x.shape)} "
-                f"and the kernel's {taps} taps"
+                f"indices {tuple(indices.shape)} do not match x "
+                f"{tuple(x.shape)}: the grids must give N = hA*wA*K entries"
             )
+        if not 1 <= k <= hb * wb:
+            raise ValueError(
+                f"band width K={k} must be in [1, hB*wB] for the B grid "
+                f"{hb}x{wb}"
+            )
+        if hb >= 2**15 or wb >= 2**16:
+            raise ValueError(f"B grid {hb}x{wb} exceeds the kernel's 16-bit "
+                             "cell coordinates")
+        if inv is not None and tuple(inv.shape) != (b, n):
+            raise ValueError(f"inv must be [{b}, {n}], got {tuple(inv.shape)}")
         if w.shape[4] != x.shape[2]:
             raise ValueError(
                 f"weight cin {w.shape[4]} != entry channels {x.shape[2]}"
@@ -100,7 +119,7 @@ class BandGemmForwardKernel:
                 f"band kernel takes 1 to {MAX_COUT} output channels, got "
                 f"cout {w.shape[5]}"
             )
-        for name, t in (("weight", w), ("ptr", ptr)):
+        for name, t in (("weight", w),) + int_inputs:
             if t.device != x.device:
                 raise ValueError(
                     f"{name} must be on x's device {x.device}, got {t.device}"
@@ -109,19 +128,21 @@ class BandGemmForwardKernel:
             raise ValueError(
                 f"weight must share x's dtype {x.dtype}, got {w.dtype}"
             )
-        if not (x.is_contiguous() and w.is_contiguous() and ptr.is_contiguous()):
-            raise ValueError("band kernel takes contiguous x, w and ptr")
+        if not all(t.is_contiguous() for _, t in (("x", x), ("w", w)) + int_inputs):
+            raise ValueError("band kernel takes contiguous x, w, indices and inv")
         if bias.shape != (w.shape[5],) or bias.device != x.device:
             raise ValueError(
                 f"bias must be [{w.shape[5]}] on {x.device}, got "
                 f"{tuple(bias.shape)} on {bias.device}"
             )
-        if x.shape[0] > 65535 or x.shape[1] >= 2**31 - 1:
+        if b > 65535 or n >= 2**31 - 1:
             raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
 
-    def __call__(self, x, w, bias, ptr):
-        self.check(x, w, bias, ptr)
+    def __call__(self, x, w, bias, indices, grid_b, inv=None):
+        self.check(x, w, bias, indices, grid_b, inv)
         b, n, cin = x.shape
+        _, ha, wa, k = indices.shape
+        hb, wb = (int(d) for d in grid_b)
         cout = w.shape[5]
         # the reference adds the bias in the activation dtype
         bias = bias.to(x.dtype).to(torch.float32).contiguous()
@@ -131,14 +152,17 @@ class BandGemmForwardKernel:
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             code, msg = self._lib.launch(
-                x.data_ptr(), ptr.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), _DTYPE_CODES[x.dtype], b, n, ptr.shape[2],
-                cin, cout, stream,
+                x.data_ptr(), indices.data_ptr(),
+                None if inv is None else inv.data_ptr(),
+                w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                _DTYPE_CODES[x.dtype], b, ha, wa, hb, wb, k, cin, cout,
+                *w.shape[:4], stream,
             )
         if code != 0:
             raise RuntimeError(
                 f"band kernel launch failed (code {code}): {msg}; "
-                f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}"
+                f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}, "
+                f"indices {tuple(indices.shape)}, grid_b {(hb, wb)}"
             )
         self.launches += 1
         return out

@@ -14,7 +14,9 @@ with a deterministic two-pass reduction across rows (no atomics; see the
 source's header). bfloat16 (the training path) runs it on the tensor
 cores (``mma.sync`` m16n8k16 bf16 x bf16 -> float32, the halo and g row
 staged in bfloat16 by ``cp.async``, double-buffered; functions named
-``bf16_tc``); float32 runs register-blocked FFMA on the CUDA cores.
+``bf16_tc``); float32 runs register-blocked FFMA on the CUDA cores. Both
+stage a row in windows of k-rows, so the shared memory does not grow with
+the grid: only a single k-row too wide for a block is refused.
 
 The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.conv4d` routes
 CPU tensors to the plain version, and nothing here falls back to it.

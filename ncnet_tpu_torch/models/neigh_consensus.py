@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ncnet_tpu_torch.device import resolve_device
-from ncnet_tpu_torch.ops.band import band_conv_bias_relu
+from ncnet_tpu_torch.ops.band import band_layer
 from ncnet_tpu_torch.ops.conv4d import conv4d
 
 
@@ -99,7 +99,7 @@ class NeighConsensus(nn.Module):
 
     ``conv`` is the 4D convolution the stack calls and ``band_layer`` the
     band NC layer the sparse path calls (`ncnet_tpu_torch.sparse`); they
-    default to the dispatching `conv4d` and `band_conv_bias_relu`, and a
+    default to the dispatching `conv4d` and `band_layer`, and a
     check may set the plain versions to hold the kernel paths against them.
 
     The parameters are created frozen (serving builds no autograd graph);
@@ -114,7 +114,7 @@ class NeighConsensus(nn.Module):
         self.symmetric = symmetric
         self.symmetric_batch = symmetric_batch
         self.conv = conv4d
-        self.band_layer = band_conv_bias_relu
+        self.band_layer = band_layer
         self.layers = nn.ModuleList()
         for p in init_neigh_consensus(kernel_sizes, channels, scheme,
                                       generator=generator):

@@ -11,17 +11,25 @@ At ``K = hB*wB`` the band is the dense correlation row in row-major order.
 Neighbour reads that fall off the A grid, off the B grid or off the band
 resolve to the null slot ``N = hA*wA*K`` and read exact zeros.
 
-The band NC layer ``relu(gather(x, ptr) @ w_flat + bias)`` has two
-versions of one function, as `ncnet_tpu_torch.ops.conv4d` does:
+The band NC layer ``relu(bias + sum_t x[nbr(n, t)] @ w[t])`` has two
+versions of one function, ``(x, w, bias, geom) -> out`` over a
+`BandGeometry`, as `ncnet_tpu_torch.ops.conv4d` has:
 
-* `band_conv_bias_relu_plain` — gather then ``torch.matmul``: the CPU
-  path, and the version the hand kernel is held against on the card;
-* the hand-written Hopper kernel (`ncnet_tpu_torch.kernels.band_gemm`).
+* `band_layer_plain` — the neighbour pointer table
+  (`band_neighbor_pointers`, built once per kernel size and cached on the
+  geometry), then gather and ``torch.matmul`` (`band_conv_bias_relu_plain`):
+  the CPU path, and the version the hand kernel is held against;
+* the hand-written Hopper kernel (`ncnet_tpu_torch.kernels.band_gemm`),
+  which derives each entry's neighbours from the band's indices and
+  builds no table (`band_taps` mirrors its derivation in plain PyTorch
+  for the tests; no path runs it).
 
-`band_conv_bias_relu` dispatches on the tensor's device only: a CPU tensor
-takes the plain version, a CUDA tensor takes the kernel (which raises on
-what it does not take; nothing falls back).
+`band_layer` dispatches on the tensor's device only: a CPU tensor takes
+the plain version, a CUDA tensor takes the kernel (which raises on what it
+does not take; nothing falls back).
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -175,28 +183,151 @@ def band_conv_gemm(x_entries, w, ptr):
 
 
 def band_conv_bias_relu_plain(x_entries, w, bias, ptr):
-    """Plain PyTorch band NC layer; same contract as `band_conv_bias_relu`."""
+    """Plain PyTorch band NC layer over a pointer table ``ptr`` ``[b, N,
+    T]`` int32 (null pointer N): ``relu(gather(x, ptr) @ w_flat + bias)``,
+    bias added in the activation dtype."""
     y = band_conv_gemm(x_entries, w, ptr)
     return torch.relu(y + bias.to(x_entries.dtype))
 
 
-def band_conv_bias_relu(x_entries, w, bias, ptr):
-    """One band NC layer: ``relu(gather(x, ptr) @ w_flat + bias)``.
+def b_major_order(indices):
+    """``(perm, inv)`` ``[b, N]`` int64: the band's entries enumerated
+    B-major (a stable argsort of the B-indices, so entries of one B-cell
+    keep their A-major order) and the inverse permutation."""
+    b = indices.shape[0]
+    perm = torch.argsort(indices.reshape(b, -1), dim=-1, stable=True)
+    return perm, torch.argsort(perm, dim=-1, stable=True)
+
+
+def plain_pointers(indices, grid_b, kernel):
+    """``[b, N, T]`` table of the plain pass, over the cell-major entries."""
+    ptr = band_neighbor_pointers(indices, grid_b, kernel)
+    return ptr.reshape(indices.shape[0], -1, math.prod(kernel))
+
+
+def swapped_pointers(indices, grid_b, kernel, perm, inv):
+    """``[b, N, T]`` table of the symmetric pass over the B-major entries
+    ``perm``: the swapped-tap table's rows permuted, and its values (which
+    address the cell-major list) remapped through ``inv``; the null slot
+    ``N`` stays ``N``."""
+    b, n = perm.shape
+    ptr = band_neighbor_pointers(indices, grid_b, kernel, swapped=True)
+    rows = ptr.reshape(b, n, -1).gather(
+        1, perm.long()[..., None].expand(-1, -1, math.prod(kernel)))
+    remap = torch.cat(
+        [inv.to(torch.int32),
+         torch.full((b, 1), n, dtype=torch.int32, device=inv.device)], 1
+    )
+    return remap.gather(1, rows.reshape(b, -1).long()).reshape(rows.shape)
+
+
+def band_taps(indices, grid_b, kernel, swapped=False):
+    """The band kernel's tap derivation in plain PyTorch: every neighbour
+    read of the pass that lands on the band, as ``(batch, entry, tap,
+    slot)`` int64 ``[nnz]`` each, in the kernel's order (by entry, then
+    A-offset, then the neighbour cell's slot).
+
+    Entry ``e = (a, s)`` with B cell ``beta = indices[a, s]`` reads, at tap
+    ``t`` (row-major over ``kernel``), slot ``s'`` of A cell ``a + dA``
+    when that slot's B cell lies at ``beta + dB``; ``swapped`` takes dA
+    from ``(d3, d4)`` and dB from ``(d1, d2)``. Entries and slots are
+    cell-major; the symmetric pass relabels them through `b_major_order`
+    (row ``n`` is entry ``perm[n]``, slot ``m`` is read at ``inv[m]``).
+    These are exactly the non-null entries of `band_neighbor_pointers`.
+    The transient is ``[b, hA, wA, K, kA, K]``.
+
+    A test oracle: no path of the port runs it. The tests hold it bitwise
+    against JAX's pointer tables; the card's tests hold the kernel itself
+    against `band_layer_plain`.
+    """
+    k1, k2, k3, k4 = (int(s) for s in kernel)
+    b, ha, wa, k = indices.shape
+    wb = int(grid_b[1])
+    ka_i, ka_j, kb_i, kb_j = (k3, k4, k1, k2) if swapped else (k1, k2, k3, k4)
+    dev = indices.device
+    idx = indices.long()
+    # the band rows of every A-neighbour: [b, hA, wA, kA, K]; -1 off the grid
+    pad = F.pad(idx, (0, 0, ka_j // 2, ka_j // 2, ka_i // 2, ka_i // 2), value=-1)
+    nbr = pad.unfold(1, ka_i, 1).unfold(2, ka_j, 1)  # [b, hA, wA, K, ka_i, ka_j]
+    nbr = nbr.permute(0, 1, 2, 4, 5, 3).reshape(b, ha, wa, 1, ka_i * ka_j, k)
+    # the B offset of each neighbour slot against each entry: [.., K, kA, K]
+    me = idx[..., None, None]
+    dbi = torch.div(nbr, wb, rounding_mode="floor") - me // wb + kb_i // 2
+    dbj = nbr % wb - me % wb + kb_j // 2
+    hit = ((nbr >= 0) & (dbi >= 0) & (dbi < kb_i) & (dbj >= 0) & (dbj < kb_j))
+    bi, ia, ja, s, da, slot = hit.nonzero(as_tuple=True)
+    dbi, dbj = dbi[hit], dbj[hit]
+    dai, daj = da // ka_j, da % ka_j
+    if swapped:
+        tap = ((dbi * kb_j + dbj) * ka_i + dai) * ka_j + daj
+    else:
+        tap = ((dai * ka_j + daj) * kb_i + dbi) * kb_j + dbj
+    cell = ((ia + dai - ka_i // 2) * wa + ja + daj - ka_j // 2) * k + slot
+    return bi, (ia * wa + ja) * k + s, tap, cell
+
+
+class BandGeometry:
+    """What one pass of the band NC stack reads besides its entries: the
+    band's sorted B-indices ``[b, hA, wA, K]`` int32 and the B grid, and
+    for the symmetric pass the B-major order (``perm``, ``inv`` from
+    `b_major_order`; kept as int32, the kernel's index type).
+
+    The plain version's pointer tables are built on first use, once per
+    kernel size, and cached here; the card's kernel builds none.
+    """
+
+    def __init__(self, indices, grid_b, perm=None, inv=None):
+        if (perm is None) != (inv is None):
+            raise ValueError("a band pass takes perm and inv together or neither")
+        self.indices = indices
+        self.grid_b = (int(grid_b[0]), int(grid_b[1]))
+        self.perm = None if perm is None else perm.to(torch.int32).contiguous()
+        self.inv = None if inv is None else inv.to(torch.int32).contiguous()
+        self._tables = {}
+
+    @property
+    def swapped(self):
+        """True on the symmetric pass (swapped taps, B-major entries)."""
+        return self.perm is not None
+
+    def pointers(self, kernel):
+        """The pass's ``[b, N, T]`` int32 pointer table for ``kernel``
+        (``(k1, k2, k3, k4)``); the null pointer is N."""
+        kernel = tuple(int(d) for d in kernel)
+        if kernel not in self._tables:
+            self._tables[kernel] = (
+                swapped_pointers(self.indices, self.grid_b, kernel,
+                                 self.perm, self.inv)
+                if self.swapped
+                else plain_pointers(self.indices, self.grid_b, kernel))
+        return self._tables[kernel]
+
+
+def band_layer_plain(x_entries, w, bias, geom):
+    """Plain PyTorch band NC layer over the geometry's (cached) pointer
+    table; same contract as `band_layer`."""
+    return band_conv_bias_relu_plain(x_entries, w, bias,
+                                     geom.pointers(w.shape[:4]))
+
+
+def band_layer(x_entries, w, bias, geom):
+    """One band NC layer: ``relu(bias + sum_t x[nbr(n, t)] @ w[t])``.
 
     Args:
-      x_entries: ``[b, N, c_in]`` band activations, flat entry list.
+      x_entries: ``[b, N, c_in]`` band activations, flat entry list (the
+        B-major list on the symmetric pass).
       w: ``[k1, k2, k3, k4, c_in, c_out]`` in the activation dtype.
       bias: ``[c_out]``, added in the activation dtype.
-      ptr: ``[b, N, T]`` int32 from `band_neighbor_pointers` (reshaped,
-        row-permuted and remapped by the caller); the null pointer is N.
+      geom: the pass's `BandGeometry`.
 
     Returns:
       ``[b, N, c_out]`` in the activation dtype.
     """
     if x_entries.device.type == "cpu":
-        return band_conv_bias_relu_plain(x_entries, w, bias, ptr)
+        return band_layer_plain(x_entries, w, bias, geom)
     if x_entries.is_cuda:
-        return band_gemm_fwd(x_entries, w, bias, ptr)
+        return band_gemm_fwd(x_entries, w, bias, geom.indices, geom.grid_b,
+                             geom.inv)
     raise ValueError(
         f"band layer runs on cpu or cuda tensors, got {x_entries.device}"
     )

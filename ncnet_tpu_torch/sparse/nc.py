@@ -1,60 +1,27 @@
 """Submanifold neighbourhood consensus on a top-K correlation band
 (``ncnet_tpu/sparse/nc.py``, forward).
 
-Each layer is one fused gather + GEMM + bias + ReLU over the band's flat
-entry list (`ncnet_tpu_torch.ops.band.band_conv_bias_relu`: the hand
+Each layer is one fused neighbour gather + GEMM + bias + ReLU over the
+band's flat entry list (`ncnet_tpu_torch.ops.band.band_layer`: the hand
 kernel on the card). The symmetric term ``T(net(T(x)))`` runs the same
-kernels over the swapped-tap pointer table, on the entries enumerated
-B-major (a stable argsort of the B-indices), so no B-major band is built.
-The pointer tables depend only on the band and each layer's kernel size:
-they are built once per ``(kernel, swapped)`` and shared by the layers.
+layers with the A/B tap roles swapped, on the entries enumerated B-major
+(a stable argsort of the B-indices), so no B-major band is built. Each
+pass hands its layers a `BandGeometry` (the band's indices, the B grid,
+and on the symmetric pass the B-major order): the card's kernel derives
+each entry's neighbours from it, and the plain version builds its pointer
+tables from it once per kernel size.
 """
 
-import math
-
-import torch
-
-from ncnet_tpu_torch.ops.band import band_conv_bias_relu, band_neighbor_pointers
+from ncnet_tpu_torch.ops.band import BandGeometry, b_major_order, band_layer
 
 #: accepted ``band_impl`` values: both compute the same function here (a
 #: CPU tensor takes the plain version, a CUDA tensor the kernel)
 BAND_IMPLS = ("xla", "pallas")
 
 
-def b_major_order(indices):
-    """``(perm, inv)`` ``[b, N]``: the band's entries enumerated B-major (a
-    stable argsort of the B-indices, so entries of one B-cell keep their
-    A-major order) and the inverse permutation."""
-    b = indices.shape[0]
-    perm = torch.argsort(indices.reshape(b, -1), dim=-1, stable=True)
-    return perm, torch.argsort(perm, dim=-1, stable=True)
-
-
-def plain_pointers(indices, grid_b, kernel):
-    """``[b, N, T]`` table of the plain pass, over the cell-major entries."""
-    ptr = band_neighbor_pointers(indices, grid_b, kernel)
-    return ptr.reshape(indices.shape[0], -1, math.prod(kernel))
-
-
-def swapped_pointers(indices, grid_b, kernel, perm, inv):
-    """``[b, N, T]`` table of the symmetric pass over the B-major entries
-    ``perm``: the swapped-tap table's rows permuted, and its values (which
-    address the cell-major list) remapped through ``inv``; the null slot
-    ``N`` stays ``N``."""
-    b, n = perm.shape
-    ptr = band_neighbor_pointers(indices, grid_b, kernel, swapped=True)
-    rows = ptr.reshape(b, n, -1).gather(
-        1, perm[..., None].expand(-1, -1, math.prod(kernel)))
-    remap = torch.cat(
-        [inv.to(torch.int32),
-         torch.full((b, 1), n, dtype=torch.int32, device=inv.device)], 1
-    )
-    return remap.gather(1, rows.reshape(b, -1).long()).reshape(rows.shape)
-
-
 def sparse_neigh_consensus_apply(params, values, indices, grid_b,
                                  symmetric=True, band_impl="xla",
-                                 layer=band_conv_bias_relu):
+                                 layer=band_layer):
     """Filter a correlation band with the NC stack.
 
     Args:
@@ -66,9 +33,9 @@ def sparse_neigh_consensus_apply(params, values, indices, grid_b,
       symmetric: add the transposed-pass term.
       band_impl: ``'xla'`` or ``'pallas'`` (the JAX package's two
         backends; the same function here). Anything else raises.
-      layer: the band NC layer ``(x, w, bias, ptr) -> out`` (the
-        dispatching `band_conv_bias_relu` by default; a check may pass the
-        plain version to hold the kernel path against it).
+      layer: the band NC layer ``(x, w, bias, geom) -> out`` (the
+        dispatching `band_layer` by default; a check may pass the plain
+        version to hold the kernel path against it).
 
     Returns:
       ``[b, hA, wA, K]`` filtered band on the same support.
@@ -78,26 +45,20 @@ def sparse_neigh_consensus_apply(params, values, indices, grid_b,
     dtype = values.dtype
     b, ha, wa, k = values.shape
     n = ha * wa * k
-    tables = {}  # (kernel, swapped) -> [b, N, T], shared by the layers
 
-    def net(x, swapped, table):
+    def net(x, geom):
         for p in params:
-            w = p["kernel"].to(dtype).contiguous()
-            kernel = tuple(w.shape[:4])
-            if (kernel, swapped) not in tables:
-                tables[kernel, swapped] = table(kernel)
-            x = layer(x, w, p["bias"].to(dtype), tables[kernel, swapped])
+            x = layer(x, p["kernel"].to(dtype).contiguous(),
+                      p["bias"].to(dtype), geom)
         return x
 
     x = values.reshape(b, n, 1).contiguous()
-    out = net(x, False, lambda kern: plain_pointers(indices, grid_b, kern))
+    out = net(x, BandGeometry(indices, grid_b))
 
     if symmetric:
         perm, inv = b_major_order(indices)
-        out2 = net(
-            x.gather(1, perm[..., None]).contiguous(), True,
-            lambda kern: swapped_pointers(indices, grid_b, kern, perm, inv),
-        )
+        out2 = net(x.gather(1, perm[..., None]).contiguous(),
+                   BandGeometry(indices, grid_b, perm, inv))
         out = out + out2.gather(1, inv[..., None].expand(-1, -1, out2.shape[2]))
 
     if out.shape[-1] != 1:

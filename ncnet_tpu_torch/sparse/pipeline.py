@@ -11,11 +11,7 @@ one. Only ``corr_impl='dense'`` is ported; the streamed band is ROADMAP A9.
 
 import torch
 
-from ncnet_tpu_torch.ops.band import (
-    band_conv_bias_relu,
-    band_to_dense,
-    topk_band,
-)
+from ncnet_tpu_torch.ops.band import band_layer, band_to_dense, topk_band
 from ncnet_tpu_torch.ops.correlation import correlation_4d
 from ncnet_tpu_torch.ops.matching import mutual_matching
 from ncnet_tpu_torch.sparse.matching import band_mutual_matching
@@ -51,7 +47,7 @@ def resolve_band_width(nc_topk, grid_b):
 
 
 def sparse_match_pipeline(params, config, feat_a, feat_b,
-                          layer=band_conv_bias_relu):
+                          layer=band_layer):
     """Features -> filtered correlation band.
 
     ``params`` is the NC stack's ``[{'kernel', 'bias'}, ...]``; ``layer``

@@ -1,7 +1,8 @@
 """The port's band ops against the JAX package: top-K selection (mutual and
 plain, with planted ties), the neighbour pointer tables (bitwise), the
 gathers, the band mutual matching, and the plain band NC layer against
-the Pallas kernel in interpret mode. Inputs are numpy from a seed."""
+the Pallas kernel in interpret mode; the layer's CPU dispatch and the
+band kernel wrapper's input checks. Inputs are numpy from a seed."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -187,13 +188,19 @@ def test_plain_band_layer_matches_pallas_interpret(case, dtype):
 
 
 def test_band_layer_dispatch_takes_plain_path_on_cpu():
-    x, w, bias, ptr = _layer_inputs(np.random.RandomState(9), 1, 3, 3, 3, 3,
-                                    4, 2, 2)
-    tx, tw, tb, tp = map(torch.from_numpy, (x, w, bias, ptr))
+    rng = np.random.RandomState(9)
+    idx = _indices(rng, 1, 3, 3, 3, 3, 4, mutual=False)
+    x = rng.randn(1, 36, 2).astype(np.float32)
+    w = (rng.randn(3, 3, 3, 3, 2, 2) * 0.1).astype(np.float32)
+    bias = rng.randn(2).astype(np.float32)
+    tx, tw, tb, ti = map(torch.from_numpy, (x, w, bias, idx))
+    geom = band.BandGeometry(ti, (3, 3))
     before = band_gemm_fwd.launches
-    out = band.band_conv_bias_relu(tx, tw, tb, tp)
+    out = band.band_layer(tx, tw, tb, geom)
     assert band_gemm_fwd.launches == before  # the kernel never ran
-    assert torch.equal(out, band.band_conv_bias_relu_plain(tx, tw, tb, tp))
+    assert torch.equal(out, band.band_layer_plain(tx, tw, tb, geom))
+    assert torch.equal(out, band.band_conv_bias_relu_plain(
+        tx, tw, tb, band.plain_pointers(ti, (3, 3), (3, 3, 3, 3))))
 
 
 class _FakeCudaTensor:
@@ -216,42 +223,69 @@ class _FakeCudaTensor:
 def test_band_kernel_wrapper_rejects_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA tensors"):
         band_gemm_fwd(torch.zeros(1, 4, 1), torch.zeros(3, 3, 3, 3, 1, 1),
-                      torch.zeros(1), torch.zeros(1, 4, 81, dtype=torch.int32))
+                      torch.zeros(1), torch.zeros(1, 2, 2, 1, dtype=torch.int32),
+                      (2, 2))
+
+
+_I32, _I64 = torch.int32, torch.int64
 
 
 @pytest.mark.parametrize(
-    "x_shape,w_shape,p_shape,dtype,p_dtype,b_shape,match",
+    "x_shape,w_shape,i_shape,dtype,i_dtype,b_shape,inv,match",
     [
-        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 4, 81), torch.float16, torch.int32,
-         (1,), "float32 or bfloat16"),
-        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 4, 81), torch.float32, torch.int64,
-         (1,), "int32"),
-        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 4, 16), torch.float32, torch.int32,
-         (1,), "taps"),
-        ((1, 4, 2), (3, 3, 3, 3, 1, 1), (1, 4, 81), torch.float32, torch.int32,
-         (1,), "cin"),
-        ((1, 4, 1), (3, 3, 3, 3, 1, 17), (1, 4, 81), torch.float32, torch.int32,
-         (17,), "1 to 16 output channels"),
-        ((1, 4), (3, 3, 3, 3, 1, 1), (1, 4, 81), torch.float32, torch.int32,
-         (1,), r"x \[b,N,cin\]"),
-        ((1, 4, 1), (3, 3, 3, 3, 1, 2), (1, 4, 81), torch.float32, torch.int32,
-         (1,), "bias must be"),
+        # (x, w, indices, activation dtype, index dtype, bias, inv as
+        # (shape, dtype) or None, what the error names)
+        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 2, 2, 1), torch.float16, _I32,
+         (1,), None, "float32 or bfloat16"),
+        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 2, 2, 1), torch.float32, _I64,
+         (1,), None, "int32 indices"),
+        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 2, 2, 2), torch.float32, _I32,
+         (1,), None, "do not match x"),
+        ((1, 4, 2), (3, 3, 3, 3, 1, 1), (1, 2, 2, 1), torch.float32, _I32,
+         (1,), None, "cin"),
+        ((1, 4, 1), (3, 3, 3, 3, 1, 17), (1, 2, 2, 1), torch.float32, _I32,
+         (17,), None, "1 to 16 output channels"),
+        ((1, 4), (3, 3, 3, 3, 1, 1), (1, 2, 2, 1), torch.float32, _I32,
+         (1,), None, r"x \[b,N,cin\]"),
+        ((1, 4, 1), (3, 3, 3, 3, 1, 2), (1, 2, 2, 1), torch.float32, _I32,
+         (1,), None, "bias must be"),
+        # a band wider than the 2x2 B grid
+        ((1, 20, 1), (3, 3, 3, 3, 1, 1), (1, 2, 2, 5), torch.float32, _I32,
+         (1,), None, "band width"),
+        # indices of another batch than x's
+        ((2, 4, 1), (3, 3, 3, 3, 1, 1), (1, 2, 2, 1), torch.float32, _I32,
+         (1,), None, "do not match x"),
+        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 2, 2, 1), torch.float32, _I32,
+         (1,), ((1, 4), _I64), "int32 inv"),
+        ((1, 4, 1), (3, 3, 3, 3, 1, 1), (1, 2, 2, 1), torch.float32, _I32,
+         (1,), ((1, 5), _I32), "inv must be"),
     ],
 )
 def test_band_kernel_wrapper_rejects_shapes_and_dtypes(
-        x_shape, w_shape, p_shape, dtype, p_dtype, b_shape, match):
+        x_shape, w_shape, i_shape, dtype, i_dtype, b_shape, inv, match):
     x = _FakeCudaTensor(torch.zeros(x_shape), dtype)
     w = _FakeCudaTensor(torch.zeros(w_shape), dtype)
-    ptr = _FakeCudaTensor(torch.zeros(p_shape, dtype=p_dtype))
+    idx = _FakeCudaTensor(torch.zeros(i_shape, dtype=i_dtype))
     bias = _FakeCudaTensor(torch.zeros(b_shape))
+    if inv is not None:
+        inv = _FakeCudaTensor(torch.zeros(inv[0], dtype=inv[1]))
     with pytest.raises((ValueError, TypeError), match=match):
-        BandGemmForwardKernel.check(x, w, bias, ptr)
+        BandGemmForwardKernel.check(x, w, bias, idx, (2, 2), inv)
 
 
-def test_band_kernel_wrapper_rejects_non_contiguous():
-    x = _FakeCudaTensor(torch.zeros(1, 2, 4).transpose(1, 2))
+@pytest.mark.parametrize("which", ["x", "indices", "inv"])
+def test_band_kernel_wrapper_rejects_non_contiguous(which):
+    t = {
+        "x": torch.zeros(1, 2, 4).transpose(1, 2),
+        "indices": torch.zeros(1, 2, 2, 2, dtype=torch.int32)[..., ::2],
+        "inv": torch.zeros(1, 8, dtype=torch.int32)[:, ::2],
+    }
+    x = _FakeCudaTensor(t["x"] if which == "x" else torch.zeros(1, 4, 2))
     w = _FakeCudaTensor(torch.zeros(3, 3, 3, 3, 2, 1))
-    ptr = _FakeCudaTensor(torch.zeros(1, 4, 81, dtype=torch.int32))
+    idx = _FakeCudaTensor(t["indices"] if which == "indices"
+                          else torch.zeros(1, 2, 2, 1, dtype=torch.int32))
+    inv = _FakeCudaTensor(t["inv"] if which == "inv"
+                          else torch.zeros(1, 4, dtype=torch.int32))
     bias = _FakeCudaTensor(torch.zeros(1))
     with pytest.raises(ValueError, match="contiguous"):
-        BandGemmForwardKernel.check(x, w, bias, ptr)
+        BandGemmForwardKernel.check(x, w, bias, idx, (2, 2), inv)

@@ -16,9 +16,10 @@ from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
 from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
 from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
 from ncnet_tpu_torch.ops.band import (
-    band_conv_bias_relu,
-    band_conv_bias_relu_plain,
-    band_neighbor_pointers,
+    BandGeometry,
+    b_major_order,
+    band_layer,
+    band_layer_plain,
     topk_band,
 )
 from ncnet_tpu_torch.ops.conv4d import (
@@ -109,6 +110,11 @@ BAND_CASES = [
     (1, 25, 25, 19, 25, 16, 5, 16, 16, True),  # A 25x25 against B 19x25
     (1, 4, 3, 3, 5, 4, 3, 3, 9, False),        # tiny grid, N = 48, cout 9
     (1, 6, 7, 6, 7, 42, 3, 4, 4, False),       # complete band
+    (1, 6, 7, 6, 7, 42, 3, 4, 4, True),
+    (2, 12, 12, 12, 12, 144, 5, 16, 16, True),  # complete band at 192 px
+    (1, 12, 12, 9, 12, 108, 5, 1, 16, False),   # and 192 against 144 px
+    (1, 25, 25, 19, 25, 16, 5, 16, 1, True),
+    (2, 25, 25, 25, 25, 16, 5, 1, 16, True),
 ]
 
 
@@ -117,30 +123,27 @@ def _band_inputs(case, device):
     g = torch.Generator(device=device).manual_seed(case)
     scores = torch.randn(b, ha, wa, hb, wb, generator=g, device=device)
     _, idx = topk_band(scores, K, mutual=True)
+    geom = BandGeometry(idx, (hb, wb), *(b_major_order(idx) if swapped else ()))
     n = ha * wa * K
-    ptr = band_neighbor_pointers(idx, (hb, wb), (k,) * 4, swapped=swapped)
-    ptr = ptr.reshape(b, n, -1).contiguous()
     bound = (cin * k**4) ** -0.5
     x = torch.rand(b, n, cin, generator=g, device=device)
     w = (torch.rand(k, k, k, k, cin, cout, generator=g, device=device) * 2 - 1) * bound
     bias = (torch.rand(cout, generator=g, device=device) * 2 - 1) * bound
-    return x, w, bias, ptr
+    return x, w, bias, geom
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", range(len(BAND_CASES)))
 def test_band_kernel_matches_plain(card, case, dtype):
     dt = getattr(torch, dtype)
-    x, w, bias, ptr = _band_inputs(case, card)
+    x, w, bias, geom = _band_inputs(case, card)
     x, w = x.to(dt), w.to(dt)
-    n = x.shape[1]
-    assert int(ptr.min()) >= 0 and int(ptr.max()) <= n
     before = band_gemm_fwd.launches
-    got = band_conv_bias_relu(x, w, bias, ptr)
+    got = band_layer(x, w, bias, geom)
     torch.cuda.synchronize()
     assert band_gemm_fwd.launches == before + 1
     assert got.dtype == dt and got.shape == (*x.shape[:2], w.shape[5])
-    want = band_conv_bias_relu_plain(x, w, bias, ptr)
+    want = band_layer_plain(x, w, bias, geom)
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     # float32: two float32 sums of up to k^4*cin products in different
@@ -149,28 +152,40 @@ def test_band_kernel_matches_plain(card, case, dtype):
     # sums in different orders
     tol = 1e-5 if dtype == "float32" else 1e-2
     assert err <= tol * scale, (err, scale)
+    # each row's taps are summed in a fixed order, no atomics
+    assert torch.equal(band_layer(x, w, bias, geom), got)
 
 
 def test_band_kernel_rejects_bad_inputs(card):
     x = torch.zeros(1, 4, 1, device=card)
     w = torch.zeros(3, 3, 3, 3, 1, 1, device=card)
     bias = torch.zeros(1, device=card)
-    ptr = torch.zeros(1, 4, 81, dtype=torch.int32, device=card)
+    idx = torch.tensor([[[[0], [1]], [[2], [3]]]], dtype=torch.int32, device=card)
+    inv = b_major_order(idx)[1].to(torch.int32)
     with pytest.raises(TypeError, match="int32"):
-        band_gemm_fwd(x, w, bias, ptr.long())
+        band_gemm_fwd(x, w, bias, idx.long(), (2, 2))
     with pytest.raises(ValueError, match="device"):
-        band_gemm_fwd(x, w, bias, ptr.cpu())
+        band_gemm_fwd(x, w, bias, idx.cpu(), (2, 2))
     with pytest.raises(ValueError, match="dtype"):
-        band_gemm_fwd(x, w.to(torch.bfloat16), bias, ptr)
+        band_gemm_fwd(x, w.to(torch.bfloat16), bias, idx, (2, 2))
     with pytest.raises(ValueError, match="contiguous"):
-        band_gemm_fwd(torch.zeros(1, 8, 1, device=card)[:, ::2], w, bias, ptr)
+        band_gemm_fwd(torch.zeros(1, 8, 1, device=card)[:, ::2], w, bias, idx,
+                      (2, 2))
     with pytest.raises(ValueError, match="1 to 16"):
         band_gemm_fwd(x, torch.zeros(3, 3, 3, 3, 1, 17, device=card),
-                      torch.zeros(17, device=card), ptr)
-    # null pointers (== N) read zeros: relu(bias) everywhere
-    out = band_gemm_fwd(x + 1, w + 1, bias - 0.5, torch.full_like(ptr, 4))
-    torch.cuda.synchronize()
-    assert torch.equal(out, torch.zeros_like(out))
+                      torch.zeros(17, device=card), idx, (2, 2))
+    with pytest.raises(ValueError, match="inv must be"):
+        band_gemm_fwd(x, w, bias, idx, (2, 2), inv[:, :3].contiguous())
+    with pytest.raises(ValueError, match="do not match"):
+        band_gemm_fwd(x[:, :3], w, bias, idx, (2, 2))
+    # on a 1x10 B grid the four cells' B cells 0, 3, 6, 9 are 3 apart: no
+    # neighbour of a 3^4 window is on the band but the entry itself, so
+    # every row reads its own entry at the centre tap and nothing else
+    far = torch.tensor([[[[0], [3]], [[6], [9]]]], dtype=torch.int32, device=card)
+    for order in ((), (b_major_order(far)[1].to(torch.int32),)):
+        out = band_gemm_fwd(x + 1, w + 1, bias + 0.5, far, (1, 10), *order)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.full_like(out, 1.5))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -219,6 +234,41 @@ def test_dw_kernel_matches_plain(card, case, dtype):
     assert err <= 1e-4 * scale, (err, scale)
     # no atomics: a second launch is bitwise the first
     assert torch.equal(conv4d_dw(x, g, k), got)
+
+
+DW_WIDE_CASES = [
+    # (x shape [b,i,j,k,l], cin, cout, dtype): 768 px grids, and the 16->16
+    # layer just past the grids a whole-grid staging fitted (40x40 bf16,
+    # 41x41 f32); 5^4 kernels
+    ((1, 48, 48, 48, 48), 1, 16, "float32"),
+    ((1, 48, 48, 48, 48), 16, 16, "float32"),
+    ((1, 48, 48, 48, 48), 16, 1, "float32"),
+    ((1, 48, 48, 48, 48), 1, 16, "bfloat16"),
+    ((1, 48, 48, 48, 48), 16, 16, "bfloat16"),
+    ((1, 48, 48, 48, 48), 16, 1, "bfloat16"),
+    ((1, 40, 40, 40, 40), 16, 16, "bfloat16"),
+    ((1, 41, 41, 41, 41), 16, 16, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DW_WIDE_CASES)))
+def test_dw_kernel_matches_plain_on_wide_grids(card, case):
+    """dw stages a window of k-rows, so its shared memory does not grow
+    with the grid: grids past a whole-grid footprint run and agree."""
+    shape, cin, cout, dtype = DW_WIDE_CASES[case]
+    x, _, _ = _inputs(shape, 5, cin, cout, 500 + case, card)
+    g = torch.randn(*shape, cout, generator=torch.Generator(device=card)
+                    .manual_seed(600 + case), device=card)
+    x, g = x.to(getattr(torch, dtype)), g.to(getattr(torch, dtype))
+    got = conv4d_dw(x, g, 5)
+    again = conv4d_dw(x, g, 5)
+    torch.cuda.synchronize()
+    want = conv4d_dw_plain(x, g, 5)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # the same float32 products summed in other orders (as above)
+    assert err <= 1e-4 * scale, (err, scale)
+    assert torch.equal(got, again)
 
 
 def test_dw_kernel_rejects_bad_inputs(card):
