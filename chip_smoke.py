@@ -12,14 +12,19 @@ Phases, one JSON line each:
              (seconds and ptxas's register/spill report); then each
              library's HMMA/HGMMA (tensor-core) instructions per kernel
              function, from ``cuobjdump -sass``: the bfloat16 routes of
-             conv4d forward and dw (functions named ``bf16_tc``) must
-             have some in every function, or the phase fails; without
-             cuobjdump the phase says so.
+             conv4d forward and dw (functions named ``bf16_tc``) and the
+             forward's float32 split-TF32 route (``tf32x3``) must have
+             some in every function, and their CUDA-core (FFMA) functions
+             none, or the phase fails; without cuobjdump the phase says
+             so.
 3. kernels — the conv4d kernel against its plain PyTorch version (TF32
              off) at the PF-Pascal NC layer shapes (batch 2x2 on the 25^4
              grid), a rectangular and a tiny grid, float32 and bfloat16;
              then each layer timed with CUDA events at the serving path's
-             square-batch shape, beside its plain version and its bound.
+             square-batch shape, beside its plain version and its bound
+             (float32-accurate work at the split-TF32 rate, 495/3 TFLOP/s),
+             with its route (split-TF32 tensor cores or FFMA, by the
+             kernel's shape rule), held to TOL and to a bitwise repeat.
 4. band_kernels — the band kernel, which derives each entry's neighbours
              from the band's indices, against its plain version (pointer
              table, gather, matmul, TF32 off) on real K = 16 mutual bands
@@ -105,9 +110,13 @@ import time
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): FP32 on the CUDA
-# cores, BF16 on the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Published H100 SXM peaks (NVIDIA data sheet, dense): BF16 and TF32 on
+# the tensor cores, HBM3 bandwidth. Work held to float32 accuracy is
+# bounded at the split-TF32 rate: the TF32 peak over the three MMAs a
+# product of the conv4d kernel's float32 route (csrc/mma_tf32.cuh), faster
+# than FP32 FFMA on the CUDA cores (67 TFLOP/s).
+SPLIT_TF32_FLOPS = 495e12 / 3
+PEAK_FLOPS = {torch.float32: SPLIT_TF32_FLOPS, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
 SEED = 0
@@ -147,8 +156,10 @@ TRAIN_SAMPLES = 2 * TRAIN_BATCH  # one pipeline call, both directions batched
 TRAIN_STEPS = 3
 # 768 px: the 48x48 grid on which dw stages windows of k-rows
 WIDE_HW, WIDE_GRID = (768, 768), 48
-# the libraries whose bfloat16 route runs on the tensor cores
+# the libraries whose bfloat16 route runs on the tensor cores, and the one
+# whose float32 route does (split-TF32) where its shape rule says so
 BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw")
+TF32X3_ROUTES = ("conv4d_fwd",)
 
 
 def emit(obj):
@@ -194,6 +205,13 @@ def phase_build(kernels):
         if name in BF16_TC_ROUTES and summary["bf16_route_min_mma"] == 0:
             errors[name] = (f"the bfloat16 route has no tensor-core "
                             f"instruction in some function: {counts}")
+        if name in TF32X3_ROUTES and (summary["tf32x3_route_functions"] == 0
+                                      or summary["tf32x3_route_min_mma"] == 0):
+            errors[name] = (f"the split-TF32 route has no tensor-core "
+                            f"instruction in some function: {counts}")
+        if name in BF16_TC_ROUTES and summary["other_mma"] != 0:
+            errors[name] = (f"a CUDA-core (FFMA) function holds tensor-core "
+                            f"instructions: {counts}")
 
     threads = [threading.Thread(target=one, args=item) for item in kernels.items()]
     for t in threads:
@@ -302,20 +320,34 @@ def phase_kernels(smi, conv4d_fwd, conv4d_plain):
                 raise AssertionError(f"conv4d kernel disagrees: {checks[-1]}")
 
     # per-layer times at the serving path's square batch: MAX_BATCH pairs,
-    # both symmetric directions batched
+    # both symmetric directions batched; each timed layer also held to TOL
+    # against the plain version and to a bitwise repeat, with its route
+    from ncnet_tpu_torch.kernels.conv4d import route
+
     layers = []
     shape = (2 * MAX_BATCH, g, g, g, g)
     for li, (cin, cout) in enumerate(NC_LAYERS):
         x, w, b = nc_inputs(shape, cin, cout, torch.float32, seed=10 + li)
         ms = time_ms(lambda: conv4d_fwd(x, w, b), reps=3)
         plain_ms = time_ms(lambda: conv4d_plain(x, w, b), reps=3)
-        err = float((conv4d_fwd(x, w, b) - conv4d_plain(x, w, b)).abs().max())
+        got, again = conv4d_fwd(x, w, b), conv4d_fwd(x, w, b)
+        want = conv4d_plain(x, w, b)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        bitwise = bool(torch.equal(got, again))
+        built = conv4d_fwd.built_route(torch.float32, cin, cout)
         bms, by, flops = bound_ms(shape, cin, cout, torch.float32)
         layers.append({"layer": li, "shape": list(shape), "cin": cin,
-                       "cout": cout, "dtype": "float32", "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                       "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
-                       "max_abs_err": err})
+                       "cout": cout, "dtype": "float32", "route": built,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "gflop": flops / 1e9,
+                       "tflops": flops / ms / 1e9, "max_abs_err": err,
+                       "max_rel_err": err / scale, "tol_rel": TOL[torch.float32],
+                       "bitwise_repeat": bitwise})
+        if not (bitwise and err <= TOL[torch.float32] * scale
+                and built == route(torch.float32, cin, cout)):
+            emit({"phase": "kernels", "checks": checks, "timed": layers})
+            raise AssertionError(f"timed float32 layer fails: {layers[-1]}")
     emit({"phase": "kernels", "card": smi,
           "checks": checks, "timed": layers})
     return layers

@@ -54,12 +54,55 @@
 //     8) stage with plain loads;
 //   * every output is summed by one thread in a fixed order: a repeated
 //     call is bitwise equal.
-// float32 (serving) keeps the CUDA-core route: each thread holds 4
-// positions x OT output channels of float32 accumulators, reads one
-// activation per position and a broadcast float4 of weights per step
-// (register-blocked FFMA); the staged halo stores each position with an
-// odd float stride, so a warp's activation reads fall in distinct banks.
-// TF32 would keep three digits, short of the serving check's 1e-4.
+// float32 (serving, the gradient check) takes one of two routes, chosen
+// by the shape rule f32_route (below) and nothing else:
+//   * split-TF32 ("3xTF32") on the tensor cores, conv4d_fwd_tf32x3_tc,
+//     for C >= 2 and O >= 2 (the 16->16 layer): the bfloat16 route's
+//     kModeChannels structure (tap shifts as ldmatrix row addresses, one
+//     owner thread an output) with mma.sync m16n8k8 .tf32 products
+//     (mma_tf32.cuh). Each float32 operand a is split into hi =
+//     cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi), and a product is
+//     lo*hi + hi*lo + hi*hi, in that order; only lo*lo (about 2^-22
+//     relative) is dropped. One TF32 product keeps 10 mantissa bits: about
+//     4e-4 of the scale on a 10,000-term NC sum, short of the serving
+//     check's 1e-4; the split keeps about 2e-6 (both emulated in
+//     tests/test_torch_tf32_split.py). Three MMAs a product put the bound
+//     at 495 / 3 = 165 TFLOP/s of float32-accurate work;
+//   * the MMA's own accumulation rounds toward zero, which over a whole
+//     10,000-term sum biases it by about 8e-5 of the scale (measured on an
+//     H100). So the tensor cores sum one dk slice of a row (ks taps x C
+//     channels) into a zeroed partial, and each partial is added into the
+//     float32 accumulators with one rounding to nearest: about 1e-6;
+//   * the halo keeps each position's 16 channels as a 64-byte record of
+//     four swizzled 16-byte chunks, so a k8 step's A fragment (8 channels
+//     of 16 shifted positions) is one ldmatrix.x4 of the hi array and one
+//     of the lo array. The halo is split once a staged row, when it has
+//     landed (a pass between the row's two barriers): a position is read
+//     by 25 taps, so splitting per fragment in registers cost 25 times the
+//     conversions (cvt.rna is 4 instructions with its inf/NaN guard; that
+//     form took 32 ms for 16->16, this one well under 20);
+//   * the weights land raw by cp.async, [k row][o] with o XOR-swizzled so
+//     that a warp's B loads hit 32 distinct banks, double-buffered, and a
+//     B fragment's 4 words are split in registers: one split serves the
+//     warp's 5 m16 tiles;
+//   * the m16 tiles a warp (5, 2 or 1) are a template parameter, so the
+//     tile loop unrolls with no branch and the ldmatrix loads of all tiles
+//     issue ahead of their MMAs;
+//   * shared memory at the PF-Pascal 16->16 layer (25^4 grid, 5^4 taps,
+//     640-position tile): a halo array is 29 x 29 positions x 64 B =
+//     53,824 B, held three times (hi and lo of this row, raw of the next),
+//     and a raw weight buffer 25 taps x 16 c x 16 o x 4 B = 25,600 B, held
+//     twice: 3 x 53,824 + 2 x 25,600 = 212,672 B of the 232,448 a block may
+//     have, so one block of 8 warps an SM (the bfloat16 route fits two).
+//     The next row's copy overlaps this row's MMAs; where a grid's tile
+//     does not fit (wide rows), the plan takes fewer m16 tiles a warp
+//     before it refuses;
+//   * FFMA on the CUDA cores, conv4d_fwd_kernel, for the layers f32_route
+//     keeps there: each thread holds 4 positions x OT output channels of
+//     float32 accumulators, reads one activation per position and a
+//     broadcast float4 of weights per step (register-blocked FFMA); the
+//     staged halo stores each position with an odd float stride, so a
+//     warp's activation reads fall in distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +110,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -586,6 +630,290 @@ int launch_tc(const void* x, const void* w, const float* bias, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 route on the tensor cores: split-TF32 (see the header).
+
+// The float32 routes, by shape alone (f32_route): never a retry after a
+// failed build or launch, which raises.
+constexpr int kRouteFfma = 0;
+constexpr int kRouteTf32x3 = 1;
+constexpr int kRouteBf16 = 2;
+
+int f32_route(int C, int O) {
+  return C >= 2 && O >= 2 ? kRouteTf32x3 : kRouteFfma;
+}
+
+struct F32Shape {
+  int B, I, J, K, L, C, O, ks;
+  int CG;       // 16-channel groups
+  int HP;       // halo positions of the largest position tile
+  int krows;    // k rows (tap, channel) of a staged (di, dj) row's weights
+  int x_bytes;  // bytes of one halo array (raw, hi or lo; a multiple of 64)
+  int w_bytes;  // bytes of one raw weight buffer
+  int vec_x;    // stage the halo with cp.async (C % 4 == 0, 16-byte aligned)
+  int vec_w;    // stage the weights with cp.async (O % 4 == 0, aligned)
+};
+
+// NT: n8 tiles a block (8 * NT output channels); MT: m16 tiles a warp (the
+// tile is 8 warps x MT x 16 positions). Shared memory: the halo's hi, lo
+// and raw (next row) arrays, then two raw weight buffers.
+template <int NT, int MT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    conv4d_fwd_tf32x3_tc(const float* __restrict__ x,
+                         const float* __restrict__ w,
+                         const float* __restrict__ bias,
+                         float* __restrict__ out, const F32Shape s) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  using namespace mma16;
+  using namespace mma32;
+  constexpr int OT = 8 * NT;
+  constexpr int kTilePos = kTcWarps * MT * 16;
+  const int p = s.ks / 2;
+  const int KL = s.K * s.L;
+  const int cols = s.L + 2 * p;
+  const int T = s.ks * s.ks;
+  const int n_otiles = (s.O + OT - 1) / OT;
+  const int tile = blockIdx.x / n_otiles;
+  const int o0 = (blockIdx.x % n_otiles) * OT;
+  const int j = blockIdx.y;
+  const int b = blockIdx.z / s.I;
+  const int i = blockIdx.z % s.I;
+  const int p0 = tile * kTilePos;
+  const int p1 = min(p0 + kTilePos, KL);
+  const int kmin = p0 / s.L;
+  const int rows = (p1 - 1) / s.L - kmin + 1 + 2 * p;
+  unsigned char* xhi = tc_smem;
+  unsigned char* xlo = xhi + s.x_bytes;
+  unsigned char* xraw = xlo + s.x_bytes;
+  unsigned char* wbufs = xraw + s.x_bytes;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int m_warp = warp * MT * 16;  // first position of the warp
+  const bool active = p0 + m_warp < p1;
+
+  // the halo index of an output position at tap (0, 0); rows past the
+  // tile read position 0 (their sums are never stored)
+  auto halo_of = [&](int m) {
+    const int pos = p0 + m;
+    return pos < p1 ? (pos / s.L - kmin) * cols + pos % s.L : 0;
+  };
+  int hrow[MT];  // this lane's ldmatrix row: position lane % 16
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    hrow[mt] = halo_of(m_warp + mt * 16 + (lane & 15));
+
+  // raw weights as [k row][OT]: output channel o of k row r sits at o ^ 8
+  // when bit 1 of r is set (OT == 16), so the 4 k rows x 8 o of a B load
+  // fall in 32 distinct banks; 4-channel chunks stay contiguous
+  auto wslot = [](int r, int o) {
+    return r * OT + (OT == 16 ? o ^ (((r >> 1) & 1) << 3) : o);
+  };
+  // this lane's B words at k rows c and c + 4 of a k8 step starting at a
+  // multiple of 8 (which leaves bit 1 of the row to c)
+  int boff[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      boff[nt][h] = wslot((lane & 3) + 4 * h, nt * 8 + (lane >> 2));
+
+  // acc: the float32 sums; part: the tensor cores' sum over one dk slice
+  // of a row (ks taps x C channels), added into acc with one rounding to
+  // nearest. The MMA's own accumulation rounds toward zero, which biases
+  // a long running sum (about 8e-5 of the scale over 10,000 terms on an
+  // H100); over 5 x 16 terms it stays near 1e-6.
+  float acc[MT][NT][4], part[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  auto on_rows = [&](int v) {
+    const int ii = i + v / s.ks - p;
+    const int jj = j + v % s.ks - p;
+    return ii >= 0 && ii < s.I && jj >= 0 && jj < s.J;
+  };
+  auto next_tap = [&](int v) {
+    while (v < T && !on_rows(v)) ++v;
+    return v;
+  };
+
+  const int64_t row_elems = (int64_t)KL * s.C;
+  // the raw halo of input row v and its raw weight slice
+  auto stage = [&](int v, int wb) {
+    float* wraw = reinterpret_cast<float*>(wbufs + wb * s.w_bytes);
+    const int ii = i + v / s.ks - p;
+    const int jj = j + v % s.ks - p;
+    stage_halo32(xraw, x + (((int64_t)b * s.I + ii) * s.J + jj) * row_elems,
+                 kmin, rows, cols, p, s.K, s.L, s.C, s.CG, s.HP, s.vec_x, tid,
+                 kTcThreads);
+    const float* wr = w + (int64_t)v * T * s.C * s.O;
+    // k row r = (tap t, channel group, channel): t = (r / 16) / CG
+    auto row_tc = [&](int r, int& t, int& c) {
+      const int kstep = r >> 4;
+      t = s.CG == 1 ? kstep : kstep / s.CG;
+      c = (s.CG == 1 ? 0 : kstep % s.CG) * 16 + (r & 15);
+      return c < s.C;
+    };
+    if (s.vec_w) {
+      for (int e = tid; e < s.krows * (OT / 4); e += kTcThreads) {
+        const int q = e % (OT / 4);
+        const int r = e / (OT / 4);
+        int t, c;
+        const bool ok = row_tc(r, t, c) && o0 + 4 * q < s.O;
+        cp_async16(wraw + wslot(r, 4 * q),
+                   ok ? wr + ((int64_t)t * s.C + c) * s.O + o0 + 4 * q : wr,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < s.krows * OT; e += kTcThreads) {
+        const int o = e % OT;
+        const int r = e / OT;
+        int t, c;
+        const bool ok = row_tc(r, t, c) && o0 + o < s.O;
+        wraw[wslot(r, o)] =
+            ok ? wr[((int64_t)t * s.C + c) * s.O + o0 + o] : 0.f;
+      }
+    }
+  };
+
+  // once the raw halo has landed: its hi and lo arrays (same layout)
+  auto split_halo = [&]() {
+    const float4* raw = reinterpret_cast<const float4*>(xraw);
+    float4* hi = reinterpret_cast<float4*>(xhi);
+    float4* lo = reinterpret_cast<float4*>(xlo);
+    for (int e = tid; e < s.x_bytes / 16; e += kTcThreads) {
+      const float4 v = raw[e];
+      uint32_t h[4], l[4];
+      tf32_split(v.x, h[0], l[0]);
+      tf32_split(v.y, h[1], l[1]);
+      tf32_split(v.z, h[2], l[2]);
+      tf32_split(v.w, h[3], l[3]);
+      hi[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                          __uint_as_float(h[2]), __uint_as_float(h[3]));
+      lo[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                          __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+  };
+
+  // k8 steps a 16-channel group: one where the only group holds <= 8
+  const int n_half = s.CG == 1 && s.C <= 8 ? 1 : 2;
+  const uint32_t xhi_addr = smem_addr(xhi);
+  const uint32_t xlo_addr = smem_addr(xlo);
+  auto compute = [&](int wb) {
+    const uint32_t* wraw =
+        reinterpret_cast<const uint32_t*>(wbufs + wb * s.w_bytes);
+    // k rows of group st16 = (dk * ks + dl) * CG + cg start at 16 * st16;
+    // the halo records of tap (dk, dl) start dk * (L+2p) + dl positions on
+    int st16 = 0;
+    for (int dk = 0; dk < s.ks; ++dk) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+      for (int dl = 0; dl < s.ks; ++dl)
+        for (int cg = 0; cg < s.CG; ++cg, ++st16) {
+          const int rec = cg * s.HP + dk * cols + dl;
+          for (int h = 0; h < n_half; ++h) {
+            // B: this k8 step's raw weights, split in registers
+            const int wbase = (st16 * 16 + h * 8) * OT;
+            uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                tf32_split(__uint_as_float(wraw[wbase + boff[nt][e]]),
+                           bh[nt][e], bl[nt][e]);
+            // A: 8 channels of 16 shifted positions, hi and lo
+            const int chunk = 2 * h + (lane >> 4);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              const uint32_t off = swizzle4(rec + hrow[mt], chunk);
+              uint32_t ah[4], al[4];
+              ldmatrix_x4(ah, xhi_addr + off);
+              ldmatrix_x4(al, xlo_addr + off);
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                mma_tf32x3(part[mt][nt], ah, al, bh[nt], bl[nt]);
+            }
+          }
+        }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    }
+  };
+
+  // over the (di, dj) rows on the grid: the copy of the next row's raw
+  // halo and weights is in flight while this row's MMAs run; its halo is
+  // split between the two barriers that close the row
+  int v = next_tap(0);  // (p, p) is always on the grid
+  stage(v, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_halo();
+  __syncthreads();
+  int wb = 0;
+  while (v < T) {
+    const int vn = next_tap(v + 1);
+    if (vn < T) stage(vn, wb ^ 1);
+    cp_async_commit();
+    if (active) compute(wb);
+    cp_async_wait<0>();
+    __syncthreads();  // the next row has landed; every warp is done with this
+    if (vn < T) split_halo();
+    __syncthreads();  // its hi and lo arrays are written
+    v = vn;
+    wb ^= 1;
+  }
+
+  float* dst = out + (((int64_t)b * s.I + i) * s.J + j) * (int64_t)KL * s.O;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int pos = p0 + m_warp + mt * 16 + (lane >> 2) + half * 8;
+        const int o = o0 + nt * 8 + 2 * (lane & 3);  // and o + 1
+        if (pos >= p1 || o >= s.O) continue;
+        const float v0 = acc[mt][nt][2 * half] + bias[o];
+        float* d = dst + (int64_t)pos * s.O + o;
+        if (o + 1 < s.O && s.O % 2 == 0) {  // an 8-byte aligned pair
+          *reinterpret_cast<float2*>(d) =
+              make_float2(v0, acc[mt][nt][2 * half + 1] + bias[o + 1]);
+        } else {
+          d[0] = v0;
+          if (o + 1 < s.O) d[1] = acc[mt][nt][2 * half + 1] + bias[o + 1];
+        }
+      }
+}
+
+template <int NT, int MT>
+int launch_f32_tc(const void* x, const void* w, const float* bias, void* out,
+                  const F32Shape& s, int n_tiles, size_t smem,
+                  cudaStream_t stream) {
+  auto kernel = conv4d_fwd_tf32x3_tc<NT, MT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_otiles = (s.O + 8 * NT - 1) / (8 * NT);
+  const dim3 grid(n_tiles * n_otiles, s.J, s.B * s.I);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), bias,
+      static_cast<float*>(out), s);
+  return (int)cudaGetLastError();
+}
+
 int max_shared_memory(int* bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -646,6 +974,57 @@ int conv4d_fwd_bf16(const void* x, const void* w, const float* bias,
                                            stream);
 }
 
+// The split-TF32 route: plan (the most m16 tiles a warp, 5, 2 or 1, whose
+// staged arrays fit), check shared memory, launch.
+template <int NT>
+int launch_f32_tc_mt(const void* x, const void* w, const float* bias,
+                     void* out, F32Shape s, int max_smem,
+                     cudaStream_t stream) {
+  const int p = s.ks / 2;
+  const int KL = s.K * s.L;
+  const int cols = s.L + 2 * p;
+  const int mts[] = {5, 2, 1};
+  for (const int mt : mts) {
+    const int tile = kTcWarps * mt * 16;
+    const int n_tiles = (KL + tile - 1) / tile;
+    int rows_max = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int p0 = t * tile;
+      const int p1 = KL < p0 + tile ? KL : p0 + tile;
+      const int rows = (p1 - 1) / s.L - p0 / s.L + 1 + 2 * p;
+      if (rows > rows_max) rows_max = rows;
+    }
+    s.HP = rows_max * cols;
+    s.x_bytes = s.CG * s.HP * 64;
+    const size_t smem = 3 * (size_t)s.x_bytes + 2 * (size_t)s.w_bytes;
+    if (smem > (size_t)max_smem) continue;
+    if (mt == 5)
+      return launch_f32_tc<NT, 5>(x, w, bias, out, s, n_tiles, smem, stream);
+    if (mt == 2)
+      return launch_f32_tc<NT, 2>(x, w, bias, out, s, n_tiles, smem, stream);
+    return launch_f32_tc<NT, 1>(x, w, bias, out, s, n_tiles, smem, stream);
+  }
+  return kErrSharedMemory;
+}
+
+int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
+                      void* out, int B, int I, int J, int K, int L, int C,
+                      int O, int ks, cudaStream_t stream) {
+  const int NT = O <= 8 ? 1 : 2;
+  F32Shape s{B, I, J, K, L, C, O, ks};
+  s.CG = (C + 15) / 16;
+  s.krows = ks * ks * s.CG * 16;
+  s.w_bytes = s.krows * 8 * NT * 4;
+  s.vec_x = C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  s.vec_w = O % 4 == 0 && (uintptr_t)w % 16 == 0;
+  int max_smem = 0;
+  const int err = max_shared_memory(&max_smem);
+  if (err != 0) return err;
+  return NT == 1
+             ? launch_f32_tc_mt<1>(x, w, bias, out, s, max_smem, stream)
+             : launch_f32_tc_mt<2>(x, w, bias, out, s, max_smem, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -664,6 +1043,11 @@ int conv4d_fwd(const void* x, const void* w, const void* bias, void* out,
     return conv4d_fwd_bf16(x, w, static_cast<const float*>(bias), out, B, I,
                            J, K, L, C, O, ks, static_cast<cudaStream_t>(stream));
   if (dtype != 0) return kErrDtype;
+  if (f32_route(C, O) == kRouteTf32x3)
+    return conv4d_fwd_f32_tc(x, w, static_cast<const float*>(bias), out, B, I,
+                             J, K, L, C, O, ks,
+                             static_cast<cudaStream_t>(stream));
+  // FFMA
   const int p = ks / 2;
   const int KL = K * L;
   const int cols = L + 2 * p;
@@ -693,6 +1077,14 @@ int conv4d_fwd(const void* x, const void* w, const void* bias, void* out,
   if (OT == 1) return launch<float, 1>(x, w, b, out, s, n_tiles, smem, st);
   if (OT == 8) return launch<float, 8>(x, w, b, out, s, n_tiles, smem, st);
   return launch<float, 16>(x, w, b, out, s, n_tiles, smem, st);
+}
+
+// The route conv4d_fwd takes for a (dtype, C, O) layer: 0 = FFMA, 1 =
+// split-TF32 on the tensor cores (float32), 2 = bfloat16 tensor cores;
+// -1 for a dtype not taken.
+int conv4d_fwd_route(int dtype, int C, int O) {
+  if (dtype == 1) return kRouteBf16;
+  return dtype == 0 ? f32_route(C, O) : -1;
 }
 
 const char* conv4d_fwd_error_string(int code) {

@@ -104,20 +104,29 @@ def sass_tensor_core_counts(sass):
     return counts
 
 
-#: the name every kernel function of a bfloat16 tensor-core route carries
+#: the names every kernel function of a tensor-core route carries: the
+#: bfloat16 routes and the float32 split-TF32 route
 BF16_ROUTE = "bf16_tc"
+TF32X3_ROUTE = "tf32x3"
 
 
 def tensor_core_summary(counts):
-    """What `sass_tensor_core_counts` says of the bfloat16 routes: how many
-    of their functions there are, their HMMA/HGMMA count in all and the
-    least of any one function, and the count of every other function."""
+    """What `sass_tensor_core_counts` says of the tensor-core routes: for
+    the bfloat16 and the split-TF32 functions, how many there are, their
+    HMMA/HGMMA count in all and the least of any one function; and the
+    count of every other function (the CUDA-core routes, which hold
+    none)."""
     bf16 = [n for fn, n in counts.items() if BF16_ROUTE in fn]
+    tf32 = [n for fn, n in counts.items() if TF32X3_ROUTE in fn]
     return {
         "bf16_route_functions": len(bf16),
         "bf16_route_mma": sum(bf16),
         "bf16_route_min_mma": min(bf16, default=0),
-        "other_mma": sum(n for fn, n in counts.items() if BF16_ROUTE not in fn),
+        "tf32x3_route_functions": len(tf32),
+        "tf32x3_route_mma": sum(tf32),
+        "tf32x3_route_min_mma": min(tf32, default=0),
+        "other_mma": sum(n for fn, n in counts.items()
+                         if BF16_ROUTE not in fn and TF32X3_ROUTE not in fn),
     }
 
 

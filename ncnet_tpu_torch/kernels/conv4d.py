@@ -16,13 +16,18 @@ into one contraction (see the source's header). Each dtype has its route:
 * bfloat16 (training: the forward and dx) runs on the tensor cores,
   ``mma.sync`` m16n8k16 bf16 x bf16 -> float32, with the halo and weights
   staged in bfloat16 by ``cp.async`` and double-buffered across rows;
-* float32 (serving, the gradient check) runs register-blocked FFMA on the
-  CUDA cores: TF32 would keep three digits, short of the 1e-4 the serving
-  check holds the card to.
+* float32 (serving, the gradient check) takes the route `float32_route`
+  names, by ``(cin, cout)`` alone: split-TF32 ("3xTF32") on the tensor
+  cores, ``mma.sync`` m16n8k8 .tf32 with each operand split into a TF32
+  high part and a TF32 residual and three products a term, which keeps
+  about 2e-6 of the scale on a 10,000-term NC sum (one TF32 product keeps
+  about 4e-4, short of the 1e-4 the serving check holds the card to); or
+  register-blocked FFMA on the CUDA cores, for the layers the rule keeps
+  there (one input or one output channel).
 
-The kernel functions of the bfloat16 route carry ``bf16_tc`` in their
-names; ``tensor_core_counts`` counts their ``HMMA`` instructions in the
-built library.
+The kernel functions of the tensor-core routes carry ``bf16_tc`` or
+``tf32x3`` in their names; ``tensor_core_counts`` counts their ``HMMA``
+instructions in the built library.
 
 The input gradient of the convolution is the same kernel on spatially
 flipped, channel-transposed filters, ``dx = conv4d(g, flip(w)^T)`` (the
@@ -43,6 +48,24 @@ from ncnet_tpu_torch.kernels import _build
 
 SOURCE = os.path.join(_build.CSRC, "conv4d_fwd.cu")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the launcher's route codes (``conv4d_fwd_route``)
+ROUTES = ("ffma", "tf32x3", "bf16_tc")
+
+
+def float32_route(cin, cout):
+    """The float32 route of a ``cin -> cout`` layer: ``"tf32x3"``
+    (split-TF32 on the tensor cores) or ``"ffma"`` (the CUDA cores).
+
+    Mirrors ``f32_route`` in ``csrc/conv4d_fwd.cu``, which alone decides:
+    a shape rule, never a retry after a failed build or launch.
+    """
+    return "tf32x3" if cin >= 2 and cout >= 2 else "ffma"
+
+
+def route(dtype, cin, cout):
+    """The route the kernel takes for a ``cin -> cout`` layer in ``dtype``
+    (float32 or bfloat16)."""
+    return "bf16_tc" if dtype == torch.bfloat16 else float32_route(cin, cout)
 
 
 class Conv4dForwardKernel:
@@ -67,6 +90,15 @@ class Conv4dForwardKernel:
     def load(self):
         """Build (first use) and load the library; returns the ptxas log."""
         return self._lib.load()
+
+    def built_route(self, dtype, cin, cout):
+        """The route the built library's launcher takes for a ``cin ->
+        cout`` layer in ``dtype`` (its own rule, ``conv4d_fwd_route``)."""
+        self.load()
+        fn = ctypes.CDLL(self._lib.path).conv4d_fwd_route
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        return ROUTES[fn(_DTYPE_CODES[dtype], cin, cout)]
 
     def tensor_core_counts(self):
         """``{kernel function: HMMA/HGMMA count}`` of the built library, or

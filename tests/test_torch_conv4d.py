@@ -144,19 +144,35 @@ def test_sass_tensor_core_counts_per_function():
     assert all(fn.startswith("_ZN12_GLOBAL__N_1") for fn in counts)
 
 
+_NO_TF32 = {"tf32x3_route_functions": 0, "tf32x3_route_mma": 0,
+            "tf32x3_route_min_mma": 0}
+
+
 @pytest.mark.parametrize(
     "counts,want",
     [
         ({"a_bf16_tc_1": 2, "b_bf16_tc_2": 5, "f32": 0},
          {"bf16_route_functions": 2, "bf16_route_mma": 7,
-          "bf16_route_min_mma": 2, "other_mma": 0}),
+          "bf16_route_min_mma": 2, **_NO_TF32, "other_mma": 0}),
         # one bfloat16 function without a tensor-core instruction shows
         ({"a_bf16_tc_1": 0, "b_bf16_tc_2": 5, "f32": 3},
          {"bf16_route_functions": 2, "bf16_route_mma": 5,
-          "bf16_route_min_mma": 0, "other_mma": 3}),
+          "bf16_route_min_mma": 0, **_NO_TF32, "other_mma": 3}),
         ({"f32": 0},
          {"bf16_route_functions": 0, "bf16_route_mma": 0,
-          "bf16_route_min_mma": 0, "other_mma": 0}),
+          "bf16_route_min_mma": 0, **_NO_TF32, "other_mma": 0}),
+        # the split-TF32 functions are counted apart from the FFMA ones
+        ({"a_bf16_tc_1": 4, "c_tf32x3_tc_1": 6, "d_tf32x3_tc_2": 12,
+          "ffma": 0},
+         {"bf16_route_functions": 1, "bf16_route_mma": 4,
+          "bf16_route_min_mma": 4, "tf32x3_route_functions": 2,
+          "tf32x3_route_mma": 18, "tf32x3_route_min_mma": 6,
+          "other_mma": 0}),
+        ({"c_tf32x3_tc_1": 0, "ffma": 2},
+         {"bf16_route_functions": 0, "bf16_route_mma": 0,
+          "bf16_route_min_mma": 0, "tf32x3_route_functions": 1,
+          "tf32x3_route_mma": 0, "tf32x3_route_min_mma": 0,
+          "other_mma": 2}),
     ],
 )
 def test_tensor_core_summary(counts, want):

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
-from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
+from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd, route
 from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
 from ncnet_tpu_torch.ops.band import (
     BandGeometry,
@@ -78,6 +78,8 @@ def test_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert conv4d_fwd.launches == before + 1
     assert got.dtype == dt and got.shape == (*shape, cout)
+    # the launcher's own shape rule is the one the port states
+    assert conv4d_fwd.built_route(dt, cin, cout) == route(dt, cin, cout)
     want = conv4d_plain(x.float(), w.float(), b)
     err = float((got.float() - want).abs().max())
     scale = float(want.abs().max())
@@ -202,6 +204,8 @@ def test_dx_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert (conv4d_dx.launches, conv4d_fwd.launches) == (before[0] + 1, before[1])
     assert got.dtype == dt and got.shape == (*shape, cin)
+    # dx is the forward on flip(w)^T: a cout -> cin layer
+    assert conv4d_fwd.built_route(dt, cout, cin) == route(dt, cout, cin)
     want = conv4d_dx_plain(g.float(), w.float())
     err = float((got.float() - want).abs().max())
     scale = float(want.abs().max())
@@ -329,6 +333,42 @@ def test_bf16_route_edges_match_plain_and_repeat(card, case):
         assert torch.equal(got, again), name
 
 
+F32_CASES = BF16_CASES + [
+    # the float32 route's own edges: channels staged with plain loads
+    # (C or O not a multiple of 4) or in part of a 16-channel group
+    ((2, 25, 25, 19, 25), 5, 16, 16),  # A 25x25 against B 19x25
+    ((2, 5, 6, 7, 5), 3, 6, 9),        # C and O not multiples of 4
+    ((1, 4, 5, 6, 7), 5, 12, 12),      # C, O multiples of 4, not of 16
+    ((1, 5, 4, 9, 11), 3, 20, 6),      # two groups, the second part-full
+    ((1, 2, 3, 2, 2), 5, 2, 2),        # tiny grid, two channels
+]
+
+
+@pytest.mark.parametrize("case", range(len(F32_CASES)))
+def test_f32_route_edges_match_plain_and_repeat(card, case):
+    """The float32 route at its edges: forward and dx against the plain
+    version (TOL 1e-4 of the scale, as test_kernel_matches_plain), and a
+    second call bitwise equal to the first."""
+    shape, k, cin, cout = F32_CASES[case]
+    x, w, b = _inputs(shape, k, cin, cout, 700 + case, card)
+    g = torch.randn(*shape, cout, generator=torch.Generator(device=card)
+                    .manual_seed(800 + case), device=card)
+    runs = [
+        ("fwd", lambda: conv4d_fwd(x, w, b), lambda: conv4d_plain(x, w, b)),
+        ("dx", lambda: conv4d_dx(g, w), lambda: conv4d_dx_plain(g, w)),
+    ]
+    for name, kern, plain in runs:
+        got = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)
+        # one thread sums each output in a fixed order, no atomics
+        assert torch.equal(got, again), name
+
+
 def test_dw_bf16_bitwise_repeat_at_pf_pascal(card):
     """The 16->16 layer's dw at 2 samples: the plan's chunks and the
     second pass sum in a fixed order, so two calls agree bit for bit."""
@@ -352,7 +392,22 @@ def test_bf16_routes_hold_tensor_core_instructions(card):
         # O = 1); dw: channels, taps (2 output widths each) and O = 1
         assert summary["bf16_route_functions"] >= 4, counts
         assert summary["bf16_route_min_mma"] > 0, counts
-        assert summary["other_mma"] == 0, counts  # float32 stays on FFMA
+        # the forward's float32 split-TF32 functions hold HMMA too; the
+        # CUDA-core (FFMA) functions hold none
+        if kernel is conv4d_fwd:
+            assert summary["tf32x3_route_functions"] >= 2, counts
+            assert summary["tf32x3_route_min_mma"] > 0, counts
+        assert summary["other_mma"] == 0, counts
+
+
+def test_built_route_rule_matches_the_port(card):
+    """The launcher's (dtype, C, O) rule and `route` agree on every shape
+    class."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for cin in (1, 2, 3, 16, 33):
+            for cout in (1, 2, 9, 16):
+                assert conv4d_fwd.built_route(dtype, cin, cout) == route(
+                    dtype, cin, cout), (dtype, cin, cout)
 
 
 def _nc_grads(corr, params, conv, dtype):
