@@ -57,9 +57,11 @@
 // float32 (serving, the gradient check) takes one of two routes, chosen
 // by the shape rule f32_route (below) and nothing else:
 //   * split-TF32 ("3xTF32") on the tensor cores, conv4d_fwd_tf32x3_tc,
-//     for C >= 2 and O >= 2 (the 16->16 layer): the bfloat16 route's
-//     kModeChannels structure (tap shifts as ldmatrix row addresses, one
-//     owner thread an output) with mma.sync m16n8k8 .tf32 products
+//     for C >= 2 (the 16->16 and 16->1 layers): the bfloat16 route's
+//     structure (tap shifts as ldmatrix row addresses, one owner thread
+//     an output) and its kModeChannels and kModeDlN GEMMs (O == 1: per dk
+//     the Z pass, N over dl, K = c, whose 16-term sums stay in the tensor
+//     cores; out gathers Z in float32), with mma.sync m16n8k8 .tf32 products
 //     (mma_tf32.cuh). Each float32 operand a is split into hi =
 //     cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi), and a product is
 //     lo*hi + hi*lo + hi*hi, in that order; only lo*lo (about 2^-22
@@ -94,6 +96,8 @@
 //     and a raw weight buffer 25 taps x 16 c x 16 o x 4 B = 25,600 B, held
 //     twice: 3 x 53,824 + 2 x 25,600 = 212,672 B of the 232,448 a block may
 //     have, so one block of 8 warps an SM (the bfloat16 route fits two).
+//     At 16->1 the weight buffer is 5 dk x 16 c x 8 dl x 4 B = 2,560 B and
+//     the warps' Z rows 8 x 112 x 9 x 4 B = 32,256 B: 198,848 B.
 //     The next row's copy overlaps this row's MMAs; where a grid's tile
 //     does not fit (wide rows), the plan takes fewer m16 tiles a warp
 //     before it refuses;
@@ -640,11 +644,13 @@ constexpr int kRouteTf32x3 = 1;
 constexpr int kRouteBf16 = 2;
 
 int f32_route(int C, int O) {
-  return C >= 2 && O >= 2 ? kRouteTf32x3 : kRouteFfma;
+  (void)O;
+  return C >= 2 ? kRouteTf32x3 : kRouteFfma;
 }
 
 struct F32Shape {
   int B, I, J, K, L, C, O, ks;
+  int mode;     // kModeChannels or kModeDlN
   int CG;       // 16-channel groups
   int HP;       // halo positions of the largest position tile
   int krows;    // k rows (tap, channel) of a staged (di, dj) row's weights
@@ -655,9 +661,10 @@ struct F32Shape {
 };
 
 // NT: n8 tiles a block (8 * NT output channels); MT: m16 tiles a warp (the
-// tile is 8 warps x MT x 16 positions). Shared memory: the halo's hi, lo
-// and raw (next row) arrays, then two raw weight buffers.
-template <int NT, int MT>
+// tile is 8 warps x MT x 16 positions); kMode: kModeChannels or kModeDlN
+// (O == 1, NT == 1). Shared memory: the halo's hi, lo and raw (next row)
+// arrays, two raw weight buffers, and on kModeDlN each warp's Z rows.
+template <int NT, int MT, int kMode>
 __global__ void __launch_bounds__(kTcThreads, 1)
     conv4d_fwd_tf32x3_tc(const float* __restrict__ x,
                          const float* __restrict__ w,
@@ -668,6 +675,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   using namespace mma32;
   constexpr int OT = 8 * NT;
   constexpr int kTilePos = kTcWarps * MT * 16;
+  constexpr bool kDlN = kMode == kModeDlN;
   const int p = s.ks / 2;
   const int KL = s.K * s.L;
   const int cols = s.L + 2 * p;
@@ -751,14 +759,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  kmin, rows, cols, p, s.K, s.L, s.C, s.CG, s.HP, s.vec_x, tid,
                  kTcThreads);
     const float* wr = w + (int64_t)v * T * s.C * s.O;
-    // k row r = (tap t, channel group, channel): t = (r / 16) / CG
+    // k row r = (tap t, channel group, channel): t = (r / 16) / CG; on
+    // kModeDlN the "tap" is dk
     auto row_tc = [&](int r, int& t, int& c) {
       const int kstep = r >> 4;
       t = s.CG == 1 ? kstep : kstep / s.CG;
       c = (s.CG == 1 ? 0 : kstep % s.CG) * 16 + (r & 15);
       return c < s.C;
     };
-    if (s.vec_w) {
+    if (kDlN) {  // [(dk, 16 c)][8 dl]: B of the per-dk GEMM (N = dl)
+      for (int e = tid; e < s.krows * 8; e += kTcThreads) {
+        const int dl = e & 7;
+        const int r = e >> 3;
+        int dk, c;
+        const bool ok = row_tc(r, dk, c) && dl < s.ks;
+        wraw[e] = ok ? wr[(int64_t)(dk * s.ks + dl) * s.C + c] : 0.f;
+      }
+    } else if (s.vec_w) {
       for (int e = tid; e < s.krows * (OT / 4); e += kTcThreads) {
         const int q = e % (OT / 4);
         const int r = e / (OT / 4);
@@ -852,6 +869,75 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
   };
 
+  // kModeDlN: per dk, Z[u][dl] = sum_c x_halo[u + dk*(L+2p), c] *
+  // w[dk, dl, c] over the halo rows u of this warp's positions (one GEMM,
+  // N = dl, K = c; its 16 products a row stay in the tensor cores), then
+  // out[pos] += sum_dl Z[u(pos) + dl][dl] in float32 from the warp's own
+  // shared rows: a fifth of the per-tap form's MMAs at O = 1
+  constexpr int kZT = kZRows / 16;         // Z tiles a warp
+  constexpr int kQ = (MT * 16 + 31) / 32;  // positions a lane
+  const int hp = rows * cols;              // this tile's halo positions
+  const int zm0 = p0 + m_warp;
+  const int zm1 = min(zm0 + MT * 16, p1);
+  const int umin = halo_of(m_warp);
+  int uo[kQ];
+  float zout[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int pos = zm0 + lane + 32 * q;
+    uo[q] = pos < zm1 ? halo_of(pos - p0) - umin : 0;
+    zout[q] = 0.f;
+  }
+  float* zw = reinterpret_cast<float*>(wbufs + 2 * s.w_bytes) +
+              warp * kZRows * kZStride;
+  auto compute_dln = [&](int wb) {
+    const uint32_t* wraw =
+        reinterpret_cast<const uint32_t*>(wbufs + wb * s.w_bytes);
+    for (int dk = 0; dk < s.ks; ++dk) {
+      float z[kZT][4];
+#pragma unroll
+      for (int mt = 0; mt < kZT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[mt][e] = 0.f;
+      for (int cg = 0; cg < s.CG; ++cg)
+        for (int h = 0; h < n_half; ++h) {
+          const int wbase = ((dk * s.CG + cg) * 16 + h * 8) * 8;
+          uint32_t bh[2], bl[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tf32_split(__uint_as_float(
+                           wraw[wbase + ((lane & 3) + 4 * e) * 8 + (lane >> 2)]),
+                       bh[e], bl[e]);
+          const int chunk = 2 * h + (lane >> 4);
+#pragma unroll
+          for (int mt = 0; mt < kZT; ++mt) {
+            const int u =
+                min(umin + dk * cols + mt * 16 + (lane & 15), hp - 1);
+            const uint32_t off = swizzle4(cg * s.HP + u, chunk);
+            uint32_t ah[4], al[4];
+            ldmatrix_x4(ah, xhi_addr + off);
+            ldmatrix_x4(al, xlo_addr + off);
+            mma_tf32x3(z[mt], ah, al, bh, bl);
+          }
+        }
+#pragma unroll
+      for (int mt = 0; mt < kZT; ++mt) {
+        float* zr = zw + (mt * 16 + (lane >> 2)) * kZStride + 2 * (lane & 3);
+        zr[0] = z[mt][0];
+        zr[1] = z[mt][1];
+        zr[8 * kZStride] = z[mt][2];
+        zr[8 * kZStride + 1] = z[mt][3];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        if (zm0 + lane + 32 * q < zm1)
+          for (int dl = 0; dl < s.ks; ++dl)
+            zout[q] += zw[(uo[q] + dl) * kZStride + dl];
+      __syncwarp();  // the gathers are done before the next dk's rows land
+    }
+  };
+
   // over the (di, dj) rows on the grid: the copy of the next row's raw
   // halo and weights is in flight while this row's MMAs run; its halo is
   // split between the two barriers that close the row
@@ -867,7 +953,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int vn = next_tap(v + 1);
     if (vn < T) stage(vn, wb ^ 1);
     cp_async_commit();
-    if (active) compute(wb);
+    if (active) {
+      if constexpr (kDlN)
+        compute_dln(wb);
+      else
+        compute(wb);
+    }
     cp_async_wait<0>();
     __syncthreads();  // the next row has landed; every warp is done with this
     if (vn < T) split_halo();
@@ -877,6 +968,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 
   float* dst = out + (((int64_t)b * s.I + i) * s.J + j) * (int64_t)KL * s.O;
+  if constexpr (kDlN) {  // O == 1
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int pos = zm0 + lane + 32 * q;
+      if (pos < zm1) dst[pos] = zout[q] + bias[0];
+    }
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -898,11 +997,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
 }
 
-template <int NT, int MT>
+template <int NT, int MT, int kMode = kModeChannels>
 int launch_f32_tc(const void* x, const void* w, const float* bias, void* out,
                   const F32Shape& s, int n_tiles, size_t smem,
                   cudaStream_t stream) {
-  auto kernel = conv4d_fwd_tf32x3_tc<NT, MT>;
+  auto kernel = conv4d_fwd_tf32x3_tc<NT, MT, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -974,15 +1073,23 @@ int conv4d_fwd_bf16(const void* x, const void* w, const float* bias,
                                            stream);
 }
 
-// The split-TF32 route: plan (the most m16 tiles a warp, 5, 2 or 1, whose
-// staged arrays fit), check shared memory, launch.
-template <int NT>
-int launch_f32_tc_mt(const void* x, const void* w, const float* bias,
-                     void* out, F32Shape s, int max_smem,
-                     cudaStream_t stream) {
-  const int p = s.ks / 2;
-  const int KL = s.K * s.L;
-  const int cols = s.L + 2 * p;
+// The split-TF32 route: plan (the GEMM mode, and the most m16 tiles a
+// warp, 5, 2 or 1, whose staged arrays fit), check shared memory, launch.
+// O == 1 takes kModeDlN where a warp's Z rows fit at 5 tiles a warp.
+int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
+                      void* out, int B, int I, int J, int K, int L, int C,
+                      int O, int ks, cudaStream_t stream) {
+  const int p = ks / 2;
+  const int KL = K * L;
+  const int cols = L + 2 * p;
+  const int NT = O <= 8 ? 1 : 2;
+  F32Shape s{B, I, J, K, L, C, O, ks};
+  s.CG = (C + 15) / 16;
+  s.vec_x = C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  s.vec_w = O % 4 == 0 && (uintptr_t)w % 16 == 0;
+  int max_smem = 0;
+  const int err = max_shared_memory(&max_smem);
+  if (err != 0) return err;
   const int mts[] = {5, 2, 1};
   for (const int mt : mts) {
     const int tile = kTcWarps * mt * 16;
@@ -991,38 +1098,39 @@ int launch_f32_tc_mt(const void* x, const void* w, const float* bias,
     for (int t = 0; t < n_tiles; ++t) {
       const int p0 = t * tile;
       const int p1 = KL < p0 + tile ? KL : p0 + tile;
-      const int rows = (p1 - 1) / s.L - p0 / s.L + 1 + 2 * p;
+      const int rows = (p1 - 1) / L - p0 / L + 1 + 2 * p;
       if (rows > rows_max) rows_max = rows;
     }
     s.HP = rows_max * cols;
     s.x_bytes = s.CG * s.HP * 64;
-    const size_t smem = 3 * (size_t)s.x_bytes + 2 * (size_t)s.w_bytes;
+    // a warp's Z rows on kModeDlN: at most 79 + 2p per row boundary its
+    // 80 positions cross, plus ks
+    const int z_rows = mt * 16 - 1 + 2 * p * ((mt * 16 - 1) / L + 1) + ks;
+    const bool dln = O == 1 && mt == 5 && ks <= 8 && z_rows <= kZRows;
+    s.mode = dln ? kModeDlN : kModeChannels;
+    s.krows = (dln ? ks : ks * ks) * s.CG * 16;
+    s.w_bytes = s.krows * 8 * NT * 4;
+    const size_t smem =
+        3 * (size_t)s.x_bytes + 2 * (size_t)s.w_bytes +
+        (dln ? (size_t)kTcWarps * kZRows * kZStride * 4 : 0);
     if (smem > (size_t)max_smem) continue;
+    if (dln)
+      return launch_f32_tc<1, 5, kModeDlN>(x, w, bias, out, s, n_tiles, smem,
+                                           stream);
+    if (NT == 1) {
+      if (mt == 5)
+        return launch_f32_tc<1, 5>(x, w, bias, out, s, n_tiles, smem, stream);
+      if (mt == 2)
+        return launch_f32_tc<1, 2>(x, w, bias, out, s, n_tiles, smem, stream);
+      return launch_f32_tc<1, 1>(x, w, bias, out, s, n_tiles, smem, stream);
+    }
     if (mt == 5)
-      return launch_f32_tc<NT, 5>(x, w, bias, out, s, n_tiles, smem, stream);
+      return launch_f32_tc<2, 5>(x, w, bias, out, s, n_tiles, smem, stream);
     if (mt == 2)
-      return launch_f32_tc<NT, 2>(x, w, bias, out, s, n_tiles, smem, stream);
-    return launch_f32_tc<NT, 1>(x, w, bias, out, s, n_tiles, smem, stream);
+      return launch_f32_tc<2, 2>(x, w, bias, out, s, n_tiles, smem, stream);
+    return launch_f32_tc<2, 1>(x, w, bias, out, s, n_tiles, smem, stream);
   }
   return kErrSharedMemory;
-}
-
-int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
-                      void* out, int B, int I, int J, int K, int L, int C,
-                      int O, int ks, cudaStream_t stream) {
-  const int NT = O <= 8 ? 1 : 2;
-  F32Shape s{B, I, J, K, L, C, O, ks};
-  s.CG = (C + 15) / 16;
-  s.krows = ks * ks * s.CG * 16;
-  s.w_bytes = s.krows * 8 * NT * 4;
-  s.vec_x = C % 4 == 0 && (uintptr_t)x % 16 == 0;
-  s.vec_w = O % 4 == 0 && (uintptr_t)w % 16 == 0;
-  int max_smem = 0;
-  const int err = max_shared_memory(&max_smem);
-  if (err != 0) return err;
-  return NT == 1
-             ? launch_f32_tc_mt<1>(x, w, bias, out, s, max_smem, stream)
-             : launch_f32_tc_mt<2>(x, w, bias, out, s, max_smem, stream);
 }
 
 }  // namespace
