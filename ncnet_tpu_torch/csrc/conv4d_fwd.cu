@@ -638,19 +638,23 @@ int launch_tc(const void* x, const void* w, const float* bias, void* out,
 // float32 route on the tensor cores: split-TF32 (see the header).
 
 // The float32 routes, by shape alone (f32_route): never a retry after a
-// failed build or launch, which raises.
+// failed build or launch, which raises. C == 1 (the 1->16 layer, and the
+// 16->1 layer's dx) keeps FFMA: a split-TF32 form with K over the taps
+// took 3.54 ms against FFMA's 3.19 at 8 samples on 25^4 on an H100, with
+// too little work a staged row to hide the row's load, split and
+// barriers.
 constexpr int kRouteFfma = 0;
 constexpr int kRouteTf32x3 = 1;
 constexpr int kRouteBf16 = 2;
 
 int f32_route(int C, int O) {
-  (void)C, (void)O;
-  return kRouteTf32x3;
+  (void)O;
+  return C >= 2 ? kRouteTf32x3 : kRouteFfma;
 }
 
 struct F32Shape {
   int B, I, J, K, L, C, O, ks;
-  int mode;     // kModeChannels, kModeDlN or kModeTaps
+  int mode;     // kModeChannels or kModeDlN
   int CG;       // 16-channel groups
   int HP;       // halo positions of the largest position tile
   int krows;    // k rows (tap, channel) of a staged (di, dj) row's weights
@@ -661,9 +665,8 @@ struct F32Shape {
 };
 
 // NT: n8 tiles a block (8 * NT output channels); MT: m16 tiles a warp (the
-// tile is 8 warps x MT x 16 positions); kMode: kModeChannels, kModeDlN
-// (O == 1, NT == 1) or kModeTaps (C == 1). Shared memory: the halo's hi,
-// lo and raw (next row)
+// tile is 8 warps x MT x 16 positions); kMode: kModeChannels or kModeDlN
+// (O == 1, NT == 1). Shared memory: the halo's hi, lo and raw (next row)
 // arrays, two raw weight buffers, and on kModeDlN each warp's Z rows.
 template <int NT, int MT, int kMode>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -677,7 +680,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   constexpr int OT = 8 * NT;
   constexpr int kTilePos = kTcWarps * MT * 16;
   constexpr bool kDlN = kMode == kModeDlN;
-  constexpr bool kTap = kMode == kModeTaps;
   const int p = s.ks / 2;
   const int KL = s.K * s.L;
   const int cols = s.L + 2 * p;
@@ -708,15 +710,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int pos = p0 + m;
     return pos < p1 ? (pos / s.L - kmin) * cols + pos % s.L : 0;
   };
-  // this lane's halo rows: ldmatrix row (position lane % 16), or on
-  // kModeTaps the A rows g and g + 8
-  int hrow[MT][2];
+  int hrow[MT];  // this lane's ldmatrix row: position lane % 16
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int m = m_warp + mt * 16;
-    hrow[mt][0] = halo_of(m + (kTap ? lane >> 2 : lane & 15));
-    hrow[mt][1] = halo_of(m + (lane >> 2) + 8);
-  }
+  for (int mt = 0; mt < MT; ++mt)
+    hrow[mt] = halo_of(m_warp + mt * 16 + (lane & 15));
 
   // raw weights as [k row][OT]: output channel o of k row r sits at o ^ 8
   // when bit 1 of r is set (OT == 16), so the 4 k rows x 8 o of a B load
@@ -767,13 +764,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  kTcThreads);
     const float* wr = w + (int64_t)v * T * s.C * s.O;
     // k row r = (tap t, channel group, channel): t = (r / 16) / CG; on
-    // kModeDlN the "tap" is dk; on kModeTaps r is the tap
+    // kModeDlN the "tap" is dk
     auto row_tc = [&](int r, int& t, int& c) {
-      if (kTap) {
-        t = r;
-        c = 0;
-        return t < T;
-      }
       const int kstep = r >> 4;
       t = s.CG == 1 ? kstep : kstep / s.CG;
       c = (s.CG == 1 ? 0 : kstep % s.CG) * 16 + (r & 15);
@@ -862,7 +854,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             const int chunk = 2 * h + (lane >> 4);
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
-              const uint32_t off = swizzle4(rec + hrow[mt][0], chunk);
+              const uint32_t off = swizzle4(rec + hrow[mt], chunk);
               uint32_t ah[4], al[4];
               ldmatrix_x4(ah, xhi_addr + off);
               ldmatrix_x4(al, xlo_addr + off);
@@ -879,55 +871,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
     }
-  };
-
-  // kModeTaps (C == 1): K runs over the (dk, dl) taps themselves, in k8
-  // steps (25 padded to 32 with zero weights); A from scalar loads of the
-  // one-channel hi and lo halo at the lane's taps. One row's 32 taps stay
-  // in the tensor cores before they go into acc.
-  auto compute_taps = [&](int wb) {
-    const uint32_t* wraw =
-        reinterpret_cast<const uint32_t*>(wbufs + wb * s.w_bytes);
-    const uint32_t* xh = reinterpret_cast<const uint32_t*>(xhi);
-    const uint32_t* xl = reinterpret_cast<const uint32_t*>(xlo);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
-    for (int st = 0; st < s.krows / 8; ++st) {
-      uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          tf32_split(__uint_as_float(wraw[st * 8 * OT + boff[nt][e]]),
-                     bh[nt][e], bl[nt][e]);
-      int off[2];  // the halo shifts of this lane's taps c and c + 4
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int t = st * 8 + (lane & 3) + 4 * e;
-        off[e] = t < T ? (t / s.ks) * cols + t % s.ks : 0;
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int h0 = hrow[mt][0], h1 = hrow[mt][1];
-        const uint32_t ah[4] = {xh[h0 + off[0]], xh[h1 + off[0]],
-                                xh[h0 + off[1]], xh[h1 + off[1]]};
-        const uint32_t al[4] = {xl[h0 + off[0]], xl[h1 + off[0]],
-                                xl[h0 + off[1]], xl[h1 + off[1]]};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_tf32x3(part[mt][nt], ah, al, bh[nt], bl[nt]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
   };
 
   // kModeDlN: per dk, Z[u][dl] = sum_c x_halo[u + dk*(L+2p), c] *
@@ -1017,8 +960,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (active) {
       if constexpr (kDlN)
         compute_dln(wb);
-      else if constexpr (kTap)
-        compute_taps(wb);
       else
         compute(wb);
     }
@@ -1138,8 +1079,7 @@ int conv4d_fwd_bf16(const void* x, const void* w, const float* bias,
 
 // The split-TF32 route: plan (the GEMM mode, and the most m16 tiles a
 // warp, 5, 2 or 1, whose staged arrays fit), check shared memory, launch.
-// C == 1 takes kModeTaps; O == 1 kModeDlN where a warp's Z rows fit at 5
-// tiles a warp; the rest kModeChannels.
+// O == 1 takes kModeDlN where a warp's Z rows fit at 5 tiles a warp.
 int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
                       void* out, int B, int I, int J, int K, int L, int C,
                       int O, int ks, cudaStream_t stream) {
@@ -1165,17 +1105,14 @@ int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
       const int rows = (p1 - 1) / L - p0 / L + 1 + 2 * p;
       if (rows > rows_max) rows_max = rows;
     }
-    const bool tap = C == 1;
     s.HP = rows_max * cols;
-    s.x_bytes = tap ? (s.HP * 4 + 15) / 16 * 16 : s.CG * s.HP * 64;
+    s.x_bytes = s.CG * s.HP * 64;
     // a warp's Z rows on kModeDlN: at most 79 + 2p per row boundary its
     // 80 positions cross, plus ks
     const int z_rows = mt * 16 - 1 + 2 * p * ((mt * 16 - 1) / L + 1) + ks;
-    const bool dln =
-        !tap && O == 1 && mt == 5 && ks <= 8 && z_rows <= kZRows;
-    s.mode = tap ? kModeTaps : (dln ? kModeDlN : kModeChannels);
-    s.krows = tap ? (ks * ks + 7) / 8 * 8
-                  : (dln ? ks : ks * ks) * s.CG * 16;
+    const bool dln = O == 1 && mt == 5 && ks <= 8 && z_rows <= kZRows;
+    s.mode = dln ? kModeDlN : kModeChannels;
+    s.krows = (dln ? ks : ks * ks) * s.CG * 16;
     s.w_bytes = s.krows * 8 * NT * 4;
     const size_t smem =
         3 * (size_t)s.x_bytes + 2 * (size_t)s.w_bytes +
@@ -1184,17 +1121,6 @@ int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
     if (dln)
       return launch_f32_tc<1, 5, kModeDlN>(x, w, bias, out, s, n_tiles, smem,
                                            stream);
-    if (tap) {
-      if (NT == 1)
-        return mt == 5 ? launch_f32_tc<1, 5, kModeTaps>(x, w, bias, out, s,
-                                                        n_tiles, smem, stream)
-                       : launch_f32_tc<1, 1, kModeTaps>(x, w, bias, out, s,
-                                                        n_tiles, smem, stream);
-      return mt == 5 ? launch_f32_tc<2, 5, kModeTaps>(x, w, bias, out, s,
-                                                      n_tiles, smem, stream)
-                     : launch_f32_tc<2, 1, kModeTaps>(x, w, bias, out, s,
-                                                      n_tiles, smem, stream);
-    }
     if (NT == 1) {
       if (mt == 5)
         return launch_f32_tc<1, 5>(x, w, bias, out, s, n_tiles, smem, stream);

@@ -11,8 +11,7 @@
 //     relative) is the one product dropped. TF32 x TF32 products are exact
 //     in float32, so what is left is float32 accumulation;
 //   * swizzle4 / stage_halo32: the zero-padded halo of one input row as
-//     records of 16 float32 channels (four 16-byte chunks), or one float a
-//     position when there is one channel (cp_async4).
+//     records of 16 float32 channels (four 16-byte chunks).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8", .tf32),
 // with g = lane / 4 and c = lane % 4:
@@ -75,15 +74,6 @@ __device__ __forceinline__ void split_fragment(const uint32_t (&a)[4],
   for (int e = 0; e < 4; ++e) tf32_split(__uint_as_float(a[e]), hi[e], lo[e]);
 }
 
-// 4 bytes global -> shared; src_bytes 0 writes a zero (src must still be
-// a valid address).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   mma16::smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
 // Byte offset of 16-byte chunk q (0..3) of record r, records of 16 float32
 // (64 bytes). Chunk q of record r sits in slot q ^ ((r >> 1) & 3): the 8
 // records of one ldmatrix phase (8 consecutive records, one chunk each)
@@ -93,8 +83,7 @@ __device__ __forceinline__ uint32_t swizzle4(int r, int q) {
   return (uint32_t)(4 * r + (q ^ ((r >> 1) & 3))) * 16u;
 }
 
-// The zero-padded (k, l, c) halo of one input row: with C == 1 one float
-// a position (hr * cols + hc), by 4-byte cp.async; else float32 records,
+// The zero-padded (k, l, c) halo of one input row as float32 records:
 // channel group cg of padded row hr < rows, column hc < cols at record
 // cg * rec_stride + hr * cols + hc holds x[k0 + hr - p, hc - p, 16 cg ..
 // 16 cg + 15] (zeros off the grid and past C). With `async` (C % 4 == 0
@@ -108,16 +97,6 @@ __device__ __forceinline__ void stage_halo32(
   auto on_grid = [&](int kk, int ll) {
     return kk >= 0 && kk < K && ll >= 0 && ll < L;
   };
-  if (C == 1) {  // position hr * cols + hc at the float of that index
-    float* xf = reinterpret_cast<float*>(dst);
-    for (int e = tid; e < rows * cols; e += nthreads) {
-      const int kk = k0 + e / cols - p, ll = e % cols - p;
-      const bool ok = on_grid(kk, ll);
-      cp_async4(xf + e, ok ? src_row + (int64_t)kk * L + ll : src_row,
-                ok ? 4 : 0);
-    }
-    return;
-  }
   if (!async) {
     for (int e = tid; e < CG * rows * cols * 16; e += nthreads) {
       const int c16 = e & 15;

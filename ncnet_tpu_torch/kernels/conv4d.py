@@ -59,7 +59,7 @@ def float32_route(cin, cout):
     Mirrors ``f32_route`` in ``csrc/conv4d_fwd.cu``, which alone decides:
     a shape rule, never a retry after a failed build or launch.
     """
-    return "tf32x3"
+    return "tf32x3" if cin >= 2 else "ffma"
 
 
 def route(dtype, cin, cout):

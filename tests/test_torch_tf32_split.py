@@ -181,8 +181,8 @@ def test_one_long_tensor_core_sum_loses_the_split():
         (32, 16, "tf32x3"),
         (16, 1, "tf32x3"),   # the 16->1 layer (its Z pass, N over dl)
         (2, 1, "tf32x3"),
-        (1, 16, "tf32x3"),   # the 1->16 layer (K over the taps)
-        (1, 1, "tf32x3"),
+        (1, 16, "ffma"),     # the 1->16 layer
+        (1, 1, "ffma"),
     ],
 )
 def test_float32_route_rule(cin, cout, want):
