@@ -83,22 +83,29 @@
 //     by 25 taps, so splitting per fragment in registers cost 25 times the
 //     conversions (cvt.rna is 4 instructions with its inf/NaN guard; that
 //     form took 32 ms for 16->16, this one well under 20);
-//   * the weights land raw by cp.async, [k row][o] with o XOR-swizzled so
-//     that a warp's B loads hit 32 distinct banks, double-buffered, and a
-//     B fragment's 4 words are split in registers: one split serves the
-//     warp's 5 m16 tiles;
+//   * the weights are split once a staged row too, into hi and lo arrays,
+//     [k row][o] with o XOR-swizzled so that a warp's B loads hit 32
+//     distinct banks. Their global loads (float4 where O % 4 == 0) are
+//     issued before the halo's split in the same pass, which hides their
+//     latency. Splitting a B fragment per k8 step in registers instead
+//     (every warp splitting every weight) read 17.8 ms for 16->16, this
+//     17.1;
 //   * the m16 tiles a warp (5, 2 or 1) are a template parameter, so the
 //     tile loop unrolls with no branch and the ldmatrix loads of all tiles
 //     issue ahead of their MMAs;
 //   * shared memory at the PF-Pascal 16->16 layer (25^4 grid, 5^4 taps,
 //     640-position tile): a halo array is 29 x 29 positions x 64 B =
 //     53,824 B, held three times (hi and lo of this row, raw of the next),
-//     and a raw weight buffer 25 taps x 16 c x 16 o x 4 B = 25,600 B, held
-//     twice: 3 x 53,824 + 2 x 25,600 = 212,672 B of the 232,448 a block may
-//     have, so one block of 8 warps an SM (the bfloat16 route fits two).
-//     At 16->1 the weight buffer is 5 dk x 16 c x 8 dl x 4 B = 2,560 B and
-//     the warps' Z rows 8 x 112 x 9 x 4 B = 32,256 B: 198,848 B.
-//     The next row's copy overlaps this row's MMAs; where a grid's tile
+//     and a weight array 25 taps x 16 c x 16 o x 4 B = 25,600 B, hi and lo:
+//     3 x 53,824 + 2 x 25,600 = 212,672 B of the 232,448 a block may have,
+//     so one block of 8 warps an SM (the bfloat16 route fits two). At
+//     16->1 a weight array is 5 dk x 16 c x 8 dl x 4 B = 2,560 B and the
+//     warps' Z rows 8 x 112 x 9 x 4 B = 32,256 B: 198,848 B. What bounds
+//     16->16: mma.sync's m16n8k8 fragments, hi and lo, cost 2 ldmatrix.x4
+//     for 6 MMAs; the loop issues about 2.3 instructions an MMA and runs
+//     at about a third of the TF32 rate. wgmma, reading A and B from
+//     shared memory, is the next step;
+//     The next row's halo copy overlaps this row's MMAs; where a tile
 //     does not fit (wide rows), the plan takes fewer m16 tiles a warp
 //     before it refuses;
 //   * FFMA on the CUDA cores, conv4d_fwd_kernel, for the layers f32_route
@@ -659,15 +666,16 @@ struct F32Shape {
   int HP;       // halo positions of the largest position tile
   int krows;    // k rows (tap, channel) of a staged (di, dj) row's weights
   int x_bytes;  // bytes of one halo array (raw, hi or lo; a multiple of 64)
-  int w_bytes;  // bytes of one raw weight buffer
+  int w_bytes;  // bytes of one weight array (hi or lo)
   int vec_x;    // stage the halo with cp.async (C % 4 == 0, 16-byte aligned)
-  int vec_w;    // stage the weights with cp.async (O % 4 == 0, aligned)
+  int vec_w;    // load the weights as float4 (O % 4 == 0, 16-byte aligned)
 };
 
 // NT: n8 tiles a block (8 * NT output channels); MT: m16 tiles a warp (the
 // tile is 8 warps x MT x 16 positions); kMode: kModeChannels or kModeDlN
 // (O == 1, NT == 1). Shared memory: the halo's hi, lo and raw (next row)
-// arrays, two raw weight buffers, and on kModeDlN each warp's Z rows.
+// arrays, the weights' hi and lo arrays, and on kModeDlN each warp's Z
+// rows.
 template <int NT, int MT, int kMode>
 __global__ void __launch_bounds__(kTcThreads, 1)
     conv4d_fwd_tf32x3_tc(const float* __restrict__ x,
@@ -715,7 +723,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int mt = 0; mt < MT; ++mt)
     hrow[mt] = halo_of(m_warp + mt * 16 + (lane & 15));
 
-  // raw weights as [k row][OT]: output channel o of k row r sits at o ^ 8
+  // weights as [k row][OT]: output channel o of k row r sits at o ^ 8
   // when bit 1 of r is set (OT == 16), so the 4 k rows x 8 o of a B load
   // fall in 32 distinct banks; 4-channel chunks stay contiguous
   auto wslot = [](int r, int o) {
@@ -754,79 +762,96 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   };
 
   const int64_t row_elems = (int64_t)KL * s.C;
-  // the raw halo of input row v and its raw weight slice
-  auto stage = [&](int v, int wb) {
-    float* wraw = reinterpret_cast<float*>(wbufs + wb * s.w_bytes);
+  // the raw halo of input row v, by cp.async
+  auto stage_x = [&](int v) {
     const int ii = i + v / s.ks - p;
     const int jj = j + v % s.ks - p;
     stage_halo32(xraw, x + (((int64_t)b * s.I + ii) * s.J + jj) * row_elems,
                  kmin, rows, cols, p, s.K, s.L, s.C, s.CG, s.HP, s.vec_x, tid,
                  kTcThreads);
-    const float* wr = w + (int64_t)v * T * s.C * s.O;
-    // k row r = (tap t, channel group, channel): t = (r / 16) / CG; on
-    // kModeDlN the "tap" is dk
-    auto row_tc = [&](int r, int& t, int& c) {
-      const int kstep = r >> 4;
-      t = s.CG == 1 ? kstep : kstep / s.CG;
-      c = (s.CG == 1 ? 0 : kstep % s.CG) * 16 + (r & 15);
-      return c < s.C;
-    };
-    if (kDlN) {  // [(dk, 16 c)][8 dl]: B of the per-dk GEMM (N = dl)
-      for (int e = tid; e < s.krows * 8; e += kTcThreads) {
-        const int dl = e & 7;
-        const int r = e >> 3;
-        int dk, c;
-        const bool ok = row_tc(r, dk, c) && dl < s.ks;
-        wraw[e] = ok ? wr[(int64_t)(dk * s.ks + dl) * s.C + c] : 0.f;
-      }
-    } else if (s.vec_w) {
-      for (int e = tid; e < s.krows * (OT / 4); e += kTcThreads) {
-        const int q = e % (OT / 4);
-        const int r = e / (OT / 4);
-        int t, c;
-        const bool ok = row_tc(r, t, c) && o0 + 4 * q < s.O;
-        cp_async16(wraw + wslot(r, 4 * q),
-                   ok ? wr + ((int64_t)t * s.C + c) * s.O + o0 + 4 * q : wr,
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int e = tid; e < s.krows * OT; e += kTcThreads) {
-        const int o = e % OT;
-        const int r = e / OT;
-        int t, c;
-        const bool ok = row_tc(r, t, c) && o0 + o < s.O;
-        wraw[wslot(r, o)] =
-            ok ? wr[((int64_t)t * s.C + c) * s.O + o0 + o] : 0.f;
-      }
-    }
   };
 
-  // once the raw halo has landed: its hi and lo arrays (same layout)
-  auto split_halo = [&]() {
+  // input row v's weights as [k row][OT], in chunks of 4 columns: chunk f
+  // holds output channels (on kModeDlN: dl) 4q .. 4q+3 of k row r, with
+  // q = f % (OT/4) and r = f / (OT/4). k row r = (tap t, channel group,
+  // channel), t = (r / 16) / CG; on kModeDlN the "tap" is dk
+  const int n_wchunks = s.krows * OT / 4;
+  auto w_chunk = [&](int v, int f) {
+    const int q = f % (OT / 4);
+    const int r = f / (OT / 4);
+    const int kstep = r >> 4;
+    const int t = s.CG == 1 ? kstep : kstep / s.CG;
+    const int c = (s.CG == 1 ? 0 : kstep % s.CG) * 16 + (r & 15);
+    float e[4] = {0.f, 0.f, 0.f, 0.f};
+    if (c < s.C) {
+      const float* wr = w + (int64_t)v * T * s.C * s.O;
+      if (kDlN) {  // B of the per-dk GEMM: N = dl
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * q + k < s.ks)
+            e[k] = wr[(int64_t)(t * s.ks + 4 * q + k) * s.C + c];
+      } else {
+        const float* src = wr + ((int64_t)t * s.C + c) * s.O + o0 + 4 * q;
+        if (s.vec_w) {
+          if (o0 + 4 * q < s.O) {
+            const float4 v4 = __ldg(reinterpret_cast<const float4*>(src));
+            e[0] = v4.x, e[1] = v4.y, e[2] = v4.z, e[3] = v4.w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (o0 + 4 * q + k < s.O) e[k] = src[k];
+        }
+      }
+    }
+    return make_float4(e[0], e[1], e[2], e[3]);
+  };
+  auto split4 = [](const float4& v, float4& hi, float4& lo) {
+    uint32_t h[4], l[4];
+    tf32_split(v.x, h[0], l[0]);
+    tf32_split(v.y, h[1], l[1]);
+    tf32_split(v.z, h[2], l[2]);
+    tf32_split(v.w, h[3], l[3]);
+    hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                     __uint_as_float(h[2]), __uint_as_float(h[3]));
+    lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                     __uint_as_float(l[2]), __uint_as_float(l[3]));
+  };
+  float* whi = reinterpret_cast<float*>(wbufs);
+  float* wlo = whi + s.w_bytes / 4;
+  auto put_w = [&](int f, const float4& v) {
+    const int slot = wslot(f / (OT / 4), 4 * (f % (OT / 4)));
+    split4(v, *reinterpret_cast<float4*>(whi + slot),
+           *reinterpret_cast<float4*>(wlo + slot));
+  };
+
+  // between a row's barriers: input row v's weights into the hi and lo
+  // arrays, and its landed halo into its hi and lo arrays. A thread's first
+  // kWRegs weight chunks are loaded before the halo is split, so their
+  // latency hides behind it
+  constexpr int kWRegs = 8;
+  auto split_row = [&](int v) {
+    float4 wv[kWRegs];
+#pragma unroll
+    for (int k = 0; k < kWRegs; ++k)
+      if (tid + k * kTcThreads < n_wchunks) wv[k] = w_chunk(v, tid + k * kTcThreads);
     const float4* raw = reinterpret_cast<const float4*>(xraw);
     float4* hi = reinterpret_cast<float4*>(xhi);
     float4* lo = reinterpret_cast<float4*>(xlo);
-    for (int e = tid; e < s.x_bytes / 16; e += kTcThreads) {
-      const float4 v = raw[e];
-      uint32_t h[4], l[4];
-      tf32_split(v.x, h[0], l[0]);
-      tf32_split(v.y, h[1], l[1]);
-      tf32_split(v.z, h[2], l[2]);
-      tf32_split(v.w, h[3], l[3]);
-      hi[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                          __uint_as_float(h[2]), __uint_as_float(h[3]));
-      lo[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                          __uint_as_float(l[2]), __uint_as_float(l[3]));
-    }
+    for (int e = tid; e < s.x_bytes / 16; e += kTcThreads)
+      split4(raw[e], hi[e], lo[e]);
+#pragma unroll
+    for (int k = 0; k < kWRegs; ++k)
+      if (tid + k * kTcThreads < n_wchunks) put_w(tid + k * kTcThreads, wv[k]);
+    for (int f = tid + kWRegs * kTcThreads; f < n_wchunks; f += kTcThreads)
+      put_w(f, w_chunk(v, f));
   };
 
-  // k8 steps a 16-channel group: one where the only group holds <= 8
-  const int n_half = s.CG == 1 && s.C <= 8 ? 1 : 2;
   const uint32_t xhi_addr = smem_addr(xhi);
   const uint32_t xlo_addr = smem_addr(xlo);
-  auto compute = [&](int wb) {
-    const uint32_t* wraw =
-        reinterpret_cast<const uint32_t*>(wbufs + wb * s.w_bytes);
+  const uint32_t* whi_u = reinterpret_cast<const uint32_t*>(whi);
+  const uint32_t* wlo_u = reinterpret_cast<const uint32_t*>(wlo);
+  auto compute = [&]() {
     // k rows of group st16 = (dk * ks + dl) * CG + cg start at 16 * st16;
     // the halo records of tap (dk, dl) start dk * (L+2p) + dl positions on
     int st16 = 0;
@@ -840,16 +865,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int dl = 0; dl < s.ks; ++dl)
         for (int cg = 0; cg < s.CG; ++cg, ++st16) {
           const int rec = cg * s.HP + dk * cols + dl;
-          for (int h = 0; h < n_half; ++h) {
-            // B: this k8 step's raw weights, split in registers
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // channels 8h .. 8h+7 of the group
             const int wbase = (st16 * 16 + h * 8) * OT;
             uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-              for (int e = 0; e < 2; ++e)
-                tf32_split(__uint_as_float(wraw[wbase + boff[nt][e]]),
-                           bh[nt][e], bl[nt][e]);
+              for (int e = 0; e < 2; ++e) {
+                bh[nt][e] = whi_u[wbase + boff[nt][e]];
+                bl[nt][e] = wlo_u[wbase + boff[nt][e]];
+              }
             // A: 8 channels of 16 shifted positions, hi and lo
             const int chunk = 2 * h + (lane >> 4);
 #pragma unroll
@@ -894,9 +920,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   float* zw = reinterpret_cast<float*>(wbufs + 2 * s.w_bytes) +
               warp * kZRows * kZStride;
-  auto compute_dln = [&](int wb) {
-    const uint32_t* wraw =
-        reinterpret_cast<const uint32_t*>(wbufs + wb * s.w_bytes);
+  auto compute_dln = [&]() {
     for (int dk = 0; dk < s.ks; ++dk) {
       float z[kZT][4];
 #pragma unroll
@@ -904,14 +928,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) z[mt][e] = 0.f;
       for (int cg = 0; cg < s.CG; ++cg)
-        for (int h = 0; h < n_half; ++h) {
-          const int wbase = ((dk * s.CG + cg) * 16 + h * 8) * 8;
-          uint32_t bh[2], bl[2];
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            tf32_split(__uint_as_float(
-                           wraw[wbase + ((lane & 3) + 4 * e) * 8 + (lane >> 2)]),
-                       bh[e], bl[e]);
+        for (int h = 0; h < 2; ++h) {
+          const int wbase = ((dk * s.CG + cg) * 16 + h * 8) * 8 +
+                            ((lane & 3) * 8 + (lane >> 2));
+          const uint32_t bh[2] = {whi_u[wbase], whi_u[wbase + 32]};
+          const uint32_t bl[2] = {wlo_u[wbase], wlo_u[wbase + 32]};
           const int chunk = 2 * h + (lane >> 4);
 #pragma unroll
           for (int mt = 0; mt < kZT; ++mt) {
@@ -943,32 +965,30 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   };
 
   // over the (di, dj) rows on the grid: the copy of the next row's raw
-  // halo and weights is in flight while this row's MMAs run; its halo is
-  // split between the two barriers that close the row
+  // halo is in flight while this row's MMAs run; the next row's halo and
+  // weights are split between the two barriers that close the row
   int v = next_tap(0);  // (p, p) is always on the grid
-  stage(v, 0);
+  stage_x(v);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_halo();
+  split_row(v);
   __syncthreads();
-  int wb = 0;
   while (v < T) {
     const int vn = next_tap(v + 1);
-    if (vn < T) stage(vn, wb ^ 1);
+    if (vn < T) stage_x(vn);
     cp_async_commit();
     if (active) {
       if constexpr (kDlN)
-        compute_dln(wb);
+        compute_dln();
       else
-        compute(wb);
+        compute();
     }
     cp_async_wait<0>();
     __syncthreads();  // the next row has landed; every warp is done with this
-    if (vn < T) split_halo();
+    if (vn < T) split_row(vn);
     __syncthreads();  // its hi and lo arrays are written
     v = vn;
-    wb ^= 1;
   }
 
   float* dst = out + (((int64_t)b * s.I + i) * s.J + j) * (int64_t)KL * s.O;
