@@ -100,14 +100,17 @@
 //     3 x 53,824 + 2 x 25,600 = 212,672 B of the 232,448 a block may have,
 //     so one block of 8 warps an SM (the bfloat16 route fits two). At
 //     16->1 a weight array is 5 dk x 16 c x 8 dl x 4 B = 2,560 B and the
-//     warps' Z rows 8 x 112 x 9 x 4 B = 32,256 B: 198,848 B. What bounds
-//     16->16: mma.sync's m16n8k8 fragments, hi and lo, cost 2 ldmatrix.x4
-//     for 6 MMAs; the loop issues about 2.3 instructions an MMA and runs
-//     at about a third of the TF32 rate. wgmma, reading A and B from
-//     shared memory, is the next step;
-//     The next row's halo copy overlaps this row's MMAs; where a tile
-//     does not fit (wide rows), the plan takes fewer m16 tiles a warp
-//     before it refuses;
+//     warps' Z rows 8 x 112 x 9 x 4 B = 32,256 B: 198,848 B. The next
+//     row's halo copy overlaps this row's MMAs; where a tile does not fit
+//     (wide rows), the plan takes fewer m16 tiles a warp before it
+//     refuses. At 16 channels that takes rows of up to about 150
+//     positions; a dense grid that wide holds 150^4 x 16 x 4 B = 32 GB a
+//     sample;
+//   * what bounds 16->16 now: mma.sync's m16n8k8 fragments, hi and lo,
+//     cost 2 ldmatrix.x4 for 6 MMAs; the loop issues about 2.3
+//     instructions an MMA and runs at about a third of the TF32 rate.
+//     wgmma, reading B (and A, where its rows are regular) from shared
+//     memory, is the next step;
 //   * FFMA on the CUDA cores, conv4d_fwd_kernel, for the layers f32_route
 //     keeps there: each thread holds 4 positions x OT output channels of
 //     float32 accumulators, reads one activation per position and a
@@ -661,7 +664,6 @@ int f32_route(int C, int O) {
 
 struct F32Shape {
   int B, I, J, K, L, C, O, ks;
-  int mode;     // kModeChannels or kModeDlN
   int CG;       // 16-channel groups
   int HP;       // halo positions of the largest position tile
   int krows;    // k rows (tap, channel) of a staged (di, dj) row's weights
@@ -1131,7 +1133,6 @@ int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
     // 80 positions cross, plus ks
     const int z_rows = mt * 16 - 1 + 2 * p * ((mt * 16 - 1) / L + 1) + ks;
     const bool dln = O == 1 && mt == 5 && ks <= 8 && z_rows <= kZRows;
-    s.mode = dln ? kModeDlN : kModeChannels;
     s.krows = (dln ? ks : ks * ks) * s.CG * 16;
     s.w_bytes = s.krows * 8 * NT * 4;
     const size_t smem =

@@ -66,14 +66,6 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4],
   mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
 }
 
-// An A fragment of float32 words split in registers.
-__device__ __forceinline__ void split_fragment(const uint32_t (&a)[4],
-                                               uint32_t (&hi)[4],
-                                               uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) tf32_split(__uint_as_float(a[e]), hi[e], lo[e]);
-}
-
 // Byte offset of 16-byte chunk q (0..3) of record r, records of 16 float32
 // (64 bytes). Chunk q of record r sits in slot q ^ ((r >> 1) & 3): the 8
 // records of one ldmatrix phase (8 consecutive records, one chunk each)

@@ -341,6 +341,10 @@ F32_CASES = BF16_CASES + [
     ((1, 4, 5, 6, 7), 5, 12, 12),      # C, O multiples of 4, not of 16
     ((1, 5, 4, 9, 11), 3, 20, 6),      # two groups, the second part-full
     ((1, 2, 3, 2, 2), 5, 2, 2),        # tiny grid, two channels
+    # rows too wide for 5 m16 tiles a warp in shared memory: 2 (1024 px
+    # images give L = 64) and 1
+    ((1, 2, 2, 12, 64), 5, 16, 16),
+    ((1, 1, 2, 4, 150), 5, 16, 16),
 ]
 
 
