@@ -57,11 +57,9 @@
 // float32 (serving, the gradient check) takes one of two routes, chosen
 // by the shape rule f32_route (below) and nothing else:
 //   * split-TF32 ("3xTF32") on the tensor cores, conv4d_fwd_tf32x3_tc,
-//     for C >= 2 (the 16->16 and 16->1 layers): the bfloat16 route's
-//     structure (tap shifts as ldmatrix row addresses, one owner thread
-//     an output) and its kModeChannels and kModeDlN GEMMs (O == 1: per dk
-//     the Z pass, N over dl, K = c, whose 16-term sums stay in the tensor
-//     cores; out gathers Z in float32), with mma.sync m16n8k8 .tf32 products
+//     for C >= 2 and O >= 2 (the 16->16 layer): the bfloat16 route's
+//     kModeChannels structure (tap shifts as ldmatrix row addresses, one
+//     owner thread an output) with mma.sync m16n8k8 .tf32 products
 //     (mma_tf32.cuh). Each float32 operand a is split into hi =
 //     cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi), and a product is
 //     lo*hi + hi*lo + hi*hi, in that order; only lo*lo (about 2^-22
@@ -98,21 +96,19 @@
 //     53,824 B, held three times (hi and lo of this row, raw of the next),
 //     and a weight array 25 taps x 16 c x 16 o x 4 B = 25,600 B, hi and lo:
 //     3 x 53,824 + 2 x 25,600 = 212,672 B of the 232,448 a block may have,
-//     so one block of 8 warps an SM (the bfloat16 route fits two). At
-//     16->1 a weight array is 5 dk x 16 c x 8 dl x 4 B = 2,560 B and the
-//     warps' Z rows 8 x 112 x 9 x 4 B = 32,256 B: 198,848 B. The next
-//     row's halo copy overlaps this row's MMAs; where a tile does not fit
-//     (wide rows), the plan takes fewer m16 tiles a warp before it
-//     refuses. At 16 channels that takes rows of up to about 150
-//     positions; a dense grid that wide holds 150^4 x 16 x 4 B = 32 GB a
-//     sample;
+//     so one block of 8 warps an SM (the bfloat16 route fits two). The
+//     next row's halo copy overlaps this row's MMAs. Where a tile does not
+//     fit (wide rows), the plan takes fewer m16 tiles a warp before it
+//     refuses: at 16 channels, rows of up to about 150 positions (a dense
+//     grid that wide holds 150^4 x 16 x 4 B = 32 GB a sample);
 //   * what bounds 16->16 now: mma.sync's m16n8k8 fragments, hi and lo,
 //     cost 2 ldmatrix.x4 for 6 MMAs; the loop issues about 2.3
 //     instructions an MMA and runs at about a third of the TF32 rate.
 //     wgmma, reading B (and A, where its rows are regular) from shared
 //     memory, is the next step;
 //   * FFMA on the CUDA cores, conv4d_fwd_kernel, for the layers f32_route
-//     keeps there: each thread holds 4 positions x OT output channels of
+//     keeps there (one input or one output channel; why, at f32_route):
+//     each thread holds 4 positions x OT output channels of
 //     float32 accumulators, reads one activation per position and a
 //     broadcast float4 of weights per step (register-blocked FFMA); the
 //     staged halo stores each position with an odd float stride, so a
@@ -648,18 +644,25 @@ int launch_tc(const void* x, const void* w, const float* bias, void* out,
 // float32 route on the tensor cores: split-TF32 (see the header).
 
 // The float32 routes, by shape alone (f32_route): never a retry after a
-// failed build or launch, which raises. C == 1 (the 1->16 layer, and the
-// 16->1 layer's dx) keeps FFMA: a split-TF32 form with K over the taps
-// took 3.54 ms against FFMA's 3.19 at 8 samples on 25^4 on an H100, with
-// too little work a staged row to hide the row's load, split and
-// barriers.
+// failed build or launch, which raises. On an H100 at 8 samples on 25^4:
+//   * C == 1 (the 1->16 layer, and the 16->1 layer's dx) keeps FFMA: a
+//     split-TF32 form with K over the taps took 3.54 ms against FFMA's
+//     3.19, with too little work a staged row to hide the row's load,
+//     split and barriers;
+//   * O == 1 (the 16->1 layer) keeps FFMA: a split-TF32 form with the
+//     bfloat16 route's Z pass (N over dl) took 8.8 ms against 10.9 and
+//     was as accurate (9.6e-7 of the scale against float64; cuDNN's
+//     float32 1.3e-6), but on the PF-Pascal gradient check's batch its
+//     last bits route the score objective's max and ReLU gradients
+//     otherwise than the plain float32 version does (3e-4 of the scale
+//     against 5.6e-5), past that check's gate; on three other batches
+//     it was within it.
 constexpr int kRouteFfma = 0;
 constexpr int kRouteTf32x3 = 1;
 constexpr int kRouteBf16 = 2;
 
 int f32_route(int C, int O) {
-  (void)O;
-  return C >= 2 ? kRouteTf32x3 : kRouteFfma;
+  return C >= 2 && O >= 2 ? kRouteTf32x3 : kRouteFfma;
 }
 
 struct F32Shape {
@@ -674,11 +677,9 @@ struct F32Shape {
 };
 
 // NT: n8 tiles a block (8 * NT output channels); MT: m16 tiles a warp (the
-// tile is 8 warps x MT x 16 positions); kMode: kModeChannels or kModeDlN
-// (O == 1, NT == 1). Shared memory: the halo's hi, lo and raw (next row)
-// arrays, the weights' hi and lo arrays, and on kModeDlN each warp's Z
-// rows.
-template <int NT, int MT, int kMode>
+// tile is 8 warps x MT x 16 positions). Shared memory: the halo's hi, lo
+// and raw (next row) arrays, then the weights' hi and lo arrays.
+template <int NT, int MT>
 __global__ void __launch_bounds__(kTcThreads, 1)
     conv4d_fwd_tf32x3_tc(const float* __restrict__ x,
                          const float* __restrict__ w,
@@ -689,7 +690,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   using namespace mma32;
   constexpr int OT = 8 * NT;
   constexpr int kTilePos = kTcWarps * MT * 16;
-  constexpr bool kDlN = kMode == kModeDlN;
   const int p = s.ks / 2;
   const int KL = s.K * s.L;
   const int cols = s.L + 2 * p;
@@ -774,9 +774,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   };
 
   // input row v's weights as [k row][OT], in chunks of 4 columns: chunk f
-  // holds output channels (on kModeDlN: dl) 4q .. 4q+3 of k row r, with
-  // q = f % (OT/4) and r = f / (OT/4). k row r = (tap t, channel group,
-  // channel), t = (r / 16) / CG; on kModeDlN the "tap" is dk
+  // holds output channels 4q .. 4q+3 of k row r, with q = f % (OT/4) and
+  // r = f / (OT/4). k row r = (tap t, channel group, channel), t = (r /
+  // 16) / CG
   const int n_wchunks = s.krows * OT / 4;
   auto w_chunk = [&](int v, int f) {
     const int q = f % (OT / 4);
@@ -786,24 +786,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int c = (s.CG == 1 ? 0 : kstep % s.CG) * 16 + (r & 15);
     float e[4] = {0.f, 0.f, 0.f, 0.f};
     if (c < s.C) {
-      const float* wr = w + (int64_t)v * T * s.C * s.O;
-      if (kDlN) {  // B of the per-dk GEMM: N = dl
+      const float* src =
+          w + ((int64_t)(v * T + t) * s.C + c) * s.O + o0 + 4 * q;
+      if (s.vec_w) {
+        if (o0 + 4 * q < s.O) {
+          const float4 v4 = __ldg(reinterpret_cast<const float4*>(src));
+          e[0] = v4.x, e[1] = v4.y, e[2] = v4.z, e[3] = v4.w;
+        }
+      } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          if (4 * q + k < s.ks)
-            e[k] = wr[(int64_t)(t * s.ks + 4 * q + k) * s.C + c];
-      } else {
-        const float* src = wr + ((int64_t)t * s.C + c) * s.O + o0 + 4 * q;
-        if (s.vec_w) {
-          if (o0 + 4 * q < s.O) {
-            const float4 v4 = __ldg(reinterpret_cast<const float4*>(src));
-            e[0] = v4.x, e[1] = v4.y, e[2] = v4.z, e[3] = v4.w;
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (o0 + 4 * q + k < s.O) e[k] = src[k];
-        }
+          if (o0 + 4 * q + k < s.O) e[k] = src[k];
       }
     }
     return make_float4(e[0], e[1], e[2], e[3]);
@@ -835,16 +828,20 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   auto split_row = [&](int v) {
     float4 wv[kWRegs];
 #pragma unroll
-    for (int k = 0; k < kWRegs; ++k)
-      if (tid + k * kTcThreads < n_wchunks) wv[k] = w_chunk(v, tid + k * kTcThreads);
+    for (int k = 0; k < kWRegs; ++k) {
+      const int f = tid + k * kTcThreads;
+      if (f < n_wchunks) wv[k] = w_chunk(v, f);
+    }
     const float4* raw = reinterpret_cast<const float4*>(xraw);
     float4* hi = reinterpret_cast<float4*>(xhi);
     float4* lo = reinterpret_cast<float4*>(xlo);
     for (int e = tid; e < s.x_bytes / 16; e += kTcThreads)
       split4(raw[e], hi[e], lo[e]);
 #pragma unroll
-    for (int k = 0; k < kWRegs; ++k)
-      if (tid + k * kTcThreads < n_wchunks) put_w(tid + k * kTcThreads, wv[k]);
+    for (int k = 0; k < kWRegs; ++k) {
+      const int f = tid + k * kTcThreads;
+      if (f < n_wchunks) put_w(f, wv[k]);
+    }
     for (int f = tid + kWRegs * kTcThreads; f < n_wchunks; f += kTcThreads)
       put_w(f, w_chunk(v, f));
   };
@@ -901,71 +898,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
   };
 
-  // kModeDlN: per dk, Z[u][dl] = sum_c x_halo[u + dk*(L+2p), c] *
-  // w[dk, dl, c] over the halo rows u of this warp's positions (one GEMM,
-  // N = dl, K = c; its 16 products a row stay in the tensor cores), then
-  // out[pos] += sum_dl Z[u(pos) + dl][dl] in float32 from the warp's own
-  // shared rows: a fifth of the per-tap form's MMAs at O = 1
-  constexpr int kZT = kZRows / 16;         // Z tiles a warp
-  constexpr int kQ = (MT * 16 + 31) / 32;  // positions a lane
-  const int hp = rows * cols;              // this tile's halo positions
-  const int zm0 = p0 + m_warp;
-  const int zm1 = min(zm0 + MT * 16, p1);
-  const int umin = halo_of(m_warp);
-  int uo[kQ];
-  float zout[kQ];
-#pragma unroll
-  for (int q = 0; q < kQ; ++q) {
-    const int pos = zm0 + lane + 32 * q;
-    uo[q] = pos < zm1 ? halo_of(pos - p0) - umin : 0;
-    zout[q] = 0.f;
-  }
-  float* zw = reinterpret_cast<float*>(wbufs + 2 * s.w_bytes) +
-              warp * kZRows * kZStride;
-  auto compute_dln = [&]() {
-    for (int dk = 0; dk < s.ks; ++dk) {
-      float z[kZT][4];
-#pragma unroll
-      for (int mt = 0; mt < kZT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) z[mt][e] = 0.f;
-      for (int cg = 0; cg < s.CG; ++cg)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int wbase = ((dk * s.CG + cg) * 16 + h * 8) * 8 +
-                            ((lane & 3) * 8 + (lane >> 2));
-          const uint32_t bh[2] = {whi_u[wbase], whi_u[wbase + 32]};
-          const uint32_t bl[2] = {wlo_u[wbase], wlo_u[wbase + 32]};
-          const int chunk = 2 * h + (lane >> 4);
-#pragma unroll
-          for (int mt = 0; mt < kZT; ++mt) {
-            const int u =
-                min(umin + dk * cols + mt * 16 + (lane & 15), hp - 1);
-            const uint32_t off = swizzle4(cg * s.HP + u, chunk);
-            uint32_t ah[4], al[4];
-            ldmatrix_x4(ah, xhi_addr + off);
-            ldmatrix_x4(al, xlo_addr + off);
-            mma_tf32x3(z[mt], ah, al, bh, bl);
-          }
-        }
-#pragma unroll
-      for (int mt = 0; mt < kZT; ++mt) {
-        float* zr = zw + (mt * 16 + (lane >> 2)) * kZStride + 2 * (lane & 3);
-        zr[0] = z[mt][0];
-        zr[1] = z[mt][1];
-        zr[8 * kZStride] = z[mt][2];
-        zr[8 * kZStride + 1] = z[mt][3];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int q = 0; q < kQ; ++q)
-        if (zm0 + lane + 32 * q < zm1)
-          for (int dl = 0; dl < s.ks; ++dl)
-            zout[q] += zw[(uo[q] + dl) * kZStride + dl];
-      __syncwarp();  // the gathers are done before the next dk's rows land
-    }
-  };
-
   // over the (di, dj) rows on the grid: the copy of the next row's raw
   // halo is in flight while this row's MMAs run; the next row's halo and
   // weights are split between the two barriers that close the row
@@ -980,12 +912,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int vn = next_tap(v + 1);
     if (vn < T) stage_x(vn);
     cp_async_commit();
-    if (active) {
-      if constexpr (kDlN)
-        compute_dln();
-      else
-        compute();
-    }
+    if (active) compute();
     cp_async_wait<0>();
     __syncthreads();  // the next row has landed; every warp is done with this
     if (vn < T) split_row(vn);
@@ -994,14 +921,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 
   float* dst = out + (((int64_t)b * s.I + i) * s.J + j) * (int64_t)KL * s.O;
-  if constexpr (kDlN) {  // O == 1
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int pos = zm0 + lane + 32 * q;
-      if (pos < zm1) dst[pos] = zout[q] + bias[0];
-    }
-    return;
-  }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1023,11 +942,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
 }
 
-template <int NT, int MT, int kMode = kModeChannels>
+template <int NT, int MT>
 int launch_f32_tc(const void* x, const void* w, const float* bias, void* out,
                   const F32Shape& s, int n_tiles, size_t smem,
                   cudaStream_t stream) {
-  auto kernel = conv4d_fwd_tf32x3_tc<NT, MT, kMode>;
+  auto kernel = conv4d_fwd_tf32x3_tc<NT, MT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1099,9 +1018,8 @@ int conv4d_fwd_bf16(const void* x, const void* w, const float* bias,
                                            stream);
 }
 
-// The split-TF32 route: plan (the GEMM mode, and the most m16 tiles a
-// warp, 5, 2 or 1, whose staged arrays fit), check shared memory, launch.
-// O == 1 takes kModeDlN where a warp's Z rows fit at 5 tiles a warp.
+// The split-TF32 route: plan (the most m16 tiles a warp, 5, 2 or 1,
+// whose staged arrays fit), check shared memory, launch.
 int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
                       void* out, int B, int I, int J, int K, int L, int C,
                       int O, int ks, cudaStream_t stream) {
@@ -1111,6 +1029,8 @@ int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
   const int NT = O <= 8 ? 1 : 2;
   F32Shape s{B, I, J, K, L, C, O, ks};
   s.CG = (C + 15) / 16;
+  s.krows = ks * ks * s.CG * 16;
+  s.w_bytes = s.krows * 8 * NT * 4;
   s.vec_x = C % 4 == 0 && (uintptr_t)x % 16 == 0;
   s.vec_w = O % 4 == 0 && (uintptr_t)w % 16 == 0;
   int max_smem = 0;
@@ -1129,19 +1049,8 @@ int conv4d_fwd_f32_tc(const void* x, const void* w, const float* bias,
     }
     s.HP = rows_max * cols;
     s.x_bytes = s.CG * s.HP * 64;
-    // a warp's Z rows on kModeDlN: at most 79 + 2p per row boundary its
-    // 80 positions cross, plus ks
-    const int z_rows = mt * 16 - 1 + 2 * p * ((mt * 16 - 1) / L + 1) + ks;
-    const bool dln = O == 1 && mt == 5 && ks <= 8 && z_rows <= kZRows;
-    s.krows = (dln ? ks : ks * ks) * s.CG * 16;
-    s.w_bytes = s.krows * 8 * NT * 4;
-    const size_t smem =
-        3 * (size_t)s.x_bytes + 2 * (size_t)s.w_bytes +
-        (dln ? (size_t)kTcWarps * kZRows * kZStride * 4 : 0);
+    const size_t smem = 3 * (size_t)s.x_bytes + 2 * (size_t)s.w_bytes;
     if (smem > (size_t)max_smem) continue;
-    if (dln)
-      return launch_f32_tc<1, 5, kModeDlN>(x, w, bias, out, s, n_tiles, smem,
-                                           stream);
     if (NT == 1) {
       if (mt == 5)
         return launch_f32_tc<1, 5>(x, w, bias, out, s, n_tiles, smem, stream);

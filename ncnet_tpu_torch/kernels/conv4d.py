@@ -23,7 +23,8 @@ into one contraction (see the source's header). Each dtype has its route:
   about 2e-6 of the scale on a 10,000-term NC sum (one TF32 product keeps
   about 4e-4, short of the 1e-4 the serving check holds the card to); or
   register-blocked FFMA on the CUDA cores, for the layers the rule keeps
-  there (one input channel).
+  there (one input or one output channel; the source's ``f32_route`` says
+  why).
 
 The kernel functions of the tensor-core routes carry ``bf16_tc`` or
 ``tf32x3`` in their names; ``tensor_core_counts`` counts their ``HMMA``
@@ -59,7 +60,7 @@ def float32_route(cin, cout):
     Mirrors ``f32_route`` in ``csrc/conv4d_fwd.cu``, which alone decides:
     a shape rule, never a retry after a failed build or launch.
     """
-    return "tf32x3" if cin >= 2 else "ffma"
+    return "tf32x3" if cin >= 2 and cout >= 2 else "ffma"
 
 
 def route(dtype, cin, cout):

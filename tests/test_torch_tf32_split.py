@@ -179,9 +179,9 @@ def test_one_long_tensor_core_sum_loses_the_split():
         (2, 2, "tf32x3"),
         (3, 9, "tf32x3"),
         (32, 16, "tf32x3"),
-        (16, 1, "tf32x3"),   # the 16->1 layer (its Z pass, N over dl)
-        (2, 1, "tf32x3"),
         (1, 16, "ffma"),     # the 1->16 layer
+        (16, 1, "ffma"),     # the 16->1 layer
+        (2, 1, "ffma"),
         (1, 1, "ffma"),
     ],
 )
