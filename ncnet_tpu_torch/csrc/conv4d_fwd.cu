@@ -650,13 +650,12 @@ int launch_tc(const void* x, const void* w, const float* bias, void* out,
 //     3.19, with too little work a staged row to hide the row's load,
 //     split and barriers;
 //   * O == 1 (the 16->1 layer) keeps FFMA: a split-TF32 form with the
-//     bfloat16 route's Z pass (N over dl) took 8.8 ms against 10.9 and
-//     was as accurate (9.6e-7 of the scale against float64; cuDNN's
-//     float32 1.3e-6), but on the PF-Pascal gradient check's batch its
-//     last bits route the score objective's max and ReLU gradients
-//     otherwise than the plain float32 version does (3e-4 of the scale
-//     against 5.6e-5), past that check's gate; on three other batches
-//     it was within it.
+//     bfloat16 route's Z pass (N over dl) took 8.8 ms against 10.9, at
+//     2.1e-6 of the scale from the plain version (FFMA: 5.7e-6), but on
+//     the PF-Pascal gradient check's batch its last bits route the score
+//     objective's max and ReLU gradients otherwise than the plain float32
+//     version does (3.1e-4 of the scale off float64, against 5.6e-5),
+//     past that check's gate.
 constexpr int kRouteFfma = 0;
 constexpr int kRouteTf32x3 = 1;
 constexpr int kRouteBf16 = 2;
