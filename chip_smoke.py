@@ -93,7 +93,35 @@ Phases, one JSON line each:
              ncnet_tpu_torch.train --synthetic --allow_random_fe
              --max-steps 2`` in a subprocess: its report comes back and its
              checkpoint loads.
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+10. eval   — (a) the synthetic convergence run (``ncnet_tpu_torch.eval.
+             synthetic.run``) at its defaults (patch16, identity NC init,
+             centred features, NC 3-3 / 16-1, 128 px, lr 5e-4, 400 steps,
+             PCK@0.15), in float32 and in bfloat16, through the kernels:
+             the loss must fall and PCK after training must clear both
+             PCK before and the degenerate diagonal's by SYNTH_MARGIN;
+             (b) PF-Pascal PCK at the PF-Pascal config (centred features)
+             on PF_PAIRS generated keypointed pairs
+             (``pf_pascal_sample``, 'scnet'):
+             ``evaluate`` (3 conv4d launches a batch), ``evaluate_serving``
+             and ``pck_vs_topk`` at K = BAND_K (6 band launches a batch),
+             each pair's PCK equal to the plain kernels' path, or where it
+             differs, the kernel's readout the plain one up to ties.
+11. inloc  — ``dump_matches`` at the reference's InLoc settings (3200 px,
+             k_size 2, NC 3-3 / 16-1, bfloat16, both directions, softmax)
+             on one generated 4032x3024 query and two 1600x1200 panos
+             (.npy files and a shortlist .mat): the .mat is [1, 2, 15000,
+             5] with finite coordinates in [0, 1] and 4 conv4d launches a
+             pair; one pair's readout holds against the forward through
+             the plain conv4d (float32 sums of the same bfloat16 inputs,
+             rounded to bfloat16): offsets equal, correlation and scores
+             within INLOC_TOL, each differing pick short of the plain best
+             by no more than the two correlations differ (a tie at their
+             error); the pair's stage times; each conv4d
+             layer at the pooled [1, 100, 75, 75, 100] grid and its
+             transpose against its plain version (TOL), repeated bitwise,
+             timed beside its plain version and bound.
+Then the ``{"kernels": [...]}`` line (``launches_by_path`` per kernel:
+serve, serve_band, train, eval, inloc), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Needs one card; exits non-zero without CUDA.
 """
@@ -160,6 +188,28 @@ WIDE_HW, WIDE_GRID = (768, 768), 48
 # whose float32 route does (split-TF32) where its shape rule says so
 BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw")
 TF32X3_ROUTES = ("conv4d_fwd",)
+# eval: synthetic convergence at its defaults (128 px, patch16, identity NC
+# init, NC 3-3 / 16-1, 400 steps): PCK@0.15 after training must clear PCK
+# before and the degenerate diagonal's by SYNTH_MARGIN (a model collapsed
+# onto the diagonal scores the baseline exactly; 0.1 is 26 of the 256
+# query points)
+SYNTH_MARGIN = 0.10
+PF_PAIRS = 8  # generated keypointed PF-Pascal pairs, two batches of MAX_BATCH
+# inloc: the reference's settings (eval_inloc.py: 3200 px, k_size 2, NC
+# 3-3 / 16-1, bfloat16); an iPhone 7 query against 1600x1200 panos
+INLOC_SIZE, INLOC_K = 3200, 2
+QUERY_HW, PANO_HW = (4032, 3024), (1200, 1600)
+INLOC_SLOTS = 15000  # n_match_slots(3200, 2, both directions)
+INLOC_LAYERS = ((1, 16), (16, 1))
+# the bfloat16 forward through the kernel vs the same forward through the
+# plain conv4d in float32 on the same bfloat16 inputs, rounded to
+# bfloat16 as the kernel rounds its float32 sums; relative to the scale
+# of the plain correlation (and the softmax scores to theirs). The two
+# sums differ in order only, so a layer's outputs differ by at most one
+# bfloat16 step (2^-8 of the scale) where a sum lies at a rounding
+# boundary; the post-NC mutual matching, a product of three factors in
+# bfloat16, triples that and adds its own roundings
+INLOC_TOL = 3e-2
 
 
 def emit(obj):
@@ -242,11 +292,11 @@ def valid_taps(n, k):
     return sum(min(n, i + p + 1) - max(0, i - p) for i in range(n))
 
 
-def bound_ms(shape, cin, cout, dtype):
+def bound_ms(shape, cin, cout, dtype, ks=KSIZE):
     b, dims = shape[0], shape[1:]
-    flops = 2.0 * b * cin * cout * np.prod([valid_taps(n, KSIZE) for n in dims])
+    flops = 2.0 * b * cin * cout * np.prod([valid_taps(n, ks) for n in dims])
     elt = torch.finfo(dtype).bits // 8
-    nbytes = (np.prod(shape) * (cin + cout) + KSIZE**4 * cin * cout) * elt + 4 * cout
+    nbytes = (np.prod(shape) * (cin + cout) + ks**4 * cin * cout) * elt + 4 * cout
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
@@ -1318,6 +1368,431 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
     return launches
 
 
+def pf_pascal_pairs(n, seed):
+    """``n`` generated PF-Pascal samples (`pf_pascal_sample`, 'scnet'
+    procedure, 400 px): a smooth random texture of a PF-Pascal image size
+    as the source, the source rolled right by a known shift as the target,
+    and 6-12 keypoints in the target's right half with their source
+    positions, written in the CSV's ``x1;x2;...`` columns."""
+    from ncnet_tpu_torch.data.images import resize_bilinear_np
+    from ncnet_tpu_torch.data.pairs import pf_pascal_sample
+
+    rng = np.random.RandomState(seed)
+    sizes = ((300, 500), (375, 500), (500, 333), (400, 400))
+    samples = []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        base = rng.rand(h // 8, w // 8, 3).astype(np.float32) * 255.0
+        src = resize_bilinear_np(base, h, w)
+        shift = rng.randint(0, w // 4)
+        tgt = np.roll(src, shift, axis=1)
+        m = rng.randint(6, 13)
+        xb = rng.uniform(0.55 * w, 0.95 * w, m)
+        yb = rng.uniform(0.1 * h, 0.9 * h, m)
+
+        def col(v):
+            return ";".join(f"{x:.4f}" for x in v)
+
+        row = [f"src{i}.jpg", f"tgt{i}.jpg", str(1 + i % 20), col(xb - shift),
+               col(yb), col(xb), col(yb)]
+        samples.append(pf_pascal_sample(src, tgt, row, output_size=SQUARE_HW))
+    return samples
+
+
+def pair_tensors(batch, j):
+    """Pair ``j`` of a collated numpy batch as ``[1, h, w, 3]`` CUDA tensors."""
+    return tuple(torch.from_numpy(np.asarray(batch[k][j:j + 1], np.float32)).cuda()
+                 for k in ("source_image", "target_image"))
+
+
+def differing_pairs_tied(model, config, batches, conv_attr, plain, results):
+    """Pairs whose per-pair PCK differs between ``results`` (lists over the
+    same pairs) must have kernel and plain readouts that agree up to ties
+    (`argmax_agrees`); returns the indices of such pairs, and raises on a
+    pair whose readouts disagree."""
+    from ncnet_tpu_torch.models.immatchnet import immatchnet_apply
+
+    ref = np.asarray(results[0])
+    differ = sorted({i for r in results[1:] for i in
+                     np.flatnonzero(np.abs(np.asarray(r) - ref) > 1e-6)})
+    per_batch = len(batches[0]["source_image"])
+    for i in differ:
+        src, tgt = pair_tensors(batches[i // per_batch], i % per_batch)
+        nc = model.neigh_consensus
+        with torch.inference_mode():
+            corr_k = immatchnet_apply(model, config, src, tgt)
+            kept = getattr(nc, conv_attr)
+            setattr(nc, conv_attr, plain)
+            try:
+                corr_p = immatchnet_apply(model, config, src, tgt)
+            finally:
+                setattr(nc, conv_attr, kept)
+        if not argmax_agrees(corr_k, corr_p):
+            raise AssertionError(
+                f"pair {i}: PCK differs ({[r[i] for r in results]}) and the "
+                "kernel's readout is not the plain one up to ties")
+    return [int(i) for i in differ]
+
+
+def phase_eval(smi, config, kernels, conv4d_plain, band_plain):
+    """(a) The synthetic convergence run at its defaults, float32 and
+    bfloat16, through the kernels; (b) PF-Pascal PCK at the PF-Pascal config
+    on generated keypointed pairs through `evaluate`, `evaluate_serving` and
+    `pck_vs_topk` at K = BAND_K, each per-pair PCK equal to the plain
+    kernels' up to ties. Returns the launches of the main path's run."""
+    from ncnet_tpu_torch.data.loader import collate
+    from ncnet_tpu_torch.eval import pf_pascal, synthetic
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet
+
+    for k in kernels.values():
+        k.launches = 0
+    convergence = {}
+    for name, half in (("float32", False), ("bfloat16", True)):
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        out = synthetic.run(device="cuda", half_precision=half, verbose=False)
+        rec = {k: out[k] for k in ("loss_first", "loss_last", "loss_deciles",
+                                   "pck_before", "pck_after",
+                                   "pck_diagonal_baseline")}
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = {n: k.launches - before[n] for n, k in kernels.items()}
+        rec["ok"] = (out["loss_last"] < out["loss_first"]
+                     and out["pck_after"] >= out["pck_before"] + SYNTH_MARGIN
+                     and out["pck_after"] >= out["pck_diagonal_baseline"] + SYNTH_MARGIN
+                     and all(rec["launches"][n] > 0 for n in
+                             ("conv4d_fwd", "conv4d_dx", "conv4d_dw")))
+        convergence[name] = rec
+        del out
+    if not all(r["ok"] for r in convergence.values()):
+        emit({"phase": "eval", "synthetic": convergence})
+        raise AssertionError(f"synthetic convergence not shown: {convergence}")
+
+    # centred features (as the synthetic convergence): the random trunk's
+    # uncentred features correlate almost uniformly, and the dense readout
+    # then matched no keypoint of any pair (with the identity NC init
+    # too), which could not show a readout flip
+    config = config.replace(center_features=True)
+    model = ImMatchNet(config, device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    samples = pf_pascal_pairs(PF_PAIRS, SEED + 7)
+    batches = [collate(samples[i:i + MAX_BATCH])
+               for i in range(0, PF_PAIRS, MAX_BATCH)]
+    conv0, band0 = kernels["conv4d_fwd"].launches, kernels["band_gemm_fwd"].launches
+    res_k = pf_pascal.evaluate(model, config, batches, verbose=False)
+    pf_launches = kernels["conv4d_fwd"].launches - conv0
+    t0 = time.perf_counter()  # a second, warm pass: the batch time
+    pf_pascal.evaluate(model, config, batches, verbose=False)
+    eval_s = time.perf_counter() - t0
+    res_s = pf_pascal.evaluate_serving(model, config, batches,
+                                       max_batch=MAX_BATCH, verbose=False)
+    res_b = pf_pascal.pck_vs_topk(model, config, batches, ks=[BAND_K])[BAND_K]
+    band_launches = kernels["band_gemm_fwd"].launches - band0
+    launches = {n: k.launches for n, k in kernels.items()}
+
+    # the same evals with the plain versions of the kernels
+    nc = model.neigh_consensus
+    conv, layer = nc.conv, nc.band_layer
+    nc.conv, nc.band_layer = conv4d_plain, band_plain
+    try:
+        res_p = pf_pascal.evaluate(model, config, batches, verbose=False)
+        res_bp = pf_pascal.pck_vs_topk(model, config, batches, ks=[BAND_K])[BAND_K]
+    finally:
+        nc.conv, nc.band_layer = conv, layer
+    tied = differing_pairs_tied(model, config, batches, "conv", conv4d_plain,
+                                [res_p["per_pair"], res_k["per_pair"],
+                                 res_s["per_pair"]])
+    band_tied = differing_pairs_tied(
+        model, config.replace(nc_topk=BAND_K), batches, "band_layer", band_plain,
+        [res_bp["per_pair"], res_b["per_pair"]])
+    n_batches = len(batches)
+    problems = []
+    if pf_launches != 3 * n_batches:
+        problems.append(f"evaluate launched conv4d {pf_launches} times, not "
+                        f"3 x {n_batches} square batches")
+    if band_launches != 6 * n_batches:
+        problems.append(f"pck_vs_topk launched the band kernel {band_launches} "
+                        f"times, not 6 x {n_batches} batches")
+    if res_s["serve"]["completed"] != PF_PAIRS or res_s["serve"]["failed"]:
+        problems.append(f"evaluate_serving: {res_s['serve']}")
+    if not (res_k["n_valid"] == res_p["n_valid"] == PF_PAIRS
+            and all(np.isfinite(res_k["per_pair"]))):
+        problems.append("PCK not valid for every pair")
+    record = {"phase": "eval", "card": smi, "synthetic": convergence,
+              "synthetic_margin": SYNTH_MARGIN,
+              "pf_pascal": {
+                  "config": config.to_dict(), "pairs": PF_PAIRS,
+                  "batch": MAX_BATCH, "pck": res_k["pck"],
+                  "per_pair": res_k["per_pair"],
+                  "per_pair_plain": res_p["per_pair"],
+                  "per_pair_served": res_s["per_pair"],
+                  "differing_pairs_tied": tied,
+                  "warm_eval_s": eval_s,
+                  "ms_per_batch": 1e3 * eval_s / n_batches,
+                  "serve": {k: res_s["serve"][k] for k in (
+                      "batches", "mean_occupancy", "pairs_per_s",
+                      "latency_p50_ms", "latency_p95_ms")},
+                  "conv4d_launches": pf_launches},
+              "pck_vs_topk": {"k": BAND_K, "pck": res_b["pck"],
+                              "per_pair": res_b["per_pair"],
+                              "per_pair_plain": res_bp["per_pair"],
+                              "differing_pairs_tied": band_tied,
+                              "band_launches": band_launches},
+              "launches": launches}
+    emit(record)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def texture(rng, hw, cell):
+    """A smooth random uint8 RGB image of size ``hw``: noise on a grid of
+    ``cell``-pixel cells, bilinearly upsampled."""
+    from ncnet_tpu_torch.data.images import resize_bilinear_np, to_uint8_image
+
+    h, w = hw
+    base = rng.rand(h // cell, w // cell, 3).astype(np.float32) * 255.0
+    return to_uint8_image(resize_bilinear_np(base, h, w))
+
+
+def write_shortlist(path, queries):
+    """An InLoc shortlist ``.mat`` (``ImgList[0, q]``: the query's file at
+    field 0, its panos at field 1) for ``[(query, [panos])]``."""
+    from scipy.io import savemat
+
+    dt = np.dtype([("queryname", object), ("topN", object)])
+    entries = np.zeros((1, len(queries)), dt)
+    for q, (qname, panos) in enumerate(queries):
+        entries[0, q] = (np.array([qname], object),
+                         np.array([[p] for p in panos], object))
+    savemat(path, {"ImgList": entries})
+
+
+def inloc_readout_check(corr_k, corr_p):
+    """The readout picks of the pooled ``corr_k`` (both directions) on the
+    plain forward's ``corr_p``: returns the share of picks that differ
+    from the plain ones and the largest shortfall of a pick below the
+    plain best, relative to the plain scale. Where the two correlations
+    differ by at most e, a pick can fall short by at most 2e: a larger
+    shortfall is a readout fault, not a tie."""
+    b, fs1, fs2, fs3, fs4 = corr_p.shape
+    flat_k = corr_k.reshape(b, fs1 * fs2, fs3 * fs4)
+    flat_p = corr_p.reshape(b, fs1 * fs2, fs3 * fs4)
+    scale = float(corr_p.abs().max())
+    differ, worst = 0, 0.0
+    for dim in (1, 2):
+        idx_k = flat_k.argmax(dim=dim, keepdim=True)
+        idx_p = flat_p.argmax(dim=dim, keepdim=True)
+        picked = torch.gather(flat_p, dim, idx_k)
+        best = torch.gather(flat_p, dim, idx_p)
+        differ += int((idx_k != idx_p).sum())
+        worst = max(worst, float((best - picked).max()) / scale)
+    return differ / (fs1 * fs2 + fs3 * fs4), worst
+
+
+def phase_inloc(smi, kernels, conv4d_plain):
+    """One generated query (4032x3024) against two generated panos
+    (1600x1200) through `dump_matches` at the reference's InLoc settings;
+    the .mat's contract; one pair's readout against the plain forward;
+    the pair's stage times and each conv4d layer at the pooled grid
+    against its plain version and bound. Returns ``(launches, layers)``."""
+    from scipy.io import loadmat
+
+    from ncnet_tpu_torch.data.images import resize_bilinear_np, to_uint8_image
+    from ncnet_tpu_torch.eval import inloc
+    from ncnet_tpu_torch.models.immatchnet import (
+        ImMatchNet,
+        ImMatchNetConfig,
+        extract_features,
+        immatchnet_apply,
+    )
+    from ncnet_tpu_torch.ops.correlation import correlation_maxpool4d
+    from ncnet_tpu_torch.ops.matches import corr_to_matches
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+
+    config = ImMatchNetConfig(
+        feature_extraction_cnn="resnet101", ncons_kernel_sizes=(3, 3),
+        ncons_channels=(16, 1), half_precision=True,
+        relocalization_k_size=INLOC_K,
+    )
+    model = ImMatchNet(config, device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED + 8)
+    query = texture(rng, QUERY_HW, 24)
+    # pano 0 sees a part of the query's scene, pano 1 another scene
+    qh, qw = QUERY_HW
+    panos = [to_uint8_image(resize_bilinear_np(
+                 query[int(0.3 * qh):int(0.67 * qh), int(0.17 * qw):int(0.83 * qw)],
+                 *PANO_HW)),
+             texture(rng, PANO_HW, 8)]
+    n_slots = inloc.n_match_slots(INLOC_SIZE, INLOC_K, True)
+    with tempfile.TemporaryDirectory() as root:
+        np.save(os.path.join(root, "query.npy"), query)
+        names = []
+        for i, pano in enumerate(panos):
+            names.append(f"pano{i}.npy")
+            np.save(os.path.join(root, names[-1]), pano)
+        shortlist = os.path.join(root, "shortlist.mat")
+        write_shortlist(shortlist, [("query.npy", names)])
+        out_dir = os.path.join(root, "matches")
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = inloc.dump_matches(
+            model, config, shortlist, root, root, out_dir,
+            image_size=INLOC_SIZE, n_queries=1, n_panos=len(panos),
+            verbose=False, read_image=lambda p: np.load(p).astype(np.float32))
+        dump_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        mat = loadmat(os.path.join(out_dir, "1.mat"))
+    m = mat["matches"]
+    filled = [int((np.abs(m[0, p]).sum(axis=1) > 0).sum()) for p in range(len(panos))]
+    problems = []
+    if m.shape != (1, len(panos), INLOC_SLOTS, 5) or n_slots != INLOC_SLOTS:
+        problems.append(f".mat matches {m.shape}, want (1, 2, {INLOC_SLOTS}, 5)")
+    if not (np.isfinite(m).all() and (m[..., :4] >= 0).all() and (m[..., :4] <= 1).all()):
+        problems.append("non-finite or out-of-range matches")
+    if not all(0 < f <= n_slots for f in filled):
+        problems.append(f"filled slots {filled}")
+    # a rectangular pair runs the NC net twice: 2 layers x 2 directions
+    if launches["conv4d_fwd"] != 4 * len(panos) or done["pairs"] != len(panos):
+        problems.append(f"conv4d launches {launches['conv4d_fwd']} != 4 x "
+                        f"{len(panos)} pairs")
+
+    # one pair: readout against the plain forward, and its stage times
+    t0 = time.perf_counter()
+    src = inloc.preprocess_image(query, INLOC_SIZE, INLOC_K)
+    t1 = time.perf_counter()
+    tgt = inloc.preprocess_image(panos[0], INLOC_SIZE, INLOC_K)
+    prep_ms = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+    src, tgt = torch.from_numpy(src).cuda(), torch.from_numpy(tgt).cuda()
+    nc = model.neigh_consensus
+
+    def plain_bf16(x, w, b=None):
+        return conv4d_plain(x.float(), w.float(), b).to(x.dtype)
+
+    with torch.inference_mode():
+        corr_k, delta_k = immatchnet_apply(model, config, src, tgt)
+        conv = nc.conv
+        nc.conv = plain_bf16
+        try:
+            corr_p, delta_p = immatchnet_apply(model, config, src, tgt)
+        finally:
+            nc.conv = conv
+        differ_share, shortfall = inloc_readout_check(corr_k, corr_p)
+        corr_err = float((corr_k - corr_p).abs().max() / corr_p.abs().max())
+        kw = dict(scale="positive", do_softmax=True, k_size=INLOC_K)
+        score_err = 0.0
+        for invert in (False, True):
+            s_k = corr_to_matches(corr_k, delta4d=delta_k,
+                                  invert_matching_direction=invert, **kw)[4]
+            s_p = corr_to_matches(corr_p, delta4d=delta_p,
+                                  invert_matching_direction=invert, **kw)[4]
+            score_err = max(score_err, float((s_k - s_p).abs().max() / s_p.abs().max()))
+        deltas_equal = all(torch.equal(a, b) for a, b in zip(delta_k, delta_p))
+    readout = {"pooled_grid": list(corr_k.shape), "corr_max_rel_err": corr_err,
+               "picks_differing": differ_share, "max_shortfall_rel": shortfall,
+               "score_max_rel_err": score_err, "deltas_equal": deltas_equal,
+               "tol_rel": INLOC_TOL}
+    if not (deltas_equal and corr_err <= INLOC_TOL
+            and shortfall <= 2 * corr_err + 1e-6 and score_err <= INLOC_TOL
+            and bool(torch.isfinite(corr_k).all())):
+        problems.append(f"readout disagrees with the plain forward: {readout}")
+    del corr_p, delta_p
+
+    match_fn = inloc.make_match_fn(config, concat_directions=True)
+    kw = dict(scale="positive", do_softmax=True, delta4d=delta_k, k_size=INLOC_K)
+    with torch.inference_mode():
+        fa = extract_features(model, config, src)
+        fb = extract_features(model, config, tgt)
+        pooled, _ = correlation_maxpool4d(fa, fb, INLOC_K)
+        mm = mutual_matching(pooled)
+        filtered = nc(mm)
+
+        def post_nc_readout():
+            c = mutual_matching(filtered).float()
+            return torch.cat([torch.stack(corr_to_matches(c, **kw)),
+                              torch.stack(corr_to_matches(
+                                  c, invert_matching_direction=True, **kw))], 2)
+
+        out = post_nc_readout()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = inloc.match_pair(None, None, None, None, INLOC_K, precomputed=out,
+                                shapes=(src.shape, tgt.shape))
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        stages = {
+            "host_resize_normalize_query": prep_ms[0],
+            "host_resize_normalize_pano": prep_ms[1],
+            "trunk_query": time_ms(lambda: extract_features(model, config, src), 2),
+            "trunk_pano": time_ms(lambda: extract_features(model, config, tgt), 2),
+            "correlation_maxpool": time_ms(
+                lambda: correlation_maxpool4d(fa, fb, INLOC_K), 2),
+            "mutual_matching_pre": time_ms(lambda: mutual_matching(pooled), 2),
+            "neigh_consensus": time_ms(lambda: nc(mm), 2),
+            "mm_post_readout": time_ms(post_nc_readout, 2),
+            "host_copy_sort_dedup_recenter": host_ms,
+            "matches_after_dedup": len(rows[0]),
+            "forward_and_readout": time_ms(lambda: match_fn(model, src, tgt), 2),
+            "dump_ms_per_pair": 1e3 * dump_s / len(panos),
+        }
+        del fa, fb, pooled, mm, filtered, out
+    torch.cuda.empty_cache()
+    layers = inloc_layers(kernels["conv4d_fwd"], conv4d_plain, tuple(corr_k.shape[1:]))
+    emit({"phase": "inloc", "card": smi, "config": config.to_dict(),
+          "query_hw": list(QUERY_HW), "pano_hw": list(PANO_HW),
+          "image_size": INLOC_SIZE, "k_size": INLOC_K,
+          "src_shape": list(src.shape), "tgt_shape": list(tgt.shape),
+          "mat_shape": list(m.shape), "filled_slots": filled,
+          "written": done["written"], "launches": launches,
+          "readout": readout, "stages_ms": stages, "layers": layers})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches, layers
+
+
+def inloc_layers(conv4d_fwd, conv4d_plain, grid):
+    """Each NC layer of the InLoc config, bfloat16, at the pooled grid and
+    its transpose (a rectangular pair runs the net once in each
+    direction): the kernel against its plain version in float32 on the
+    same inputs (TOL), a bitwise repeat, and its time beside the plain
+    version's in bfloat16 and the bound."""
+    fs1, fs2, fs3, fs4 = grid
+    dtype, ks = torch.bfloat16, 3
+    records = []
+    for shape in ((1, fs1, fs2, fs3, fs4), (1, fs3, fs4, fs1, fs2)):
+        for li, (cin, cout) in enumerate(INLOC_LAYERS):
+            g = torch.Generator(device="cuda").manual_seed(110 + li)
+            bound = (cin * ks**4) ** -0.5
+            x = torch.rand(*shape, cin, generator=g, device="cuda").to(dtype)
+            w = ((torch.rand(ks, ks, ks, ks, cin, cout, generator=g, device="cuda")
+                  * 2 - 1) * bound).to(dtype)
+            b = (torch.rand(cout, generator=g, device="cuda") * 2 - 1) * bound
+            ms = time_ms(lambda: conv4d_fwd(x, w, b), reps=3)
+            plain_ms = time_ms(lambda: conv4d_plain(x, w, b), reps=1)
+            got, again = conv4d_fwd(x, w, b), conv4d_fwd(x, w, b)
+            bitwise = bool(torch.equal(got, again))
+            del again
+            want = conv4d_plain(x.float(), w.float(), b)
+            err = float((got.float() - want).abs().max())
+            scale = float(want.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            del got, want, x
+            torch.cuda.empty_cache()
+            bms, by, flops = bound_ms(shape, cin, cout, dtype, ks=ks)
+            rec = {"layer": li, "shape": list(shape), "cin": cin, "cout": cout,
+                   "ks": ks, "dtype": "bfloat16", "path": "inloc", "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
+                   "max_abs_err": err, "max_rel_err": err / scale,
+                   "tol_rel": TOL[dtype], "bitwise_repeat": bitwise}
+            records.append(rec)
+            if not (finite and bitwise and err <= TOL[dtype] * scale):
+                emit({"phase": "inloc", "layers": records})
+                raise AssertionError(f"conv4d kernel disagrees at the InLoc grid: {rec}")
+    return records
+
+
 def kernel_line(name, source, replaces, launches, layers, work, smi,
                 launches_by_path=None):
     return {
@@ -1373,40 +1848,59 @@ def main():
                                      band_gemm_fwd, band_layer_plain)
     phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd)
     train_launches = phase_train(smi, model, config, kernels, conv4d_plain)
+    eval_launches = phase_eval(smi, config, kernels, conv4d_plain,
+                               band_layer_plain)
+    inloc_launches, inloc_layers_ = phase_inloc(smi, kernels, conv4d_plain)
+    fwd_by_path = {"serve": launches, "train": train_launches["conv4d_fwd"],
+                   "eval": eval_launches["conv4d_fwd"],
+                   "inloc": inloc_launches["conv4d_fwd"]}
+    band_by_path = {"serve_band": band_launches,
+                    "eval": eval_launches["band_gemm_fwd"]}
+
+    def grad_by_path(name):
+        return {"train": train_launches[name], "eval": eval_launches[name]}
+
     emit({"kernels": [
         kernel_line("conv4d_fwd", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:65",
-                    launches + train_launches["conv4d_fwd"],
+                    sum(fwd_by_path.values()),
                     [{**la, "path": "serve"} for la in layers]
-                    + [{**la, "path": "train"} for la in fwd_train_layers],
+                    + [{**la, "path": "train"} for la in fwd_train_layers]
+                    + inloc_layers_,
                     "the three NC layers of one square serving batch "
-                    f"({MAX_BATCH} pairs x 2 directions), float32, and of "
-                    f"one pipeline call of a training step ({TRAIN_BATCH} "
-                    "pairs x 2 directions), bfloat16; launches: the served "
-                    f"batches' and those of {TRAIN_STEPS} training steps",
-                    smi, {"serve": launches,
-                          "train": train_launches["conv4d_fwd"]}),
+                    f"({MAX_BATCH} pairs x 2 directions), float32; of one "
+                    f"pipeline call of a training step ({TRAIN_BATCH} pairs x "
+                    "2 directions), bfloat16; and the two InLoc NC layers "
+                    "(3^4, bfloat16) at the pooled grid of a 3200 px pair in "
+                    "both directions. Launches: the served batches', "
+                    f"{TRAIN_STEPS} training steps', the eval phase's "
+                    "(synthetic convergence, PF-Pascal evaluate and "
+                    "evaluate_serving) and the InLoc dump's",
+                    smi, fwd_by_path),
         kernel_line("band_gemm_fwd", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
-                    "ncnet_tpu/kernels/band_gemm_pallas.py:83", band_launches,
-                    band_layers,
+                    "ncnet_tpu/kernels/band_gemm_pallas.py:83",
+                    sum(band_by_path.values()), band_layers,
                     "the three band NC layers x 2 symmetric passes of one "
                     f"square degraded batch ({MAX_BATCH} pairs, K = {BAND_K}),"
                     " float32; taps derived from the band's indices, no "
-                    "pointer table", smi),
+                    "pointer table. Launches: the degraded batches' and "
+                    f"pck_vs_topk's at K = {BAND_K}", smi, band_by_path),
         kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:190",
-                    train_launches["conv4d_dx"], dx_layers,
+                    sum(grad_by_path("conv4d_dx").values()), dx_layers,
                     "the input gradients of NC layers 2 and 3 of one pipeline "
                     f"call of a training step ({TRAIN_BATCH} pairs x 2 "
-                    "directions), bfloat16; launches over "
-                    f"{TRAIN_STEPS} steps", smi),
+                    f"directions), bfloat16; launches over {TRAIN_STEPS} "
+                    "steps and the synthetic convergence runs", smi,
+                    grad_by_path("conv4d_dx")),
         kernel_line("conv4d_dw", "ncnet_tpu_torch/csrc/conv4d_dw.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:211",
-                    train_launches["conv4d_dw"], dw_layers,
+                    sum(grad_by_path("conv4d_dw").values()), dw_layers,
                     "the weight gradients of the three NC layers of one "
                     f"pipeline call of a training step ({TRAIN_BATCH} pairs x "
                     f"2 directions), bfloat16; launches over {TRAIN_STEPS} "
-                    "steps", smi),
+                    "steps and the synthetic convergence runs", smi,
+                    grad_by_path("conv4d_dw")),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

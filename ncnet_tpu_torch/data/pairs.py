@@ -4,6 +4,11 @@
   ``source_image,target_image,class,flip`` under an image root, optional
   horizontal flip per row and reference random crop, resized to a square
   training size.
+* `PFPascalDataset` (reference lib/pf_dataset.py:11-112): evaluation
+  pairs with semicolon-separated keypoint columns ``XA;YA;XB;YB`` (up to
+  `MAX_KEYPOINTS`, -1-padded) and the PCK reference length of the 'pf'
+  (max ground-truth bounding-box side) or 'scnet' (rescale to 224)
+  procedure; `pf_pascal_sample` makes one sample from decoded arrays.
 * `SyntheticPairDataset`: generated pairs for runs without image data;
   seeded exactly as the JAX package's, so both give the same pairs.
 
@@ -22,6 +27,15 @@ from ncnet_tpu_torch.data.images import (
     resize_bilinear_np,
     to_uint8_image,
 )
+
+
+PF_PASCAL_CATEGORIES = (
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
+)
+
+MAX_KEYPOINTS = 20
 
 
 def _read_csv(path):
@@ -85,6 +99,89 @@ class ImagePairDataset:
             "target_image": self._load(row[1], flip, crop_rng),
             "set_class": np.float32(float(row[2])) if len(row) > 2 else np.float32(0),
         }
+
+
+def _points(xs, ys):
+    """``"x1;x2;..."``, ``"y1;y2;..."`` -> ``[2, MAX_KEYPOINTS]`` float32,
+    -1-padded."""
+    x = [float(v) for v in xs.split(";") if v.strip()]
+    y = [float(v) for v in ys.split(";") if v.strip()]
+    pts = -np.ones((2, MAX_KEYPOINTS), np.float32)
+    pts[0, : len(x)] = x
+    pts[1, : len(y)] = y
+    return pts
+
+
+def pf_pascal_sample(img_a, img_b, row, output_size=(400, 400),
+                     pck_procedure="scnet", normalize=True):
+    """One PF-Pascal sample from decoded ``[h, w, 3]`` 0..255 images and
+    its CSV ``row`` (``source, target, class, XA, YA, XB, YB``): images
+    resized (align-corners) to ``output_size`` and ImageNet-normalized,
+    ``*_im_size``, ``*_points`` and ``L_pck`` as `PFPascalDataset` returns
+    them."""
+    out_h, out_w = output_size
+    size_a = np.asarray(img_a.shape, np.float32)
+    size_b = np.asarray(img_b.shape, np.float32)
+    pts_a = _points(row[3], row[4])
+    pts_b = _points(row[5], row[6])
+    n_pts = int(np.sum(pts_a[0] != -1))
+    if pck_procedure == "pf":
+        l_pck = np.float32(np.max(
+            pts_a[:, :n_pts].max(axis=1) - pts_a[:, :n_pts].min(axis=1)
+        ))
+    elif pck_procedure == "scnet":
+        # SCNet protocol (lib/pf_dataset.py:66-75): points rescaled as if
+        # the images were 224x224; L_pck = 224
+        pts_a[0, :n_pts] *= 224 / size_a[1]
+        pts_a[1, :n_pts] *= 224 / size_a[0]
+        pts_b[0, :n_pts] *= 224 / size_b[1]
+        pts_b[1, :n_pts] *= 224 / size_b[0]
+        size_a[0:2] = 224
+        size_b[0:2] = 224
+        l_pck = np.float32(224.0)
+    else:
+        raise ValueError(f"unknown pck procedure {pck_procedure!r}")
+
+    def prep(img):
+        img = resize_bilinear_np(img, out_h, out_w)
+        return normalize_image_np(img) if normalize else img
+
+    return {
+        "source_image": prep(img_a),
+        "target_image": prep(img_b),
+        "source_im_size": size_a[:3],
+        "target_im_size": size_b[:3],
+        "source_points": pts_a,
+        "target_points": pts_b,
+        "L_pck": np.asarray([l_pck], np.float32),
+    }
+
+
+class PFPascalDataset:
+    """PF-Pascal keypoint-annotated evaluation pairs; ``category`` (1-20,
+    the CSV's class column) keeps one class."""
+
+    def __init__(self, csv_file, dataset_path, output_size=(400, 400),
+                 category=None, pck_procedure="scnet", normalize=True):
+        self.header, rows = _read_csv(csv_file)
+        if category is not None:
+            rows = [r for r in rows if int(float(r[2])) == int(category)]
+        self.rows = rows
+        self.dataset_path = dataset_path
+        self.output_size = tuple(output_size)
+        self.pck_procedure = pck_procedure
+        self.normalize = normalize
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx):
+        row = self.rows[idx]
+        return pf_pascal_sample(
+            load_image(os.path.join(self.dataset_path, row[0])),
+            load_image(os.path.join(self.dataset_path, row[1])),
+            row, self.output_size, self.pck_procedure, self.normalize,
+        )
 
 
 class SyntheticPairDataset:

@@ -1,7 +1,8 @@
 """ImMatchNet, the matching model (``ncnet_tpu/models/immatchnet.py``).
 
   feature extraction (frozen trunk, L2 norm)  [source and target]
-  -> all-pairs 4D correlation
+  -> all-pairs 4D correlation (with ``relocalization_k_size > 1``: fused
+     with a 4D max-pool, which also returns the offsets of the maxima)
   -> soft mutual-NN filtering
   -> symmetric neighbourhood-consensus 4D convolutions (the hand kernel)
   -> soft mutual-NN filtering
@@ -26,7 +27,7 @@ from ncnet_tpu_torch.models.feature_extraction import (
     make_trunk,
 )
 from ncnet_tpu_torch.models.neigh_consensus import NeighConsensus
-from ncnet_tpu_torch.ops.correlation import correlation_4d
+from ncnet_tpu_torch.ops.correlation import correlation_4d, correlation_maxpool4d
 from ncnet_tpu_torch.ops.matching import mutual_matching
 from ncnet_tpu_torch.sparse.pipeline import (
     resolve_corr_impl,
@@ -124,11 +125,6 @@ def check_supported(config):
             f"corr_impl={config.corr_impl!r} (streamed correlation) is not "
             "ported yet (ROADMAP A9)"
         )
-    if config.relocalization_k_size > 1:
-        raise NotImplementedError(
-            "relocalization_k_size > 1 needs maxpool4d, which is not ported "
-            "yet (ROADMAP A2)"
-        )
 
 
 def _compute_dtype(config):
@@ -154,7 +150,10 @@ def match_pipeline(neigh_consensus, config, feat_a, feat_b):
     """Features -> filtered correlation: corr -> MM -> NC -> MM, returned
     in float32. With ``config.nc_topk > 0`` the chain runs on the top-K band
     (`ncnet_tpu_torch.sparse`) and the filtered band is densified here,
-    exact zeros off-band.
+    exact zeros off-band. With ``config.relocalization_k_size = k > 1``
+    the correlation is max-pooled by k in all four dims on the way
+    (`correlation_maxpool4d`) and the result is ``(corr, delta4d)``, the
+    offsets `corr_to_matches` takes to restore fine-grid matches.
 
     Differentiable in the NC parameters (dense path). With
     ``half_precision`` the features (from `extract_features`), the
@@ -169,14 +168,22 @@ def match_pipeline(neigh_consensus, config, feat_a, feat_b):
         )
         return sparse_corr_to_dense(band, indices, grid_b)
     dtype = _compute_dtype(config)
-    corr = mutual_matching(correlation_4d(feat_a, feat_b))
+    k = config.relocalization_k_size
+    delta4d = None
+    if k > 1:
+        corr, delta4d = correlation_maxpool4d(feat_a, feat_b, k)
+    else:
+        corr = correlation_4d(feat_a, feat_b)
+    corr = mutual_matching(corr)
     corr = neigh_consensus(corr.to(dtype) if dtype else corr)
-    return mutual_matching(corr).float()
+    corr = mutual_matching(corr).float()
+    return (corr, delta4d) if k > 1 else corr
 
 
 def immatchnet_apply(model, config, source_image, target_image):
     """Forward pass: ``[b, h, w, 3]`` ImageNet-normalized images ->
-    ``corr4d [b, iA, jA, iB, jB]`` in float32."""
+    ``corr4d [b, iA, jA, iB, jB]`` in float32, or ``(corr4d, delta4d)``
+    with ``relocalization_k_size > 1``."""
     feat_a = extract_features(model, config, source_image)
     feat_b = extract_features(model, config, target_image)
     return match_pipeline(model.neigh_consensus, config, feat_a, feat_b)

@@ -1,7 +1,9 @@
-"""All-pairs 4D feature correlation (``ncnet_tpu/ops/correlation.py``)."""
+"""All-pairs 4D feature correlation, plain and fused with 4D max-pooling
+(``ncnet_tpu/ops/correlation.py``)."""
 
 import torch
 
+from ncnet_tpu_torch.ops.matching import _decode_offsets
 from ncnet_tpu_torch.ops.norm import feature_l2norm
 
 
@@ -20,3 +22,50 @@ def correlation_4d(feature_a, feature_b, normalization=False, relu=True):
         corr = feature_l2norm(corr.reshape(b, ha, wa, hb * wb), dim=-1)
         corr = corr.reshape(b, ha, wa, hb, wb)
     return corr
+
+
+def _sub_grids(feature, k):
+    """``[b, h, w, c]`` -> its ``k*k`` k-strided sub-grids, ``[k*k, b, h/k,
+    w/k, c]``, sub-grid ``di*k + dj`` holding the cells ``(k*i + di, k*j +
+    dj)``."""
+    b, h, w, c = feature.shape
+    sub = feature.reshape(b, h // k, k, w // k, k, c)
+    return sub.permute(2, 4, 0, 1, 3, 5).reshape(k * k, b, h // k, w // k, c)
+
+
+def correlation_maxpool4d(feature_a, feature_b, k_size):
+    """``maxpool4d(correlation_4d(fA, fB), k_size)`` without the pre-pool
+    tensor ("relocalization", reference lib/model.py:269-272, 177-191).
+
+    The ``k^4`` sub-correlations of the k-strided sub-grids are computed
+    one at a time (one batched GEMM each) and max-accumulated, so the
+    largest tensor is the pooled one, ``k^4`` times smaller than the full
+    correlation. Each starts from ``finfo(dtype).min``; A's offset pair is
+    the slow one of the combined offset ``idx_a * k*k + idx_b``, and a
+    strict ``>`` keeps the first maximum.
+
+    Args:
+      feature_a: ``[b, hA, wA, c]``, hA and wA divisible by ``k_size``.
+      feature_b: ``[b, hB, wB, c]``, hB and wB divisible by ``k_size``.
+
+    Returns:
+      ``(corr, (di, dj, dk, dl))``: the pooled ``[b, hA/k, wA/k, hB/k,
+      wB/k]`` correlation and the int32 within-cell offsets of its maxima.
+    """
+    k = int(k_size)
+    b, ha, wa, _ = feature_a.shape
+    _, hb, wb, _ = feature_b.shape
+    sub_a = _sub_grids(feature_a, k)
+    sub_b = _sub_grids(feature_b, k)
+    pooled_shape = (b, ha // k, wa // k, hb // k, wb // k)
+    dev = feature_a.device
+    best = torch.full(pooled_shape, torch.finfo(feature_a.dtype).min,
+                      dtype=feature_a.dtype, device=dev)
+    best_idx = torch.zeros(pooled_shape, dtype=torch.int32, device=dev)
+    for idx_a in range(k * k):
+        for idx_b in range(k * k):
+            corr = correlation_4d(sub_a[idx_a], sub_b[idx_b])
+            take = corr > best
+            best = torch.where(take, corr, best)
+            best_idx = torch.where(take, idx_a * k * k + idx_b, best_idx)
+    return best, _decode_offsets(best_idx, k)

@@ -1,28 +1,17 @@
 """The serving forward: images -> both-direction matches
-(``ncnet_tpu/eval/inloc.py::make_match_fn(concat_directions=True)`` wrapped
-by ``ncnet_tpu/serve/engine.py::make_serve_match_step``)."""
+(``ncnet_tpu/serve/engine.py::make_serve_match_step``, which wraps the
+InLoc dump's ``make_match_fn(concat_directions=True)``)."""
 
-import torch
-
-from ncnet_tpu_torch.models.immatchnet import check_supported, immatchnet_apply
-from ncnet_tpu_torch.ops.matches import corr_to_matches
+from ncnet_tpu_torch.eval import inloc
 
 
 def make_match_fn(config, softmax=True):
     """``fn(model, src, tgt) -> [5, b, n_fwd + n_rev]``: the forward (dense,
-    or the top-K band densified when ``config.nc_topk > 0``), then `corr_to_matches` in both directions (positive coordinates),
-    stacked as ``(xA, yA, xB, yB, score)`` and concatenated along the
-    match axis."""
-    check_supported(config)
-
-    def fn(model, src, tgt):
-        corr = immatchnet_apply(model, config, src, tgt)
-        kw = dict(scale="positive", do_softmax=softmax)
-        fwd = corr_to_matches(corr, **kw)
-        rev = corr_to_matches(corr, invert_matching_direction=True, **kw)
-        return torch.cat([torch.stack(fwd), torch.stack(rev)], dim=2)
-
-    return fn
+    the top-K band densified when ``config.nc_topk > 0``, or pooled with
+    ``relocalization_k_size > 1``), then `corr_to_matches` in both
+    directions (positive coordinates), stacked as ``(xA, yA, xB, yB,
+    score)`` and concatenated along the match axis."""
+    return inloc.make_match_fn(config, softmax=softmax, concat_directions=True)
 
 
 def make_serve_match_step(config, softmax=True):

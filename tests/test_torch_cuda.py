@@ -467,3 +467,66 @@ def test_nc_gradients_through_kernels_match_plain(card):
         scale = float(gp.abs().max())
         # float32 sums in other orders through three layers and back
         assert float((gk - gp).abs().max()) <= 1e-4 * scale
+
+
+INLOC_CASES = [
+    # the InLoc NC layers (3^4, bfloat16) at the pooled grid of a 3200 px
+    # pair (a 4032x3024 query against a 1600x1200 pano, k_size 2) and its
+    # transpose: 56.25 M cells, 0.9 G activations at 16 channels
+    ((1, 100, 75, 75, 100), 3, 1, 16),
+    ((1, 100, 75, 75, 100), 3, 16, 1),
+    ((1, 75, 100, 100, 75), 3, 1, 16),
+    ((1, 75, 100, 100, 75), 3, 16, 1),
+]
+
+
+@pytest.mark.parametrize("case", range(len(INLOC_CASES)))
+def test_bf16_forward_at_inloc_pooled_grid(card, case):
+    """The forward at the InLoc grid: against the plain version in float32
+    on the same bfloat16 inputs (1e-2 of the scale, the bfloat16 output's
+    rounding) and bitwise over two calls."""
+    shape, k, cin, cout = INLOC_CASES[case]
+    x, w, b = _inputs(shape, k, cin, cout, 900 + case, card)
+    x, w = x.bfloat16(), w.bfloat16()
+    got = conv4d_fwd(x, w, b)
+    again = conv4d_fwd(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    del again
+    want = conv4d_plain(x.float(), w.float(), b)
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= 1e-2 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("tgt_hw", [(128, 128), (96, 160)])
+def test_relocalization_forward_through_kernels(card, tgt_hw):
+    """match_pipeline with relocalization_k_size 2 (fused correlation +
+    4D max-pool, NC in bfloat16 through the kernel) against the same
+    forward through the plain conv4d: equal offsets (the pooling runs
+    before NC) and the correlation within 3e-2 of its scale (two bfloat16
+    layers at 1e-2, tripled by the post-NC mutual matching)."""
+    from ncnet_tpu_torch.models.immatchnet import (
+        ImMatchNet,
+        ImMatchNetConfig,
+        immatchnet_apply,
+    )
+
+    cfg = ImMatchNetConfig(feature_extraction_cnn="patch16",
+                           ncons_kernel_sizes=(3, 3), ncons_channels=(16, 1),
+                           half_precision=True, relocalization_k_size=2)
+    model = ImMatchNet(cfg, device=card, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device=card).manual_seed(5)
+    src = torch.randn(1, 128, 192, 3, generator=g, device=card)
+    tgt = torch.randn(1, *tgt_hw, 3, generator=g, device=card)
+    before = conv4d_fwd.launches
+    with torch.inference_mode():
+        corr_k, delta_k = immatchnet_apply(model, cfg, src, tgt)
+        assert conv4d_fwd.launches == before + 4  # 2 layers x 2 directions
+        model.neigh_consensus.conv = conv4d_plain
+        corr_p, delta_p = immatchnet_apply(model, cfg, src, tgt)
+    assert corr_k.shape == (1, 4, 6, tgt_hw[0] // 32, tgt_hw[1] // 32)
+    for a, b in zip(delta_k, delta_p):
+        assert torch.equal(a, b)
+    err = float((corr_k - corr_p).abs().max())
+    assert err <= 3e-2 * float(corr_p.abs().max())

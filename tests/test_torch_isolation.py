@@ -65,6 +65,9 @@ def test_no_port_file_imports_jax(path):
 
 def _entry_points():
     from ncnet_tpu_torch import bridge
+    from ncnet_tpu_torch.eval.inloc import main as inloc_main
+    from ncnet_tpu_torch.eval.pf_pascal import main as pf_pascal_main
+    from ncnet_tpu_torch.eval.synthetic import main as synthetic_main
     from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
     from ncnet_tpu_torch.models.neigh_consensus import NeighConsensus
     from ncnet_tpu_torch.models.patch import PatchTrunk
@@ -89,6 +92,12 @@ def _entry_points():
         "ImMatchNet(nc_topk)": lambda: ImMatchNet(small.replace(nc_topk=16)),
         "python -m ncnet_tpu_torch.train": lambda: train_main(
             ["--synthetic", "--allow_random_fe", "--fe_arch", "patch16"]),
+        "python -m ncnet_tpu_torch.eval.pf_pascal": lambda: pf_pascal_main(
+            ["--checkpoint", "head.npz"]),
+        "python -m ncnet_tpu_torch.eval.synthetic": lambda: synthetic_main(
+            ["--steps", "1"]),
+        "python -m ncnet_tpu_torch.eval.inloc": lambda: inloc_main(
+            ["--checkpoint", "head.npz"]),
     }
 
 

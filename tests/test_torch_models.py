@@ -145,7 +145,9 @@ def test_config_dict_round_trip():
         (dict(nc_topk=8, corr_impl="stream"), "A9"),
         (dict(refine_factor=2), "A10"),
         (dict(nc_topk=8, corr_impl="stream", nc_topk_mutual=False), "A9"),
-        (dict(relocalization_k_size=2), "A2"),
+        # relocalization is ported (tests/test_torch_inloc.py); refinement
+        # still raises when a stream correlation would feed it
+        (dict(refine_factor=2, corr_impl="stream"), "A10"),
         (dict(feature_extraction_cnn="vgg"), "A4"),
         (dict(feature_extraction_cnn="densenet201"), "A4"),
     ],
