@@ -194,6 +194,12 @@ TF32X3_ROUTES = ("conv4d_fwd",)
 # onto the diagonal scores the baseline exactly; 0.1 is 26 of the 256
 # query points)
 SYNTH_MARGIN = 0.10
+# the kernels' shapes in that run: a pipeline call of its 8-pair batch
+# (training and scoring alike) batches both directions, 16 samples of the
+# 8x8 grid of 128 px, NC 3-3 / 16-1; layer 1's input is the correlation,
+# so dx runs for the 16 -> 1 layer only
+SYNTH_SHAPE, SYNTH_KS = (16, 8, 8, 8, 8), 3
+SYNTH_LAYERS = ((1, 16), (16, 1))
 PF_PAIRS = 8  # generated keypointed PF-Pascal pairs, two batches of MAX_BATCH
 # inloc: the reference's settings (eval_inloc.py: 3200 px, k_size 2, NC
 # 3-3 / 16-1, bfloat16); an iPhone 7 query against 1600x1200 panos
@@ -274,12 +280,12 @@ def phase_build(kernels):
         raise RuntimeError(f"kernel build failed: {errors}")
 
 
-def nc_inputs(shape, cin, cout, dtype, seed):
+def nc_inputs(shape, cin, cout, dtype, seed, ks=KSIZE):
     """Post-ReLU-like activations in [0, 1) and reference-init weights."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    bound = (cin * KSIZE**4) ** -0.5
+    bound = (cin * ks**4) ** -0.5
     x = torch.rand(*shape, cin, generator=g, device="cuda")
-    w = (torch.rand(KSIZE, KSIZE, KSIZE, KSIZE, cin, cout, generator=g,
+    w = (torch.rand(ks, ks, ks, ks, cin, cout, generator=g,
                     device="cuda") * 2 - 1) * bound
     b = (torch.rand(cout, generator=g, device="cuda") * 2 - 1) * bound
     return x.to(dtype), w.to(dtype), b
@@ -297,6 +303,16 @@ def bound_ms(shape, cin, cout, dtype, ks=KSIZE):
     flops = 2.0 * b * cin * cout * np.prod([valid_taps(n, ks) for n in dims])
     elt = torch.finfo(dtype).bits // 8
     nbytes = (np.prod(shape) * (cin + cout) + ks**4 * cin * cout) * elt + 4 * cout
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def dw_bound_ms(shape, cin, cout, dtype, ks=KSIZE):
+    """`bound_ms` of the weight gradient: the forward's operations; reads x
+    and g, writes a float32 dw."""
+    _, _, flops = bound_ms(shape, cin, cout, dtype, ks)
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = np.prod(shape) * (cin + cout) * elt + ks**4 * cin * cout * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
@@ -1064,12 +1080,8 @@ def phase_train_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
             del got, want
             # dx is a convolution of g (cout channels) into cin channels:
             # the same multiply-adds on the grid as the forward
-            bms, by, flops = bound_ms(shape, cin, cout, dtype)
-            if name == "dw":  # reads x and g, writes a float32 dw
-                nbytes = np.prod(shape) * (cin + cout) * 2 + KSIZE**4 * cin * cout * 4
-                t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-                bms = 1e3 * max(t_ops, t_bytes)
-                by = "operations" if t_ops >= t_bytes else "bytes"
+            bms, by, flops = (dw_bound_ms if name == "dw" else bound_ms)(
+                shape, cin, cout, dtype)
             timed[name].append({
                 "layer": li, "shape": list(shape), "cin": cin, "cout": cout,
                 "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
@@ -1127,6 +1139,62 @@ def dw_wide_grid(conv4d_dw, dw_plain):
                 emit({"phase": "train_kernels", "dw_48x48": records})
                 raise AssertionError(f"conv4d dw disagrees on the 48x48 grid: {rec}")
     return records
+
+
+def phase_synthetic_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
+    """The forward, dx and dw kernels at the synthetic convergence run's
+    own shapes (`SYNTH_SHAPE`, 3^4), float32 and bfloat16 as it trains in
+    both: each against its plain version on the same inputs (forward and
+    dx in float32, TOL; dw, DW_TOL) with a bitwise repeat, timed beside the
+    plain version in the kernel's dtype and the bound. Returns ``{"fwd",
+    "dx", "dw"}`` lists of records."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape, ks = SYNTH_SHAPE, SYNTH_KS
+    timed = {"fwd": [], "dx": [], "dw": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for li, (cin, cout) in enumerate(SYNTH_LAYERS):
+            x, w, b = nc_inputs(shape, cin, cout, dtype, seed=120 + li, ks=ks)
+            gr = torch.randn(*shape, cout, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(125 + li)).to(dtype)
+            # (name, kernel, plain version as timed, reference, tolerance
+            # of the reference's scale, bound)
+            runs = [("fwd", lambda: kernels["conv4d_fwd"](x, w, b),
+                     lambda: fwd_plain(x, w, b),
+                     lambda: fwd_plain(x.float(), w.float(), b), TOL[dtype], bound_ms),
+                    ("dw", lambda: kernels["conv4d_dw"](x, gr, ks),
+                     lambda: dw_plain(x, gr, ks), lambda: dw_plain(x, gr, ks),
+                     DW_TOL[dtype], dw_bound_ms)]
+            if li > 0:
+                runs.append(("dx", lambda: kernels["conv4d_dx"](gr, w),
+                             lambda: dx_plain(gr, w),
+                             lambda: dx_plain(gr.float(), w.float()), TOL[dtype],
+                             bound_ms))
+            for name, kern, plain, reference, tol, bound in runs:
+                ms = time_ms(kern, reps=5)
+                plain_ms = time_ms(plain, reps=5)
+                got, again = kern(), kern()
+                bitwise = bool(torch.equal(got, again))
+                got, want = got.float(), reference().float()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= tol * scale and bitwise
+                bms, by, flops = bound(shape, cin, cout, dtype, ks)
+                timed[name].append({
+                    "layer": li, "shape": list(shape), "cin": cin, "cout": cout,
+                    "ks": ks, "dtype": str(dtype).split(".")[1], "path": "eval",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "gflop": flops / 1e9,
+                    "tflops": flops / ms / 1e9, "max_abs_err": err,
+                    "max_rel_err": err / scale, "tol_rel": tol,
+                    "bitwise_repeat": bitwise, "ok": ok})
+                if not ok:
+                    emit({"phase": "synthetic_kernels", "timed": timed})
+                    raise AssertionError(
+                        f"conv4d {name} kernel disagrees at the synthetic run's "
+                        f"shape: {timed[name][-1]}")
+    emit({"phase": "synthetic_kernels", "card": smi, "timed": timed})
+    return timed
 
 
 def nc_grads(model, config, batch, objective, dtype=None):
@@ -1405,41 +1473,62 @@ def pair_tensors(batch, j):
                  for k in ("source_image", "target_image"))
 
 
-def differing_pairs_tied(model, config, batches, conv_attr, plain, results):
-    """Pairs whose per-pair PCK differs between ``results`` (lists over the
-    same pairs) must have kernel and plain readouts that agree up to ties
-    (`argmax_agrees`); returns the indices of such pairs, and raises on a
-    pair whose readouts disagree."""
+def pair_readouts(model, config, batches, conv_attr, plain):
+    """Every pair of ``batches`` through the forward with the kernels and
+    again with ``plain`` as the NC head's ``conv_attr``: per pair, whether
+    the kernel's readout agrees with the plain one up to ties
+    (`argmax_agrees`) and whether its picks are identical."""
     from ncnet_tpu_torch.models.immatchnet import immatchnet_apply
+    from ncnet_tpu_torch.ops.matches import corr_to_matches
 
+    nc = model.neigh_consensus
+    agree, identical = [], []
+    for batch in batches:
+        for j in range(len(batch["source_image"])):
+            src, tgt = pair_tensors(batch, j)
+            with torch.inference_mode():
+                corr_k = immatchnet_apply(model, config, src, tgt)
+                kept = getattr(nc, conv_attr)
+                setattr(nc, conv_attr, plain)
+                try:
+                    corr_p = immatchnet_apply(model, config, src, tgt)
+                finally:
+                    setattr(nc, conv_attr, kept)
+                agree.append(argmax_agrees(corr_k, corr_p))
+                same = True
+                for invert in (False, True):
+                    picks = [torch.stack(corr_to_matches(
+                        c, do_softmax=True, scale="positive",
+                        invert_matching_direction=invert, return_indices=True)[5:])
+                        for c in (corr_k, corr_p)]
+                    same &= bool(torch.equal(*picks))
+                identical.append(same)
+    return agree, identical
+
+
+def pck_readout_problems(label, results, agree, identical):
+    """A pair's readout must agree with the plain one up to ties, and its
+    PCK (over ``results``, lists over the same pairs) may differ only
+    where a tie went the other way (picks not identical). Returns the
+    problems and the pairs whose PCK differs."""
     ref = np.asarray(results[0])
-    differ = sorted({i for r in results[1:] for i in
+    differ = sorted({int(i) for r in results[1:] for i in
                      np.flatnonzero(np.abs(np.asarray(r) - ref) > 1e-6)})
-    per_batch = len(batches[0]["source_image"])
-    for i in differ:
-        src, tgt = pair_tensors(batches[i // per_batch], i % per_batch)
-        nc = model.neigh_consensus
-        with torch.inference_mode():
-            corr_k = immatchnet_apply(model, config, src, tgt)
-            kept = getattr(nc, conv_attr)
-            setattr(nc, conv_attr, plain)
-            try:
-                corr_p = immatchnet_apply(model, config, src, tgt)
-            finally:
-                setattr(nc, conv_attr, kept)
-        if not argmax_agrees(corr_k, corr_p):
-            raise AssertionError(
-                f"pair {i}: PCK differs ({[r[i] for r in results]}) and the "
-                "kernel's readout is not the plain one up to ties")
-    return [int(i) for i in differ]
+    problems = [f"{label} pair {i}: the kernel's readout is not the plain one "
+                "up to ties" for i, ok in enumerate(agree) if not ok]
+    problems += [f"{label} pair {i}: PCK differs ({[r[i] for r in results]}) "
+                 "with identical readout picks" for i in differ if identical[i]]
+    return problems, differ
 
 
 def phase_eval(smi, config, kernels, conv4d_plain, band_plain):
     """(a) The synthetic convergence run at its defaults, float32 and
     bfloat16, through the kernels; (b) PF-Pascal PCK at the PF-Pascal config
     on generated keypointed pairs through `evaluate`, `evaluate_serving` and
-    `pck_vs_topk` at K = BAND_K, each per-pair PCK equal to the plain
-    kernels' up to ties. Returns the launches of the main path's run."""
+    `pck_vs_topk` at K = BAND_K: every pair's readout, dense and on the
+    band, agrees with the plain kernels' up to ties, and its PCK equals
+    theirs unless a tie went the other way. Returns the launches of the
+    main path's run."""
     from ncnet_tpu_torch.data.loader import collate
     from ncnet_tpu_torch.eval import pf_pascal, synthetic
     from ncnet_tpu_torch.models.immatchnet import ImMatchNet
@@ -1498,14 +1587,17 @@ def phase_eval(smi, config, kernels, conv4d_plain, band_plain):
         res_bp = pf_pascal.pck_vs_topk(model, config, batches, ks=[BAND_K])[BAND_K]
     finally:
         nc.conv, nc.band_layer = conv, layer
-    tied = differing_pairs_tied(model, config, batches, "conv", conv4d_plain,
-                                [res_p["per_pair"], res_k["per_pair"],
-                                 res_s["per_pair"]])
-    band_tied = differing_pairs_tied(
-        model, config.replace(nc_topk=BAND_K), batches, "band_layer", band_plain,
-        [res_bp["per_pair"], res_b["per_pair"]])
+    agree, identical = pair_readouts(model, config, batches, "conv", conv4d_plain)
+    problems, differ = pck_readout_problems(
+        "dense", [res_p["per_pair"], res_k["per_pair"], res_s["per_pair"]],
+        agree, identical)
+    band_agree, band_identical = pair_readouts(
+        model, config.replace(nc_topk=BAND_K), batches, "band_layer", band_plain)
+    band_problems, band_differ = pck_readout_problems(
+        f"K = {BAND_K}", [res_bp["per_pair"], res_b["per_pair"]],
+        band_agree, band_identical)
+    problems += band_problems
     n_batches = len(batches)
-    problems = []
     if pf_launches != 3 * n_batches:
         problems.append(f"evaluate launched conv4d {pf_launches} times, not "
                         f"3 x {n_batches} square batches")
@@ -1525,7 +1617,8 @@ def phase_eval(smi, config, kernels, conv4d_plain, band_plain):
                   "per_pair": res_k["per_pair"],
                   "per_pair_plain": res_p["per_pair"],
                   "per_pair_served": res_s["per_pair"],
-                  "differing_pairs_tied": tied,
+                  "readout_agrees": agree, "readout_identical": identical,
+                  "pck_differing_pairs": differ,
                   "warm_eval_s": eval_s,
                   "ms_per_batch": 1e3 * eval_s / n_batches,
                   "serve": {k: res_s["serve"][k] for k in (
@@ -1535,7 +1628,9 @@ def phase_eval(smi, config, kernels, conv4d_plain, band_plain):
               "pck_vs_topk": {"k": BAND_K, "pck": res_b["pck"],
                               "per_pair": res_b["per_pair"],
                               "per_pair_plain": res_bp["per_pair"],
-                              "differing_pairs_tied": band_tied,
+                              "readout_agrees": band_agree,
+                              "readout_identical": band_identical,
+                              "pck_differing_pairs": band_differ,
                               "band_launches": band_launches},
               "launches": launches}
     emit(record)
@@ -1841,6 +1936,8 @@ def main():
     layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
     fwd_train_layers, dx_layers, dw_layers = phase_train_kernels(
         smi, kernels, conv4d_plain, conv4d_dx_plain, conv4d_dw_plain)
+    synth_layers = phase_synthetic_kernels(
+        smi, kernels, conv4d_plain, conv4d_dx_plain, conv4d_dw_plain)
     band_layers = phase_band_kernels(smi, band_gemm_fwd, band_layer_plain)
     model, config = build_model()
     launches = phase_serve(smi, model, config, conv4d_fwd, conv4d_plain)
@@ -1866,11 +1963,13 @@ def main():
                     sum(fwd_by_path.values()),
                     [{**la, "path": "serve"} for la in layers]
                     + [{**la, "path": "train"} for la in fwd_train_layers]
-                    + inloc_layers_,
+                    + synth_layers["fwd"] + inloc_layers_,
                     "the three NC layers of one square serving batch "
                     f"({MAX_BATCH} pairs x 2 directions), float32; of one "
                     f"pipeline call of a training step ({TRAIN_BATCH} pairs x "
-                    "2 directions), bfloat16; and the two InLoc NC layers "
+                    "2 directions), bfloat16; the two NC layers (3^4) of a "
+                    "synthetic convergence call (8 pairs x 2 directions, 8x8 "
+                    "grid), float32 and bfloat16; and the two InLoc NC layers "
                     "(3^4, bfloat16) at the pooled grid of a 3200 px pair in "
                     "both directions. Launches: the served batches', "
                     f"{TRAIN_STEPS} training steps', the eval phase's "
@@ -1887,19 +1986,25 @@ def main():
                     f"pck_vs_topk's at K = {BAND_K}", smi, band_by_path),
         kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:190",
-                    sum(grad_by_path("conv4d_dx").values()), dx_layers,
+                    sum(grad_by_path("conv4d_dx").values()),
+                    [{**la, "path": "train"} for la in dx_layers] + synth_layers["dx"],
                     "the input gradients of NC layers 2 and 3 of one pipeline "
                     f"call of a training step ({TRAIN_BATCH} pairs x 2 "
-                    f"directions), bfloat16; launches over {TRAIN_STEPS} "
-                    "steps and the synthetic convergence runs", smi,
+                    "directions), bfloat16, and of the 16 -> 1 layer (3^4) of "
+                    "a synthetic convergence call, float32 and bfloat16; "
+                    f"launches over {TRAIN_STEPS} steps and the synthetic "
+                    "convergence runs", smi,
                     grad_by_path("conv4d_dx")),
         kernel_line("conv4d_dw", "ncnet_tpu_torch/csrc/conv4d_dw.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:211",
-                    sum(grad_by_path("conv4d_dw").values()), dw_layers,
+                    sum(grad_by_path("conv4d_dw").values()),
+                    [{**la, "path": "train"} for la in dw_layers] + synth_layers["dw"],
                     "the weight gradients of the three NC layers of one "
                     f"pipeline call of a training step ({TRAIN_BATCH} pairs x "
-                    f"2 directions), bfloat16; launches over {TRAIN_STEPS} "
-                    "steps and the synthetic convergence runs", smi,
+                    "2 directions), bfloat16, and of the two NC layers (3^4) "
+                    "of a synthetic convergence call, float32 and bfloat16; "
+                    f"launches over {TRAIN_STEPS} steps and the synthetic "
+                    "convergence runs", smi,
                     grad_by_path("conv4d_dw")),
     ]})
     print(smi, flush=True)

@@ -63,25 +63,3 @@ def to_uint8_image(image):
     ``uint8_output`` wire format)."""
     return np.rint(np.clip(image, 0.0, 255.0)).astype(np.uint8)
 
-
-def resize_bilinear_align_corners(image, out_h, out_w):
-    """Align-corners bilinear resize of a channels-last ``[..., h, w, c]``
-    tensor: output pixel ``o`` samples input position ``o * (L_in - 1) /
-    (L_out - 1)`` (PyTorch 0.3's identity-affine ``grid_sample`` and
-    ``upsample(mode='bilinear')``, as the reference resizes)."""
-    h, w = image.shape[-3], image.shape[-2]
-
-    def interp(x, dim, out_n, in_n):
-        if out_n == in_n:
-            return x
-        pos = torch.linspace(0.0, in_n - 1.0, out_n, device=x.device)
-        lo = torch.floor(pos).long()
-        hi = torch.clamp(lo + 1, max=in_n - 1)
-        shape = [1] * x.dim()
-        shape[dim] = out_n
-        frac = (pos - lo).to(x.dtype).reshape(shape)
-        return (torch.index_select(x, dim, lo) * (1 - frac)
-                + torch.index_select(x, dim, hi) * frac)
-
-    image = interp(image, image.dim() - 3, out_h, h)
-    return interp(image, image.dim() - 2, out_w, w)

@@ -29,12 +29,6 @@ from ncnet_tpu_torch.data.images import (
 )
 
 
-PF_PASCAL_CATEGORIES = (
-    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
-    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
-    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
-)
-
 MAX_KEYPOINTS = 20
 
 

@@ -31,8 +31,7 @@ import numpy as np
 import torch
 
 from ncnet_tpu_torch.data.images import load_image, normalize_image_np, resize_bilinear_np
-from ncnet_tpu_torch.models.immatchnet import check_supported, immatchnet_apply
-from ncnet_tpu_torch.ops.matches import corr_to_matches
+from ncnet_tpu_torch.models import immatchnet
 from ncnet_tpu_torch.serve.buckets import SCALE_FACTOR, quantized_resize_shape
 
 __all__ = [
@@ -83,12 +82,10 @@ def load_and_preprocess(path, image_size, k_size, grid_multiple=None,
 
 def make_match_fn(config, mesh=None, softmax=True, device_preprocess=False,
                   concat_directions=False, from_features=False):
-    """``fn(model, src, tgt)`` -> both directions' matches of one pair
-    batch: ``(fwd, rev)``, each a stacked ``[5, b, n]`` tensor ``(xA, yA,
-    xB, yB, score)`` in positive [0, 1] coordinates, or with
-    ``concat_directions`` one ``[5, b, n_fwd + n_rev]`` tensor. With
-    ``relocalization_k_size > 1`` the readout restores fine-grid matches
-    from the pooled correlation's offsets."""
+    """`ncnet_tpu_torch.models.immatchnet.make_match_fn` (both directions'
+    matches of one pair batch, ``(fwd, rev)`` or with
+    ``concat_directions`` one ``[5, b, n_fwd + n_rev]`` tensor), with the
+    JAX package's signature; its options that are not ported raise."""
     if mesh is not None:
         raise NotImplementedError(
             "a spatial mesh (the correlation pipeline sharded over A-grid "
@@ -100,21 +97,8 @@ def make_match_fn(config, mesh=None, softmax=True, device_preprocess=False,
             "gallery feature store) is not ported yet (ROADMAP A11)"
         )
     _not_ported_transfer(device_preprocess, False)
-    check_supported(config)
-    k = config.relocalization_k_size
-
-    def fn(model, src, tgt):
-        out = immatchnet_apply(model, config, src, tgt)
-        corr, delta4d = out if k > 1 else (out, None)
-        kw = dict(scale="positive", do_softmax=softmax, delta4d=delta4d,
-                  k_size=max(k, 1))
-        fwd = torch.stack(corr_to_matches(corr, **kw))
-        rev = torch.stack(corr_to_matches(corr, invert_matching_direction=True, **kw))
-        if concat_directions:
-            return torch.cat([fwd, rev], dim=2)
-        return fwd, rev
-
-    return fn
+    return immatchnet.make_match_fn(config, softmax=softmax,
+                                    concat_directions=concat_directions)
 
 
 def recenter(coord, n_cells):

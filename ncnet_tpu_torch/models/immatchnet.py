@@ -28,6 +28,7 @@ from ncnet_tpu_torch.models.feature_extraction import (
 )
 from ncnet_tpu_torch.models.neigh_consensus import NeighConsensus
 from ncnet_tpu_torch.ops.correlation import correlation_4d, correlation_maxpool4d
+from ncnet_tpu_torch.ops.matches import corr_to_matches
 from ncnet_tpu_torch.ops.matching import mutual_matching
 from ncnet_tpu_torch.sparse.pipeline import (
     resolve_corr_impl,
@@ -187,6 +188,32 @@ def immatchnet_apply(model, config, source_image, target_image):
     feat_a = extract_features(model, config, source_image)
     feat_b = extract_features(model, config, target_image)
     return match_pipeline(model.neigh_consensus, config, feat_a, feat_b)
+
+
+def make_match_fn(config, softmax=True, concat_directions=False):
+    """``fn(model, src, tgt)`` -> both directions' matches of one pair
+    batch: ``(fwd, rev)``, each a stacked ``[5, b, n]`` tensor ``(xA, yA,
+    xB, yB, score)`` in positive [0, 1] coordinates, or with
+    ``concat_directions`` one ``[5, b, n_fwd + n_rev]`` tensor. The
+    forward is dense, the top-K band densified (``nc_topk > 0``), or
+    pooled (``relocalization_k_size > 1``, whose readout restores
+    fine-grid matches from the pooled correlation's offsets). Serving and
+    the InLoc dump both read out through it."""
+    check_supported(config)
+    k = config.relocalization_k_size
+
+    def fn(model, src, tgt):
+        out = immatchnet_apply(model, config, src, tgt)
+        corr, delta4d = out if k > 1 else (out, None)
+        kw = dict(scale="positive", do_softmax=softmax, delta4d=delta4d,
+                  k_size=max(k, 1))
+        fwd = torch.stack(corr_to_matches(corr, **kw))
+        rev = torch.stack(corr_to_matches(corr, invert_matching_direction=True, **kw))
+        if concat_directions:
+            return torch.cat([fwd, rev], dim=2)
+        return fwd, rev
+
+    return fn
 
 
 class ImMatchNet(nn.Module):

@@ -2,7 +2,7 @@
 (``ncnet_tpu/serve/engine.py::make_serve_match_step``, which wraps the
 InLoc dump's ``make_match_fn(concat_directions=True)``)."""
 
-from ncnet_tpu_torch.eval import inloc
+from ncnet_tpu_torch.models import immatchnet
 
 
 def make_match_fn(config, softmax=True):
@@ -11,7 +11,7 @@ def make_match_fn(config, softmax=True):
     ``relocalization_k_size > 1``), then `corr_to_matches` in both
     directions (positive coordinates), stacked as ``(xA, yA, xB, yB,
     score)`` and concatenated along the match axis."""
-    return inloc.make_match_fn(config, softmax=softmax, concat_directions=True)
+    return immatchnet.make_match_fn(config, softmax=softmax, concat_directions=True)
 
 
 def make_serve_match_step(config, softmax=True):

@@ -87,10 +87,11 @@ def test_coords_match_jax():
 def test_resize_align_corners_matches_jax(out_hw):
     from ncnet_tpu.ops.image import resize_bilinear_align_corners as jax_resize
 
-    from ncnet_tpu_torch.data.images import resize_bilinear_align_corners
+    from ncnet_tpu_torch.data.images import resize_bilinear_np
 
+    # the port's one align-corners resize, on the host, as the evals call it
     img = np.random.RandomState(6).uniform(0, 255, (2, 5, 6, 3)).astype(np.float32)
-    got = resize_bilinear_align_corners(torch.from_numpy(img), *out_hw)
+    got = np.stack([resize_bilinear_np(im, *out_hw) for im in img])
     # 0..255 pixels: float32 resolves 1.5e-5 at 255, so atol is 1e-4 here
     _close(got, jax_resize(jnp.asarray(img), *out_hw), atol=1e-4)
 
