@@ -6,8 +6,9 @@ NVIDIA GPU and fails unless every phase holds.
 Phases, one JSON line each:
 
 1. device  — CUDA must be present; the card's name and power limit.
-2. build   — the three kernel libraries (conv4d forward, which dx reuses;
-             conv4d dw; band GEMM) are built with nvcc from the
+2. build   — the four kernel libraries (conv4d forward, which dx reuses;
+             conv4d dw; band GEMM, whose linear mode is the band dx; band
+             dw) are built with nvcc from the
              repository's sources, one nvcc each, started together
              (seconds and ptxas's register/spill report); then each
              library's HMMA/HGMMA (tensor-core) instructions per kernel
@@ -35,9 +36,22 @@ Phases, one JSON line each:
              bfloat16; then each layer and pass timed at the served square
              batch (4 pairs; CUDA events around the wrapper's calls, the
              kernel's own device time from ``torch.profiler``, and the
-             host's time to issue one call), beside
-             the plain version, the non-null tap share and the bound, held
-             to its tolerance and to a bitwise repeat.
+             host's time to issue one call), beside the plain version,
+             the hits (the non-null tap share) and the bound, held to its
+             tolerance and to a bitwise repeat.
+4b. band_train_kernels — the band layer's kernels at band training's
+             shapes: the K = 50 mutual band of one training batch (16
+             synthetic pairs through the trunk, as the train_band step
+             builds it; 25x25 grids, 16 x 31,250 entries), both passes,
+             the three layers, bfloat16:
+             the forward, dx (the forward kernel's linear mode on
+             flip(w)^T; layers 2 and 3) and dw (csrc/band_gemm_dw.cu over
+             the pass's hit list, built once a pass and shared) against
+             their plain versions (per sample, float32 sums of the same
+             bfloat16 inputs), each repeated bitwise (the hit list too),
+             timed by CUDA events beside the plain version in bfloat16
+             and the bound (FLOPs of this band's hits against the bytes of
+             the entry lists, indices and weights).
 5. serve   — ImMatchNet at the PF-Pascal config (ResNet-101, NC 5-5-5 /
              16-16-1, 400 px) with random weights from a seed behind the
              port's ServeEngine: 8 requests at the 400x400 bucket and 4 at
@@ -93,6 +107,26 @@ Phases, one JSON line each:
              ncnet_tpu_torch.train --synthetic --allow_random_fe
              --max-steps 2`` in a subprocess: its report comes back and its
              checkpoint loads.
+9b. train_band — band training (``nc_topk = 50``, mutual) at the
+             PF-Pascal config: (a) the NC gradients of 2 pairs on a fixed
+             K = 50 band (a random linear functional of the band NC output
+             and the weak loss's positive term), float32 through the
+             kernels against the plain band layer in float64, gated as
+             (9a); (b) 3 Adam steps of make_train_step at batch 16,
+             bfloat16 (the counts set to 0 just before): finite float32
+             losses, float32 masters and Adam state, the NC weights moved,
+             the trunk unchanged, and exactly 12 band forward, 8 dx and 12
+             dw launches a step and no conv4d launch; one step's stage
+             times (trunk, correlation + MM + top-K, band NC forward, band
+             MM + score + loss, backward split into dx, dw and the rest,
+             Adam) and the peak memory; (c) one float32 step at 192 px on
+             the complete band (K = 144) against the dense step from the
+             same weights: loss and NC gradients agree; (d) the synthetic
+             convergence run trained and scored on a K = 16 band, gated as
+             (10a): the loss falls, PCK@0.15 after training clears PCK
+             before and the diagonal's by SYNTH_MARGIN; (e) ``python -m
+             ncnet_tpu_torch.train --synthetic --allow_random_fe --nc_topk
+             50 --max-steps 3``: its launches and its checkpoint's band.
 10. eval   — (a) the synthetic convergence run (``ncnet_tpu_torch.eval.
              synthetic.run``) at its defaults (patch16, identity NC init,
              centred features, NC 3-3 / 16-1, 128 px, lr 5e-4, 400 steps,
@@ -121,7 +155,8 @@ Phases, one JSON line each:
              transpose against its plain version (TOL), repeated bitwise,
              timed beside its plain version and bound.
 Then the ``{"kernels": [...]}`` line (``launches_by_path`` per kernel:
-serve, serve_band, train, eval, inloc), the nvidia-smi line, and last
+serve, serve_band, train, eval, inloc, train_band, synthetic_band), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Needs one card; exits non-zero without CUDA.
 """
@@ -216,6 +251,34 @@ INLOC_LAYERS = ((1, 16), (16, 1))
 # boundary; the post-NC mutual matching, a product of three factors in
 # bfloat16, triples that and adds its own roundings
 INLOC_TOL = 3e-2
+# band training (scripts/train.py --nc_topk 50; README "Sparse neighbourhood
+# consensus"): the K = 50 mutual band at the PF-Pascal config, batch 16,
+# bfloat16; 25 x 50 = 1,250 candidates a cell, past the band kernels'
+# 1,024-candidate tile
+TRAIN_K = 50
+# the complete band of 192 px (12x12 grids), against dense training
+FULL_K_HW = (192, 192)
+# the synthetic convergence run trained and scored on a K = 16 band of its
+# 8x8 grids (64 cells)
+SYNTH_BAND_K = 16
+# band dx and dw kernels vs their plain versions on the card: float32
+# reference sums of the same bfloat16 inputs in other orders; the kernels
+# round each result once to bfloat16 (2^-8 relative). Relative to max
+# |plain|.
+BAND_GRAD_TOL = 1e-2
+# full-K band training vs dense training, one float32 step: the weak loss is
+# the difference of two scores of about 1/144 that cancel to about 1.3e-7
+# (H100), so float32 sums in other orders move it by a few float32 steps of
+# the scores (a step of 1/144 is 4.1e-10; the card's gaps were 9.3e-10 and
+# 1.9e-9; the CPU run of the same check: 0). 1e-8 is about 24 such steps,
+# and under a tenth of the loss. The step's NC gradients are held by their relative L2
+# error a layer: float32 sums in other orders put an output of the last
+# layer that is near 0 on the other side of its ReLU now and then, which
+# moves a few of that layer's gradient elements by up to 1% of its max
+# (CPU runs at 64 px: L2 2.7e-3; at 192 px: under 2e-5); a wrong backward
+# is off by its own size.
+FULL_K_LOSS_TOL = 1e-8
+FULL_K_GRAD_TOL = 1e-2
 
 
 def emit(obj):
@@ -682,24 +745,27 @@ def band_layer_inputs(b, n, cin, cout, dtype, seed):
 
 
 def band_bound_ms(geom, cin, cout, dtype):
-    """The least time of one band layer on the card: the FLOPs of the taps
-    on the band (this band's, counted from the plain version's pointer
-    table) over the peak of ``dtype``, against the bytes the kernel must
-    move (entries, indices, ``inv`` on the symmetric pass, weights, bias,
-    output, each once) over HBM bandwidth. No pointer table: the kernel
-    builds none, and reads no ``perm`` (the entries arrive permuted)."""
+    """The least time of one band layer's forward, dx or dw on the card:
+    the FLOPs of this band's hits (the (entry, neighbour) pairs on the
+    band, each a [cin] x [cout] product: the forward and dx contract the
+    pairs that dw sums, counted by the card's hit list) over the peak of
+    ``dtype``, against the bytes the kernel must move (the layer's input
+    and output entry lists, the indices, ``inv`` on the symmetric pass,
+    the weights and bias), each once. No pointer table: the kernels build
+    none, and read no ``perm`` (the entries arrive permuted)."""
     b, ha, wa, k = geom.indices.shape
     n = ha * wa * k
     taps = KSIZE**4
-    nnz = int((geom.pointers((KSIZE,) * 4) != n).sum())
+    hits = geom.hits((KSIZE,) * 4).count
     elt = torch.finfo(dtype).bits // 8
-    flops = 2.0 * nnz * cin * cout
+    flops = 2.0 * hits * cin * cout
     nbytes = (b * n * (cin + cout) * elt + b * n * 4 * (2 if geom.swapped else 1)
               + taps * cin * cout * elt + 4 * cout)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "nonnull_share": nnz / (b * n * taps),
+            "hits": hits, "hits_per_entry": hits / (b * n),
+            "nonnull_share": hits / (b * n * taps),
             "gflop_nonnull": flops / 1e9,
             "gflop_all_taps": 2.0 * b * n * taps * cin * cout / 1e9,
             "mbytes": nbytes / 1e6}
@@ -1356,7 +1422,8 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
         per_step.append({n: k.launches - before[n] for n, k in kernels.items()})
     launches = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = {"conv4d_fwd": 6, "conv4d_dx": 4, "conv4d_dw": 6, "band_gemm_fwd": 0}
+    want = {n: 0 for n in kernels}
+    want.update(conv4d_fwd=6, conv4d_dx=4, conv4d_dw=6)
     problems = []
     if any(p != want for p in per_step):
         problems.append(f"launches per step {per_step} != {want}")
@@ -1423,9 +1490,11 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
         cli = {k: report[k] for k in ("steps", "step_losses", "step_ms",
                                       "peak_memory_bytes", "kernel_launches")}
         cli["checkpoint_bytes"] = os.path.getsize(report["checkpoint"])
+    cli_want = {n: 0 for n in report["kernel_launches"]}
+    cli_want.update(conv4d_fwd=12, conv4d_dx=8, conv4d_dw=12)
     if not (report["steps"] == 2 and ck.step == 2 and restored
-            and report["kernel_launches"] == {"conv4d_fwd": 12, "conv4d_dx": 8,
-                                              "conv4d_dw": 12}):
+            and report["kernel_launches"] == cli_want
+            and set(cli_want) == set(kernels)):
         raise AssertionError(f"training CLI report or checkpoint wrong: {cli}")
     emit({"phase": "train", "card": smi, "config": bf16.to_dict(),
           "batch": TRAIN_BATCH, "grad_check": grad_check, "losses": [float(l) for l in losses],
@@ -1888,6 +1957,510 @@ def inloc_layers(conv4d_fwd, conv4d_plain, grid):
     return records
 
 
+def sample_geometries(geom):
+    """One `BandGeometry` a sample of ``geom`` (the symmetric pass's B-major
+    order is per sample), for the plain versions: their per-sample pointer
+    tables and gathers stay near 1 GB at the training batch."""
+    from ncnet_tpu_torch.ops.band import BandGeometry
+
+    order = ((lambda i: (geom.perm[i:i + 1], geom.inv[i:i + 1]))
+             if geom.swapped else (lambda i: ()))
+    return [BandGeometry(geom.indices[i:i + 1], geom.grid_b, *order(i))
+            for i in range(geom.indices.shape[0])]
+
+
+def training_band(model, config, seed):
+    """The K = 50 mutual band of one training batch's positive pipeline
+    (TRAIN_BATCH synthetic pairs at 400 px through the trunk, in the
+    training step's bfloat16), as `make_train_step` builds it: the band
+    whose hits the band training step's kernels walk. Returns its
+    indices and the B grid."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.ops.band import topk_band
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+
+    cfg = config.replace(half_precision=True, nc_topk=TRAIN_K)
+    batch = synthetic_batch(TRAIN_BATCH, seed, SQUARE_HW)
+    with torch.no_grad():
+        fa = extract_features(model, cfg, batch["source_image"])
+        fb = extract_features(model, cfg, batch["target_image"])
+        corr = correlation_4d(fa, fb)
+        _, idx = topk_band(corr, TRAIN_K, values_from=mutual_matching(corr),
+                           mutual=True)
+    return idx, (fb.shape[1], fb.shape[2])
+
+
+def phase_band_train_kernels(smi, model, config, kernels):
+    """The band layer's kernels at band training's shapes: the K = 50
+    mutual band of one training batch (`training_band`: 16 pairs on 25x25
+    grids, 16 x 31,250 entries), both passes, the three PF-Pascal layers,
+    bfloat16. The forward, dx (layers 2 and 3:
+    layer 1's input is the band, which needs no gradient) and dw against
+    their plain versions (per sample, float32 sums of the same bfloat16
+    inputs), each called twice on the same inputs (bitwise equal), timed
+    by CUDA events beside the plain version in bfloat16 and the bound.
+    dw's hit list is built once per pass and shared by the three layers;
+    its build is timed and shared out among them. Returns ``{"fwd", "dx",
+    "dw"}`` lists of records."""
+    from ncnet_tpu_torch.ops.band import (
+        band_dw_plain,
+        band_dx_plain,
+        band_layer_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fwd, dx, dw = kernels["band_gemm_fwd"], kernels["band_gemm_dx"], kernels["band_gemm_dw"]
+    dtype = torch.bfloat16
+    idx, grid_b = training_band(model, config, SEED + 12)
+    timed = {"fwd": [], "dx": [], "dw": []}
+    hit_lists = []
+    for name, geom in band_geometries(idx, grid_b).items():
+        subs = sample_geometries(geom)
+        kernel = (KSIZE,) * 4
+        hits = geom.hits(kernel)
+        again = dw.hit_list(geom.indices, geom.grid_b, kernel, geom.inv)
+        hits_bitwise = all(torch.equal(a, b) for a, b in zip(hits[:3], again[:3]))
+        del again
+        hit_ms = time_ms(lambda: dw.hit_list(geom.indices, geom.grid_b, kernel,
+                                             geom.inv), reps=3)
+        hit_lists.append({"pass": name, "hits": hits.count,
+                          "hits_per_entry": hits.count / hits.rows,
+                          "mbytes": 8 * hits.count / 1e6, "ms": hit_ms,
+                          "bitwise_repeat": hits_bitwise})
+        if not hits_bitwise:
+            emit({"phase": "band_train_kernels", "hit_lists": hit_lists})
+            raise AssertionError(f"the hit list does not repeat: {hit_lists[-1]}")
+
+        def per_sample(fn, *tensors):
+            return torch.cat([fn(*(t[i:i + 1] for t in tensors), g)
+                              for i, g in enumerate(subs)])
+
+        for li, (cin, cout) in enumerate(NC_LAYERS):
+            n = geom.indices[0].numel()
+            x, w, bias = band_layer_inputs(TRAIN_BATCH, n, cin, cout, dtype,
+                                           seed=150 + li)
+            gen = torch.Generator(device="cuda").manual_seed(160 + li)
+            gp = torch.randn(TRAIN_BATCH, n, cout, generator=gen, device="cuda")
+            gp = (gp * (torch.rand(gp.shape, generator=gen, device="cuda") > 0.5)).to(dtype)
+
+            def plain_dw(xx, gg):
+                out = band_dw_plain(xx[0:1], gg[0:1], subs[0], kernel)
+                for i in range(1, len(subs)):
+                    out += band_dw_plain(xx[i:i + 1], gg[i:i + 1], subs[i], kernel)
+                return out
+
+            # (name, kernel, plain as timed, float32 reference, share of
+            # the hit list's build)
+            runs = [("fwd", lambda: band_kernel_call(fwd, x, w, bias, geom),
+                     lambda: per_sample(lambda xx, g: band_layer_plain(xx, w, bias, g), x),
+                     lambda: per_sample(lambda xx, g: band_layer_plain(
+                         xx.float(), w.float(), bias.to(dtype).float(), g), x), 0.0),
+                    ("dw", lambda: dw(x, gp, hits), lambda: plain_dw(x, gp),
+                     lambda: plain_dw(x, gp), hit_ms / len(NC_LAYERS))]
+            if li > 0:
+                runs.append(("dx", lambda: dx(gp, w, geom.indices, geom.grid_b, geom.inv),
+                             lambda: per_sample(lambda gg, g: band_dx_plain(gg, w, g), gp),
+                             lambda: per_sample(lambda gg, g: band_dx_plain(
+                                 gg.float(), w.float(), g), gp), 0.0))
+            for kname, kern, plain, reference, share in runs:
+                ms = time_ms(kern, reps=5)
+                plain_ms = time_ms(plain, reps=1)
+                got, again = kern(), kern()
+                bitwise = bool(torch.equal(got, again))
+                got, want = got.float(), reference().float()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                tol = BAND_TOL[dtype] if kname == "fwd" else BAND_GRAD_TOL
+                ok = (bool(torch.isfinite(got).all()) and err <= tol * scale
+                      and bitwise)
+                bound = band_bound_ms(geom, cin, cout, dtype)
+                timed[kname].append({
+                    "layer": li, "pass": name, "shape": [TRAIN_BATCH, n],
+                    "cin": cin, "cout": cout, "k": TRAIN_K, "dtype": "bfloat16",
+                    "path": "train_band", "ms": ms + share, "launch_ms": ms,
+                    "hit_list_share_ms": share, "plain_ms": plain_ms,
+                    "max_abs_err": err, "max_rel_err": err / scale,
+                    "tol_rel": tol, "bitwise_repeat": bitwise, "ok": ok, **bound})
+                del got, again, want
+                if not ok:
+                    emit({"phase": "band_train_kernels", "timed": timed,
+                          "hit_lists": hit_lists})
+                    raise AssertionError(
+                        f"band {kname} kernel disagrees at the training shape: "
+                        f"{timed[kname][-1]}")
+        del subs, hits
+        torch.cuda.empty_cache()
+    emit({"phase": "band_train_kernels", "card": smi, "timed": timed,
+          "hit_lists": hit_lists})
+    return timed
+
+
+class TimedCalls:
+    """Stands in for a kernel wrapper and records a pair of CUDA events
+    around each of its calls, and apart around its hit-list builds (whose
+    hits it counts), so a stage's time can be split by kernel: the
+    stream runs them in order."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.events, self.hit_events, self.hits = [], [], []
+
+    @staticmethod
+    def _timed(events, fn, *args):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(*args)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    def __call__(self, *args):
+        return self._timed(self.events, self.kernel, *args)
+
+    def hit_list(self, *args):
+        hits = self._timed(self.hit_events, self.kernel.hit_list, *args)
+        self.hits.append(hits.count / hits.rows)
+        return hits
+
+    @staticmethod
+    def ms(events):
+        return sum(a.elapsed_time(b) for a, b in events)
+
+
+def band_train_stage_breakdown(model, config, batch, optimizer):
+    """CUDA-event times of one band training step's stages, in order, on
+    one batch: trunk (both images), correlation + MM + top-K (both
+    pipelines), band NC forward (both), band MM + scores + loss, backward
+    (split into the dx kernel's calls, dw's hit-list builds, whose hits
+    an entry it reports, dw's launches, and the rest), Adam; and the
+    whole step."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.ops import band
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.sparse import (
+        band_mutual_matching,
+        resolve_band_width,
+        sparse_neigh_consensus_apply,
+    )
+    from ncnet_tpu_torch.sparse.score import band_match_score_per_sample
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    optimizer.zero_grad(set_to_none=True)
+    params = model.neigh_consensus.params()
+    dx, dw = TimedCalls(band.band_gemm_dx), TimedCalls(band.band_gemm_dw)
+    band.band_gemm_dx, band.band_gemm_dw = dx, dw
+    try:
+        torch.cuda.synchronize()
+        ev[0].record()
+        fa = extract_features(model, config, batch["source_image"])
+        fb = extract_features(model, config, batch["target_image"])
+        ev[1].record()
+        grid_b = (fb.shape[1], fb.shape[2])
+        k = resolve_band_width(config.nc_topk, grid_b)
+        bands = []
+        for a in (fa, torch.roll(fa, -1, 0)):
+            corr = correlation_4d(a, fb)
+            values, idx = band.topk_band(corr, k, values_from=mutual_matching(corr),
+                                         mutual=config.nc_topk_mutual)
+            bands.append((values.to(torch.bfloat16), idx))
+        ev[2].record()
+        filtered = [(sparse_neigh_consensus_apply(params, v, i, grid_b,
+                                                  symmetric=config.symmetric_mode), i)
+                    for v, i in bands]
+        ev[3].record()
+        pos, neg = (band_match_score_per_sample(
+            band_mutual_matching(f, i, grid_b).float(), i, grid_b) for f, i in filtered)
+        loss = neg.mean() - pos.mean()
+        ev[4].record()
+        loss.backward()
+        ev[5].record()
+        optimizer.step()
+        ev[6].record()
+        ev[6].synchronize()
+    finally:
+        band.band_gemm_dx, band.band_gemm_dw = dx.kernel, dw.kernel
+    names = ("trunk", "correlation_mm_topk", "band_nc_forward", "band_mm_score_loss",
+             "backward", "adam")
+    out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    out.update(backward_dx=dx.ms(dx.events), backward_dw=dw.ms(dw.events),
+               backward_hit_lists=dw.ms(dw.hit_events),
+               backward_dx_calls=len(dx.events), backward_dw_calls=len(dw.events),
+               backward_hit_list_builds=len(dw.hit_events),
+               hits_per_entry=dw.hits)
+    out["backward_rest"] = (out["backward"] - out["backward_dx"] - out["backward_dw"]
+                            - out["backward_hit_lists"])
+    out["step"] = ev[0].elapsed_time(ev[6])
+    return out
+
+
+def band_objective(model, config, sel, objective, layer, dtype):
+    """A scalar of the band NC stack on a fixed selection ``sel = (values,
+    indices, grid_b)`` (float32, from the float32 pipeline), its values
+    cast to ``dtype``: ``"score"``, minus the band match score of the
+    positive pairs (the weak loss's positive term), or ``"linear"``, a
+    fixed random functional of the NC stack's output. The selection is
+    held fixed so that the float64 reference filters the same band."""
+    from ncnet_tpu_torch.sparse import band_mutual_matching, sparse_neigh_consensus_apply
+    from ncnet_tpu_torch.sparse.score import band_match_score_per_sample
+
+    values, idx, grid_b = sel
+    out = sparse_neigh_consensus_apply(
+        model.neigh_consensus.params(), values.to(dtype), idx, grid_b,
+        symmetric=config.symmetric_mode, layer=layer)
+    if objective == "score":
+        band = band_mutual_matching(out, idx, grid_b)
+        return -band_match_score_per_sample(band, idx, grid_b).mean()
+    r = torch.randn(out.shape, device=out.device, generator=torch.Generator(
+        device=out.device).manual_seed(SEED + 9))
+    return (out * r.to(dtype)).sum() / out.numel()
+
+
+def band_grad_check(model, config, kernels):
+    """NC gradients on the K = 50 band at the PF-Pascal width, 2 pairs,
+    float32 through the kernels, against the plain band layer (gather,
+    matmul and autograd) in float64 on the same selected band; the same
+    plain version in float32 is reported beside it. Gated as the dense
+    gradient check (GRAD_RATIO, GRAD_TOL)."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.ops.band import band_layer, band_layer_plain, topk_band
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+
+    f32 = config.replace(half_precision=False, nc_topk=TRAIN_K)
+    batch = synthetic_batch(2, SEED + 10)
+    with torch.no_grad():
+        fa = extract_features(model, f32, batch["source_image"])
+        fb = extract_features(model, f32, batch["target_image"])
+        corr = correlation_4d(fa, fb)
+        values, idx = topk_band(corr, TRAIN_K, values_from=mutual_matching(corr),
+                                mutual=True)
+    sel = (values, idx, (fb.shape[1], fb.shape[2]))
+    leaves = model.neigh_consensus.trainable()
+
+    def grads(objective, layer, dtype):
+        for t in leaves:
+            t.grad = None
+        loss = band_objective(model, f32, sel, objective, layer, dtype)
+        loss.backward()
+        return float(loss.detach()), [t.grad.clone() for t in leaves]
+
+    checks = []
+    for objective in ("linear", "score"):
+        before = {n: k.launches for n, k in kernels.items()}
+        loss_k, grads_k = grads(objective, band_layer, torch.float32)
+        launched = {n: k.launches - before[n] for n, k in kernels.items()}
+        loss_p, grads_p = grads(objective, band_layer_plain, torch.float64)
+        _, grads_p32 = grads(objective, band_layer_plain, torch.float32)
+        torch.cuda.empty_cache()
+        for i, (gk, gp, g32) in enumerate(zip(grads_k, grads_p, grads_p32)):
+            layer = grads_p[i - i % 2:i - i % 2 + 2]
+            scale = max(float(t.abs().max()) for t in layer)
+            err = float((gk.double() - gp).abs().max())
+            err32 = float((g32.double() - gp).abs().max())
+            checks.append({
+                "objective": objective,
+                "tensor": f"layer{i // 2}.{('kernel', 'bias')[i % 2]}",
+                "max_abs_err": err, "scale": scale,
+                "plain_f32_max_abs_err": err32, "loss": [loss_k, loss_p],
+                "launches": launched,
+                "ok": (bool(torch.isfinite(gk).all())
+                       and err <= max(GRAD_RATIO * err32, GRAD_TOL * scale)
+                       and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+                       and launched["band_gemm_fwd"] == 6
+                       and launched["band_gemm_dx"] == 4
+                       and launched["band_gemm_dw"] == 6)})
+    for t in leaves:
+        t.grad = None
+    return checks
+
+
+def full_k_step_check(model, config, kernels):
+    """One float32 training step at 192 px (12x12 grids), 2 pairs, dense and
+    on the complete band (K = 144), from the same NC weights: the losses
+    agree to FULL_K_LOSS_TOL and the step's NC gradients to FULL_K_GRAD_TOL
+    relative L2 error a layer (the max error relative to the layer's
+    max is reported beside it); the NC weights are restored after."""
+    from ncnet_tpu_torch.train.step import create_train_state, make_train_step
+
+    batch = synthetic_batch(2, SEED + 11, FULL_K_HW)
+    nc0 = [t.detach().clone() for t in model.neigh_consensus.trainable()]
+    k = (FULL_K_HW[0] // 16) * (FULL_K_HW[1] // 16)
+    runs = {}
+    for name, topk in (("dense", 0), ("band", k)):
+        with torch.no_grad():
+            for t, t0 in zip(model.neigh_consensus.trainable(), nc0):
+                t.copy_(t0)
+        cfg = config.replace(half_precision=False, nc_topk=topk)
+        state = create_train_state(model, 5e-4)
+        before = {n: kk.launches for n, kk in kernels.items()}
+        state, loss = make_train_step(cfg)(state, batch)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss), [t.grad.clone() for t in
+                                    state.optimizer.param_groups[0]["params"]],
+                      {n: kk.launches - before[n] for n, kk in kernels.items()})
+    with torch.no_grad():
+        for t, t0 in zip(model.neigh_consensus.trainable(), nc0):
+            t.copy_(t0)
+    (loss_d, grads_d, launch_d), (loss_b, grads_b, launch_b) = runs["dense"], runs["band"]
+    rel, rel_max = [], []
+    for i in range(0, len(grads_d), 2):
+        a = torch.cat([t.flatten() for t in grads_d[i:i + 2]])
+        b = torch.cat([t.flatten() for t in grads_b[i:i + 2]])
+        rel.append(float((a - b).norm() / a.norm()))
+        rel_max.append(float((a - b).abs().max() / a.abs().max()))
+    ok = (abs(loss_b - loss_d) <= FULL_K_LOSS_TOL and max(rel) <= FULL_K_GRAD_TOL
+          and launch_b["band_gemm_fwd"] == 12 and launch_b["band_gemm_dx"] == 8
+          and launch_b["band_gemm_dw"] == 12 and launch_d["conv4d_fwd"] == 6)
+    return {"hw": list(FULL_K_HW), "k": k, "pairs": 2, "loss_dense": loss_d,
+            "loss_band": loss_b, "grad_rel_l2_err_per_layer": rel,
+            "grad_rel_max_err_per_layer": rel_max,
+            "loss_tol": FULL_K_LOSS_TOL, "grad_tol_rel": FULL_K_GRAD_TOL,
+            "launches_dense": launch_d, "launches_band": launch_b, "ok": ok}
+
+
+def phase_train_band(smi, model, config, kernels):
+    """Band training at the PF-Pascal config (K = 50): the gradient check;
+    3 trainer steps at batch 16, bfloat16 (the slice's path; the counts
+    are set to 0 just before and read just after), their launches, step
+    times, stage breakdown and peak memory; one full-K step against
+    dense; the synthetic convergence run at K = 16; the CLI with
+    ``--nc_topk 50``. Returns ``{"train_band": launches of the 3 steps,
+    "synthetic_band": launches of the synthetic run}``."""
+    from ncnet_tpu_torch.data.loader import DataLoader
+    from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
+    from ncnet_tpu_torch.eval import synthetic
+    from ncnet_tpu_torch.train.checkpoint import load_checkpoint
+    from ncnet_tpu_torch.train.step import (
+        create_train_state,
+        device_batch,
+        make_train_step,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grad_check = band_grad_check(model, config, kernels)
+    if not all(c["ok"] for c in grad_check):
+        emit({"phase": "train_band", "grad_check": grad_check})
+        raise AssertionError(f"band NC gradients through the kernels disagree: "
+                             f"{grad_check}")
+
+    # (b) 3 trainer steps at the slice's configuration
+    band_cfg = config.replace(half_precision=True, nc_topk=TRAIN_K)
+    ds = SyntheticPairDataset(n=TRAIN_BATCH * (TRAIN_STEPS + 1),
+                              output_size=SQUARE_HW, seed=SEED + 12)
+    loader = DataLoader(ds, TRAIN_BATCH, shuffle=True, seed=SEED, num_workers=4,
+                        drop_last=True)
+    batches = [device_batch(b, "cuda") for b in loader.iter_epoch(0)]
+    trunk0 = {k: v.clone() for k, v in model.feature_extraction.state_dict().items()}
+    nc0 = [t.detach().clone() for t in model.neigh_consensus.trainable()]
+    state = create_train_state(model, 5e-4)
+    step = make_train_step(band_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    for k in kernels.values():
+        k.launches = 0
+    for b in batches[:TRAIN_STEPS]:
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        per_step.append({n: k.launches - before[n] for n, k in kernels.items()})
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: 0 for n in kernels}
+    want.update(band_gemm_fwd=12, band_gemm_dx=8, band_gemm_dw=12)
+    problems = []
+    if any(p != want for p in per_step):
+        problems.append(f"launches per step {per_step} != {want}")
+    if not all(l.dtype == torch.float32 and l.shape == () and bool(torch.isfinite(l))
+               for l in losses):
+        problems.append(f"losses not finite float32 scalars: {losses}")
+    for t in state.optimizer.param_groups[0]["params"]:
+        st = state.optimizer.state[t]
+        if not (t.dtype == st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.float32):
+            problems.append("master weights or Adam state not float32")
+    moved = [float((t.detach() - t0).abs().max()) for t, t0 in
+             zip(state.optimizer.param_groups[0]["params"], nc0)]
+    # as in the dense phase, layer 3's bias may not move: its gradient is
+    # one sum whose positive and negative terms cancel below bfloat16's
+    # resolution on a random trunk
+    if not all(m > 0 for m in moved[:-1]):
+        problems.append(f"NC tensors other than layer 3's bias did not move: {moved}")
+    if not all(torch.equal(v, trunk0[k])
+               for k, v in model.feature_extraction.state_dict().items()):
+        problems.append("the trunk changed")
+    stages = band_train_stage_breakdown(model, band_cfg, batches[TRAIN_STEPS],
+                                        state.optimizer)
+    stages["peak_memory_bytes"] = peak
+    if problems:
+        emit({"phase": "train_band", "problems": problems, "stages_ms": stages})
+        raise AssertionError("; ".join(problems))
+    del batches, state
+    torch.cuda.empty_cache()
+
+    # (c) full K = dense, one float32 step at 192 px
+    full_k = full_k_step_check(model, config, kernels)
+    if not full_k["ok"]:
+        emit({"phase": "train_band", "full_k": full_k})
+        raise AssertionError(f"full-K band training != dense training: {full_k}")
+
+    # (d) the synthetic convergence run on a K = 16 band
+    before = {n: k.launches for n, k in kernels.items()}
+    t0 = time.perf_counter()
+    out = synthetic.run(device="cuda", nc_topk=SYNTH_BAND_K, verbose=False)
+    synth = {k: out[k] for k in ("loss_first", "loss_last", "loss_deciles",
+                                 "pck_before", "pck_after",
+                                 "pck_diagonal_baseline")}
+    synth.update(k=SYNTH_BAND_K, seconds=time.perf_counter() - t0,
+                 launches={n: k.launches - before[n] for n, k in kernels.items()})
+    synth["ok"] = (out["loss_last"] < out["loss_first"]
+                   and out["pck_after"] >= out["pck_before"] + SYNTH_MARGIN
+                   and out["pck_after"] >= out["pck_diagonal_baseline"] + SYNTH_MARGIN
+                   and all(synth["launches"][n] > 0 for n in
+                           ("band_gemm_fwd", "band_gemm_dx", "band_gemm_dw"))
+                   and synth["launches"]["conv4d_fwd"] == 0)
+    del out
+    if not synth["ok"]:
+        emit({"phase": "train_band", "synthetic": synth})
+        raise AssertionError(f"synthetic convergence on the band not shown: {synth}")
+
+    # (e) the CLI at the PF-Pascal config with --nc_topk 50
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "ncnet_tpu_torch.train", "--synthetic",
+             "--allow_random_fe", "--nc_topk", str(TRAIN_K), "--max-steps",
+             str(TRAIN_STEPS), "--result_model_dir", tmp],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"band training CLI failed (rc {proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        ck = load_checkpoint(report["checkpoint"])
+        cli = {k: report[k] for k in ("steps", "step_losses", "step_ms",
+                                      "peak_memory_bytes", "kernel_launches")}
+    cli_want = {n: 0 for n in report["kernel_launches"]}
+    cli_want.update(band_gemm_fwd=12 * TRAIN_STEPS, band_gemm_dx=8 * TRAIN_STEPS,
+                    band_gemm_dw=12 * TRAIN_STEPS)
+    if not (report["steps"] == TRAIN_STEPS and ck.config.nc_topk == TRAIN_K
+            and ck.config.nc_topk_mutual and report["kernel_launches"] == cli_want
+            and all(np.isfinite(report["step_losses"]))):
+        raise AssertionError(f"band training CLI report or checkpoint wrong: {cli}")
+    emit({"phase": "train_band", "card": smi, "config": band_cfg.to_dict(),
+          "batch": TRAIN_BATCH, "grad_check": grad_check,
+          "losses": [float(l) for l in losses], "step_ms": step_ms,
+          "launches_per_step": per_step, "launches": launches,
+          "nc_param_max_move": moved, "stages_ms": stages, "full_k": full_k,
+          "synthetic": synth, "cli": cli})
+    return {"train_band": launches, "synthetic_band": synth["launches"]}
+
+
 def kernel_line(name, source, replaces, launches, layers, work, smi,
                 launches_by_path=None):
     return {
@@ -1917,7 +2490,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs a card")
     # the port itself: this fails where chip_smoke.py stands without it
-    from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
+    from ncnet_tpu_torch.kernels.band_gemm import band_gemm_dx, band_gemm_fwd
+    from ncnet_tpu_torch.kernels.band_gemm_dw import band_gemm_dw
     from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
     from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
     from ncnet_tpu_torch.ops.band import band_layer_plain
@@ -1928,11 +2502,13 @@ def main():
     )
 
     kernels = {"conv4d_fwd": conv4d_fwd, "conv4d_dx": conv4d_dx,
-               "conv4d_dw": conv4d_dw, "band_gemm_fwd": band_gemm_fwd}
+               "conv4d_dw": conv4d_dw, "band_gemm_fwd": band_gemm_fwd,
+               "band_gemm_dx": band_gemm_dx, "band_gemm_dw": band_gemm_dw}
     smi = phase_device()
-    # conv4d_dx launches conv4d_fwd's library: three builds
+    # conv4d_dx launches conv4d_fwd's library and band_gemm_dx
+    # band_gemm_fwd's: four builds
     phase_build({"conv4d_fwd": conv4d_fwd, "band_gemm_fwd": band_gemm_fwd,
-                 "conv4d_dw": conv4d_dw})
+                 "conv4d_dw": conv4d_dw, "band_gemm_dw": band_gemm_dw})
     layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
     fwd_train_layers, dx_layers, dw_layers = phase_train_kernels(
         smi, kernels, conv4d_plain, conv4d_dx_plain, conv4d_dw_plain)
@@ -1940,19 +2516,26 @@ def main():
         smi, kernels, conv4d_plain, conv4d_dx_plain, conv4d_dw_plain)
     band_layers = phase_band_kernels(smi, band_gemm_fwd, band_layer_plain)
     model, config = build_model()
+    band_train_layers = phase_band_train_kernels(smi, model, config, kernels)
     launches = phase_serve(smi, model, config, conv4d_fwd, conv4d_plain)
     band_launches = phase_serve_band(smi, model, config, conv4d_fwd,
                                      band_gemm_fwd, band_layer_plain)
     phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd)
     train_launches = phase_train(smi, model, config, kernels, conv4d_plain)
+    band_train_launches = phase_train_band(smi, model, config, kernels)
     eval_launches = phase_eval(smi, config, kernels, conv4d_plain,
                                band_layer_plain)
     inloc_launches, inloc_layers_ = phase_inloc(smi, kernels, conv4d_plain)
+    def band_train_by_path(name):
+        return {path: band_train_launches[path][name]
+                for path in ("train_band", "synthetic_band")}
+
     fwd_by_path = {"serve": launches, "train": train_launches["conv4d_fwd"],
                    "eval": eval_launches["conv4d_fwd"],
                    "inloc": inloc_launches["conv4d_fwd"]}
     band_by_path = {"serve_band": band_launches,
-                    "eval": eval_launches["band_gemm_fwd"]}
+                    "eval": eval_launches["band_gemm_fwd"],
+                    **band_train_by_path("band_gemm_fwd")}
 
     def grad_by_path(name):
         return {"train": train_launches[name], "eval": eval_launches[name]}
@@ -1978,12 +2561,40 @@ def main():
                     smi, fwd_by_path),
         kernel_line("band_gemm_fwd", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:83",
-                    sum(band_by_path.values()), band_layers,
+                    sum(band_by_path.values()),
+                    [{**la, "path": "serve_band"} for la in band_layers]
+                    + band_train_layers["fwd"],
                     "the three band NC layers x 2 symmetric passes of one "
                     f"square degraded batch ({MAX_BATCH} pairs, K = {BAND_K}),"
-                    " float32; taps derived from the band's indices, no "
-                    "pointer table. Launches: the degraded batches' and "
-                    f"pck_vs_topk's at K = {BAND_K}", smi, band_by_path),
+                    " float32, and of one pipeline call of a band training "
+                    f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16; "
+                    "taps derived from the band's indices, no pointer table. "
+                    "Launches: the degraded batches', pck_vs_topk's at "
+                    f"K = {BAND_K}, {TRAIN_STEPS} band training steps' and "
+                    f"the synthetic run's at K = {SYNTH_BAND_K}", smi,
+                    band_by_path),
+        kernel_line("band_gemm_dx", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
+                    "ncnet_tpu/kernels/band_gemm_pallas.py:147",
+                    sum(band_train_by_path("band_gemm_dx").values()),
+                    band_train_layers["dx"],
+                    "the input gradients of band NC layers 2 and 3 x 2 "
+                    "symmetric passes of one pipeline call of a band training "
+                    f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16: the "
+                    "forward kernel in its linear mode on flip(w)^T. "
+                    f"Launches: {TRAIN_STEPS} band training steps' and the "
+                    f"synthetic run's at K = {SYNTH_BAND_K}", smi,
+                    band_train_by_path("band_gemm_dx")),
+        kernel_line("band_gemm_dw", "ncnet_tpu_torch/csrc/band_gemm_dw.cu",
+                    "ncnet_tpu/kernels/band_gemm_pallas.py:147",
+                    sum(band_train_by_path("band_gemm_dw").values()),
+                    band_train_layers["dw"],
+                    "the weight gradients of the three band NC layers x 2 "
+                    "symmetric passes of one pipeline call of a band training "
+                    f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16, each "
+                    "with a third of its pass's hit-list build. Launches: "
+                    f"{TRAIN_STEPS} band training steps' and the synthetic "
+                    f"run's at K = {SYNTH_BAND_K}", smi,
+                    band_train_by_path("band_gemm_dw")),
         kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:190",
                     sum(grad_by_path("conv4d_dx").values()),

@@ -101,14 +101,15 @@ def synthetic_pck_vs_refine(model, config, batches, factors, ks, radius=0,
 def run(image_size=128, steps=400, batch=8, n_pairs=32, lr=5e-4, seed=0,
         ncons_kernel_sizes=(3, 3), ncons_channels=(16, 1), alpha=0.15,
         fe_arch="patch16", nc_init="identity", half_precision=False,
-        device=None, log_every=20, verbose=True):
+        nc_topk=0, device=None, log_every=20, verbose=True):
     """Train the NC head on generated pairs and score the transfer.
 
     Returns the run's metrics (``loss_first`` / ``loss_last``: mean of the
     first / last tenth of the step losses, ``loss_deciles``, ``losses``,
     ``pck_before``, ``pck_after``, ``pck_diagonal_baseline``) and the
     trained ``model`` and ``config``. ``half_precision`` trains in
-    bfloat16 over float32 masters (`make_train_step`)."""
+    bfloat16 over float32 masters (`make_train_step`); ``nc_topk > 0``
+    trains and scores on the top-K band (sparse-band training)."""
     from ncnet_tpu_torch.data.loader import DataLoader
     from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
     from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
@@ -123,6 +124,7 @@ def run(image_size=128, steps=400, batch=8, n_pairs=32, lr=5e-4, seed=0,
         center_features=True,
         nc_init=nc_init,
         half_precision=half_precision,
+        nc_topk=nc_topk,
     )
     # patch16 and the identity init: a deep random trunk, or the
     # reference's uniform init, lets the weak loss fall while PCK lands on

@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written Hopper sparse-band NC layer (forward).
+"""Wrappers of the hand-written Hopper sparse-band NC layer: the forward and,
+through the same kernel in its linear mode, the input gradient.
 
 Replaces the TPU kernel ``ncnet_tpu/kernels/band_gemm_pallas.py:83``
 ``_fused_kernel`` (public ``band_conv_bias_relu_pallas``) with
@@ -15,9 +16,15 @@ band, 0.3 GFLOP a 16->16 layer at 4 samples, against a few MB of entries,
 indices and weights); in practice the tap derivation and the gathers from
 L2 (see the source's header).
 
-The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.band.band_layer`
-routes CPU tensors to the plain PyTorch version, and nothing here falls
-back to it.
+The input gradient of the layer is the same contraction of the
+ReLU-masked output cotangent with the spatially flipped, channel-transposed
+kernel over the same band, with no bias and no ReLU (the JAX package's
+``band_gemm_pallas.py::_bwd``): `band_gemm_dx` launches the forward's
+library in its linear mode, with its own launch count.
+
+The wrappers take CUDA tensors only: `ncnet_tpu_torch.ops.band.band_layer`
+routes CPU tensors to the plain PyTorch versions, and nothing here falls
+back to them.
 """
 
 import ctypes
@@ -26,6 +33,7 @@ import os
 import torch
 
 from ncnet_tpu_torch.kernels import _build
+from ncnet_tpu_torch.kernels.conv4d import flip_transpose
 
 SOURCE = os.path.join(_build.CSRC, "band_gemm_fwd.cu")
 MAX_COUT = 16  # the instantiations take 1..16 output channels
@@ -39,7 +47,7 @@ class BandGemmForwardKernel:
     ``N = hA*wA*K``.
     ``w``: ``[k1, k2, k3, k4, cin, cout]`` of x's dtype and device.
     ``bias``: ``[cout]`` on x's device, rounded to x's dtype as the
-    reference casts it.
+    reference casts it; None runs the linear mode (`run`).
     ``indices``: ``[b, hA, wA, K]`` int32, the band's B-indices sorted
     ascending per A cell (`ncnet_tpu_torch.ops.band.topk_band`).
     ``grid_b``: ``(hB, wB)``.
@@ -57,7 +65,7 @@ class BandGemmForwardKernel:
         self.launches = 0
         self._lib = _build.KernelLibrary(
             SOURCE, "band_gemm", "band_gemm_fwd",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
         )
 
     def load(self):
@@ -130,7 +138,8 @@ class BandGemmForwardKernel:
             )
         if not all(t.is_contiguous() for _, t in (("x", x), ("w", w)) + int_inputs):
             raise ValueError("band kernel takes contiguous x, w, indices and inv")
-        if bias.shape != (w.shape[5],) or bias.device != x.device:
+        if bias is not None and (bias.shape != (w.shape[5],)
+                                 or bias.device != x.device):
             raise ValueError(
                 f"bias must be [{w.shape[5]}] on {x.device}, got "
                 f"{tuple(bias.shape)} on {bias.device}"
@@ -139,13 +148,25 @@ class BandGemmForwardKernel:
             raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
 
     def __call__(self, x, w, bias, indices, grid_b, inv=None):
+        if bias is None:
+            raise ValueError("the band forward takes a bias; band_gemm_dx "
+                             "runs the kernel's linear mode")
+        out = self.run(x, w, bias, indices, grid_b, inv)
+        self.launches += 1
+        return out
+
+    def run(self, x, w, bias, indices, grid_b, inv=None):
+        """One launch, not counted here: `__call__` and `band_gemm_dx` count
+        their own. ``bias=None`` runs the linear mode (no bias, no ReLU)."""
         self.check(x, w, bias, indices, grid_b, inv)
+        linear = bias is None
         b, n, cin = x.shape
         _, ha, wa, k = indices.shape
         hb, wb = (int(d) for d in grid_b)
         cout = w.shape[5]
-        # the reference adds the bias in the activation dtype
-        bias = bias.to(x.dtype).to(torch.float32).contiguous()
+        if not linear:
+            # the reference adds the bias in the activation dtype
+            bias = bias.to(x.dtype).to(torch.float32).contiguous()
         out = torch.empty((b, n, cout), dtype=x.dtype, device=x.device)
         if out.numel() == 0:
             return out
@@ -154,19 +175,54 @@ class BandGemmForwardKernel:
             code, msg = self._lib.launch(
                 x.data_ptr(), indices.data_ptr(),
                 None if inv is None else inv.data_ptr(),
-                w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                _DTYPE_CODES[x.dtype], b, ha, wa, hb, wb, k, cin, cout,
-                *w.shape[:4], stream,
+                w.data_ptr(), None if linear else bias.data_ptr(),
+                out.data_ptr(), _DTYPE_CODES[x.dtype], int(linear),
+                b, ha, wa, hb, wb, k, cin, cout, *w.shape[:4], stream,
             )
         if code != 0:
             raise RuntimeError(
                 f"band kernel launch failed (code {code}): {msg}; "
                 f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}, "
-                f"indices {tuple(indices.shape)}, grid_b {(hb, wb)}"
+                f"indices {tuple(indices.shape)}, grid_b {(hb, wb)}, "
+                f"linear {linear}"
             )
+        return out
+
+
+class BandGemmInputGradKernel:
+    """Callable wrapper: ``kernel(gp, w, indices, grid_b, inv=None) -> dx``,
+    the input gradient of one band NC layer for its ReLU-masked output
+    cotangent ``gp``.
+
+    ``gp``: CUDA ``[b, N, cout]``; ``w``: the forward's ``[k1, k2, k3, k4,
+    cin, cout]`` (odd sizes) of gp's dtype; ``indices``, ``grid_b`` and
+    ``inv``: the pass's band, as the forward took them. Returns ``[b, N,
+    cin]`` in gp's dtype: the forward kernel in its linear mode on
+    ``flip(w)^T`` (prepared here with plain torch), the float32 sum rounded
+    once. ``launches`` counts this wrapper's launches.
+    """
+
+    def __init__(self, forward):
+        self.launches = 0
+        self._forward = forward
+
+    def load(self):
+        """Build (first use) and load the forward's library."""
+        return self._forward.load()
+
+    def __call__(self, gp, w, indices, grid_b, inv=None):
+        if w.dim() != 6 or any(k % 2 == 0 for k in w.shape[:4]):
+            raise ValueError(
+                "band dx takes w [k1,k2,k3,k4,cin,cout] with odd sizes (the "
+                f"flipped-kernel identity), got {tuple(w.shape)}"
+            )
+        out = self._forward.run(gp, flip_transpose(w), None, indices, grid_b,
+                                inv)
         self.launches += 1
         return out
 
 
-#: The one wrapper the port launches the kernel through.
+#: The one wrapper the port launches the forward kernel through.
 band_gemm_fwd = BandGemmForwardKernel()
+#: The input gradient: the same library in its linear mode, counted apart.
+band_gemm_dx = BandGemmInputGradKernel(band_gemm_fwd)

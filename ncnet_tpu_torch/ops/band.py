@@ -11,22 +11,28 @@ At ``K = hB*wB`` the band is the dense correlation row in row-major order.
 Neighbour reads that fall off the A grid, off the B grid or off the band
 resolve to the null slot ``N = hA*wA*K`` and read exact zeros.
 
-The band NC layer ``relu(bias + sum_t x[nbr(n, t)] @ w[t])`` has two
-versions of one function, ``(x, w, bias, geom) -> out`` over a
-`BandGeometry`, as `ncnet_tpu_torch.ops.conv4d` has:
+The band NC layer ``relu(bias + sum_t x[nbr(n, t)] @ w[t])`` and each of
+its gradients have two versions over a `BandGeometry`, as
+`ncnet_tpu_torch.ops.conv4d` has:
 
-* `band_layer_plain` — the neighbour pointer table
-  (`band_neighbor_pointers`, built once per kernel size and cached on the
-  geometry), then gather and ``torch.matmul`` (`band_conv_bias_relu_plain`):
-  the CPU path, and the version the hand kernel is held against;
-* the hand-written Hopper kernel (`ncnet_tpu_torch.kernels.band_gemm`),
-  which derives each entry's neighbours from the band's indices and
-  builds no table (`band_taps` mirrors its derivation in plain PyTorch
-  for the tests; no path runs it).
+* forward — `band_layer_plain` (the neighbour pointer table,
+  `band_neighbor_pointers`, built once per kernel size and cached on the
+  geometry, then gather and ``torch.matmul``) and the hand-written Hopper
+  kernel `ncnet_tpu_torch.kernels.band_gemm.band_gemm_fwd`, which derives
+  each entry's neighbours from the band's indices and builds no table
+  (`band_taps` mirrors its derivation in plain PyTorch for the tests);
+* input gradient — `band_dx_plain` (the same gather-GEMM of the masked
+  cotangent with ``flip(w)^T`` over the same table) and
+  `ncnet_tpu_torch.kernels.band_gemm.band_gemm_dx` (the forward kernel in
+  its linear mode);
+* weight gradient — `band_dw_plain` (a per-tap gather and product over the
+  table, float32) and `ncnet_tpu_torch.kernels.band_gemm_dw.band_gemm_dw`
+  over the geometry's hit list (`band_hits_plain` mirrors it for the
+  tests).
 
-`band_layer` dispatches on the tensor's device only: a CPU tensor takes
-the plain version, a CUDA tensor takes the kernel (which raises on what it
-does not take; nothing falls back).
+`band_layer` is `BandLayerFunction`, which dispatches each of them on the
+tensor's device only: a CPU tensor takes the plain versions, a CUDA tensor
+the kernels (which raise on what they do not take; nothing falls back).
 """
 
 import math
@@ -34,7 +40,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
+from ncnet_tpu_torch.kernels.band_gemm import band_gemm_dx, band_gemm_fwd
+from ncnet_tpu_torch.kernels.band_gemm_dw import BandHits, band_gemm_dw
+from ncnet_tpu_torch.kernels.conv4d import flip_transpose
 
 #: the largest B grid the mutual rank key ``min(ra, rb) * nb + ra`` takes
 #: in int32 (the JAX package's guard)
@@ -99,6 +107,16 @@ def band_to_dense(values, indices, grid_b, fill=0.0):
     dense.scatter_(2, indices.reshape(b, ha * wa, k).long(),
                    values.reshape(b, ha * wa, k))
     return dense.reshape(b, ha, wa, hb, wb)
+
+
+def band_coverage(indices, grid_b):
+    """Bool ``[b, hB, wB]``: the B cells some band entry lands on (every
+    cell at ``K = hB*wB``)."""
+    b = indices.shape[0]
+    hb, wb = grid_b
+    covered = torch.zeros((b, hb * wb), dtype=torch.bool, device=indices.device)
+    covered.scatter_(1, indices.reshape(b, -1).long(), True)
+    return covered.reshape(b, hb, wb)
 
 
 def band_neighbor_pointers(indices, grid_b, kernel, swapped=False):
@@ -266,14 +284,37 @@ def band_taps(indices, grid_b, kernel, swapped=False):
     return bi, (ia * wa + ja) * k + s, tap, cell
 
 
+def band_hits_plain(indices, grid_b, kernel, inv=None):
+    """The weight-gradient kernel's hit list in plain PyTorch (a test
+    oracle, no path runs it): `band_taps` sorted stably by tap, rows
+    flattened over the batch and, on the symmetric pass (``inv`` given),
+    relabelled B-major. Equal, element for element, to
+    `BandGemmWeightGradKernel.hit_list`."""
+    kernel = tuple(int(d) for d in kernel)
+    b, ha, wa, k = indices.shape
+    n = ha * wa * k
+    bi, entry, tap, cell = band_taps(indices, grid_b, kernel,
+                                     swapped=inv is not None)
+    if inv is not None:
+        inv = inv.long()
+        entry, cell = inv[bi, entry], inv[bi, cell]
+    order = torch.argsort(tap, stable=True)
+    counts = torch.bincount(tap, minlength=math.prod(kernel))
+    tap_start = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return BandHits(tap_start.to(torch.int32),
+                    (bi * n + entry)[order].to(torch.int32),
+                    (bi * n + cell)[order].to(torch.int32), kernel, b * n)
+
+
 class BandGeometry:
     """What one pass of the band NC stack reads besides its entries: the
     band's sorted B-indices ``[b, hA, wA, K]`` int32 and the B grid, and
     for the symmetric pass the B-major order (``perm``, ``inv`` from
     `b_major_order`; kept as int32, the kernel's index type).
 
-    The plain version's pointer tables are built on first use, once per
-    kernel size, and cached here; the card's kernel builds none.
+    The plain versions' pointer tables and the weight-gradient kernel's hit
+    lists are built on first use, once per kernel size, and cached here;
+    the card's forward and input-gradient kernels build neither.
     """
 
     def __init__(self, indices, grid_b, perm=None, inv=None):
@@ -284,6 +325,7 @@ class BandGeometry:
         self.perm = None if perm is None else perm.to(torch.int32).contiguous()
         self.inv = None if inv is None else inv.to(torch.int32).contiguous()
         self._tables = {}
+        self._hits = {}
 
     @property
     def swapped(self):
@@ -302,6 +344,16 @@ class BandGeometry:
                 else plain_pointers(self.indices, self.grid_b, kernel))
         return self._tables[kernel]
 
+    def hits(self, kernel):
+        """The pass's `BandHits` for ``kernel`` from the card's hit-list
+        kernel (`BandGemmWeightGradKernel.hit_list`), shared by every layer
+        of that kernel size."""
+        kernel = tuple(int(d) for d in kernel)
+        if kernel not in self._hits:
+            self._hits[kernel] = band_gemm_dw.hit_list(
+                self.indices, self.grid_b, kernel, self.inv)
+        return self._hits[kernel]
+
 
 def band_layer_plain(x_entries, w, bias, geom):
     """Plain PyTorch band NC layer over the geometry's (cached) pointer
@@ -310,24 +362,94 @@ def band_layer_plain(x_entries, w, bias, geom):
                                      geom.pointers(w.shape[:4]))
 
 
+def band_dx_plain(gp, w, geom):
+    """Input gradient of a band NC layer for its ReLU-masked output
+    cotangent ``gp`` ``[b, N, c_out]``: the gather-GEMM of ``gp`` with
+    ``flip(w)^T`` over the same pointer table (the neighbour relation is
+    symmetric within a pass; odd kernels only), in gp's dtype."""
+    return band_conv_gemm(gp, flip_transpose(w), geom.pointers(w.shape[:4]))
+
+
+def band_dw_plain(x_entries, gp, geom, kernel):
+    """Weight gradient of a band NC layer, float32 ``[k1, k2, k3, k4, c_in,
+    c_out]``: for each tap the entries' neighbours at that tap (zeros off
+    the band) gathered through the pointer table, times ``gp``, products
+    and sums in float32. One tap at a time, so no ``[b, N, T*c_in]``
+    gather exists."""
+    kernel = tuple(int(d) for d in kernel)
+    ptr = geom.pointers(kernel)
+    b, n, cin = x_entries.shape
+    cout = gp.shape[2]
+    x_pad = torch.cat([x_entries.float(), x_entries.new_zeros(b, 1, cin,
+                                                               dtype=torch.float32)], 1)
+    g = gp.float().reshape(b * n, cout)
+    rows = torch.arange(b, device=ptr.device)[:, None]
+    dw = torch.empty((ptr.shape[2], cin, cout), dtype=torch.float32,
+                     device=x_entries.device)
+    for t in range(ptr.shape[2]):
+        dw[t] = x_pad[rows, ptr[:, :, t].long()].reshape(b * n, cin).t() @ g
+    return dw.reshape(*kernel, cin, cout)
+
+
+def _on_card(x):
+    """True for a CUDA tensor (the kernels), False for a CPU tensor (the
+    plain versions); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"band layer runs on cpu or cuda tensors, got {x.device}")
+    return x.is_cuda
+
+
+class BandLayerFunction(torch.autograd.Function):
+    """`band_layer` with its gradients (the JAX package's
+    ``band_gemm_pallas.py::_bwd``): the ReLU mask from the saved output,
+    ``gp = gy * (out > 0)``; dx only where the entries need one (layer 1
+    reads the band values, which depend on no parameter); dw rounded once
+    to w's dtype; db the float32 sum of ``gp`` in the bias's dtype."""
+
+    @staticmethod
+    def forward(ctx, x_entries, w, bias, geom):
+        if _on_card(x_entries):
+            out = band_gemm_fwd(x_entries, w, bias, geom.indices, geom.grid_b,
+                                geom.inv)
+        else:
+            out = band_layer_plain(x_entries, w, bias, geom)
+        ctx.save_for_backward(x_entries, w, out)
+        ctx.geom = geom
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, out = ctx.saved_tensors
+        geom = ctx.geom
+        # the cotangent may arrive as a gather's or an expand's view
+        gp = torch.where(out > 0, gy, 0).contiguous()
+        dx = dw = db = None
+        card = _on_card(gp)
+        if ctx.needs_input_grad[0]:
+            dx = (band_gemm_dx(gp, w, geom.indices, geom.grid_b, geom.inv)
+                  if card else band_dx_plain(gp, w, geom))
+        if ctx.needs_input_grad[1]:
+            dw = (band_gemm_dw(x, gp, geom.hits(w.shape[:4])) if card
+                  else band_dw_plain(x, gp, geom, w.shape[:4]).to(w.dtype))
+        if ctx.needs_input_grad[2]:
+            db = gp.sum(dim=(0, 1), dtype=torch.float32).to(ctx.bias_dtype)
+        return dx, dw, db, None
+
+
 def band_layer(x_entries, w, bias, geom):
-    """One band NC layer: ``relu(bias + sum_t x[nbr(n, t)] @ w[t])``.
+    """One band NC layer: ``relu(bias + sum_t x[nbr(n, t)] @ w[t])``,
+    differentiable in ``x_entries``, ``w`` and ``bias``.
 
     Args:
       x_entries: ``[b, N, c_in]`` band activations, flat entry list (the
-        B-major list on the symmetric pass).
-      w: ``[k1, k2, k3, k4, c_in, c_out]`` in the activation dtype.
+        B-major list on the symmetric pass), contiguous.
+      w: ``[k1, k2, k3, k4, c_in, c_out]`` in the activation dtype (odd
+        sizes for the input gradient).
       bias: ``[c_out]``, added in the activation dtype.
       geom: the pass's `BandGeometry`.
 
     Returns:
       ``[b, N, c_out]`` in the activation dtype.
     """
-    if x_entries.device.type == "cpu":
-        return band_layer_plain(x_entries, w, bias, geom)
-    if x_entries.is_cuda:
-        return band_gemm_fwd(x_entries, w, bias, geom.indices, geom.grid_b,
-                             geom.inv)
-    raise ValueError(
-        f"band layer runs on cpu or cuda tensors, got {x_entries.device}"
-    )
+    return BandLayerFunction.apply(x_entries, w, bias, geom)

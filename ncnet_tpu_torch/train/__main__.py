@@ -14,6 +14,11 @@ At toy size on the CPU:
         --ncons_kernel_sizes 3 3 --ncons_channels 4 1 --batch_size 2 \\
         --synthetic_pairs 8 --num_epochs 1
 
+``--nc_topk K`` trains the NC stack on each pair's top-K correlation band
+(sparse-band training; ``--no-nc_topk_mutual`` selects the plain per-A
+top-K instead of the mutual band), e.g. ``--nc_topk 50`` at the PF-Pascal
+defaults on the card, or ``--nc_topk 4`` at the toy size above.
+
 It prints one JSON report at the end: losses, steps, step ms, peak device
 memory and the kernels' launch counts.
 """
@@ -28,6 +33,8 @@ import torch
 from ncnet_tpu_torch.data.loader import DataLoader
 from ncnet_tpu_torch.data.pairs import ImagePairDataset, SyntheticPairDataset
 from ncnet_tpu_torch.device import resolve_device
+from ncnet_tpu_torch.kernels.band_gemm import band_gemm_dx, band_gemm_fwd
+from ncnet_tpu_torch.kernels.band_gemm_dw import band_gemm_dw
 from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
 from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
 from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
@@ -58,6 +65,16 @@ def parse_args(argv=None):
                    help="bfloat16 features/correlation/NC over float32 master "
                         "weights (default on; a resumed run keeps its "
                         "checkpoint's setting unless given)")
+    p.add_argument("--nc_topk", type=int, default=None, metavar="K",
+                   help="sparse-band neighbourhood consensus: keep the top-K "
+                        "B candidates per A cell and train the NC stack on "
+                        "that band. 0 = dense; K >= hB*wB is the dense math. "
+                        "Unset keeps a resumed checkpoint's value")
+    p.add_argument("--nc_topk_mutual", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="with --nc_topk: mutual band selection (the default) "
+                        "or the plain per-A top-K (--no-nc_topk_mutual); "
+                        "unset keeps a resumed checkpoint's value")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--result_model_dir", type=str, default="trained_models")
@@ -93,6 +110,12 @@ def main(argv=None):
         config = resume.config
         if args.bf16 is not None:
             config = config.replace(half_precision=args.bf16)
+        # the band flags override in either direction; unset keeps the
+        # checkpoint's (the NC params are the same model either way)
+        if args.nc_topk is not None:
+            config = config.replace(nc_topk=args.nc_topk)
+        if args.nc_topk_mutual is not None:
+            config = config.replace(nc_topk_mutual=args.nc_topk_mutual)
         print(f"resuming from {args.checkpoint} at step {resume.step}",
               flush=True)
     else:
@@ -101,6 +124,9 @@ def main(argv=None):
             ncons_kernel_sizes=tuple(args.ncons_kernel_sizes),
             ncons_channels=tuple(args.ncons_channels),
             half_precision=True if args.bf16 is None else args.bf16,
+            nc_topk=args.nc_topk or 0,
+            nc_topk_mutual=(True if args.nc_topk_mutual is None
+                            else args.nc_topk_mutual),
         )
     model = ImMatchNet(config, device=device,
                        generator=torch.Generator().manual_seed(args.seed))
@@ -124,7 +150,10 @@ def main(argv=None):
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    launches0 = (conv4d_fwd.launches, conv4d_dx.launches, conv4d_dw.launches)
+    kernels = {"conv4d_fwd": conv4d_fwd, "conv4d_dx": conv4d_dx,
+               "conv4d_dw": conv4d_dw, "band_gemm_fwd": band_gemm_fwd,
+               "band_gemm_dx": band_gemm_dx, "band_gemm_dw": band_gemm_dw}
+    launches0 = {name: k.launches for name, k in kernels.items()}
     state, history = train(
         config, model, train_loader, val_loader,
         num_epochs=args.num_epochs, learning_rate=args.lr,
@@ -133,8 +162,7 @@ def main(argv=None):
         save_every_steps=args.save_every_steps, max_steps=args.max_steps,
         resume=resume,
     )
-    launches = [n - n0 for n, n0 in zip(
-        (conv4d_fwd.launches, conv4d_dx.launches, conv4d_dw.launches), launches0)]
+    launches = {name: k.launches - launches0[name] for name, k in kernels.items()}
     ms = history["step_ms"]
     report = {
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -149,8 +177,7 @@ def main(argv=None):
         "step_ms_median": sorted(ms)[len(ms) // 2] if ms else None,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
-        "kernel_launches": dict(zip(("conv4d_fwd", "conv4d_dx", "conv4d_dw"),
-                                    launches)),
+        "kernel_launches": launches,
         "checkpoint": os.path.join(args.result_model_dir, args.result_model_fn),
         "stopped_at_max_steps": history["stopped_at_max_steps"],
     }

@@ -7,6 +7,13 @@ negative pairs formed by rolling the source batch by one:
 ``loss = score_neg - score_pos``. The roll is applied to the extracted
 source features (the trunk is frozen and deterministic).
 
+With ``config.nc_topk > 0`` (sparse-band training) each pair is scored
+on its own top-K band: `sparse_match_pipeline` (correlation, MM, top-K,
+the band NC stack, band MM) and `band_match_score_per_sample`; the NC
+stack never sees the dense correlation, and its backward runs through the
+band layer's gradient kernels on the card
+(`ncnet_tpu_torch.ops.band.BandLayerFunction`).
+
 Mixed precision (``config.half_precision``): features, correlation and
 the NC stack are bfloat16; both pipelines return float32 at the post-NC
 mutual matching, so the score normalization, the per-sample means and the
@@ -22,8 +29,16 @@ with identical math, and the memory they save is not needed on an
 import torch
 
 from ncnet_tpu_torch.data.images import imagenet_normalize
-from ncnet_tpu_torch.models.immatchnet import extract_features, match_pipeline
-from ncnet_tpu_torch.sparse.score import normalize_scores
+from ncnet_tpu_torch.models.immatchnet import (
+    check_supported,
+    extract_features,
+    match_pipeline,
+)
+from ncnet_tpu_torch.sparse.pipeline import sparse_match_pipeline
+from ncnet_tpu_torch.sparse.score import (
+    band_match_score_per_sample,
+    normalize_scores,
+)
 
 
 def match_score_per_sample(corr, normalization="softmax"):
@@ -46,7 +61,7 @@ def match_score(corr, normalization="softmax"):
     return match_score_per_sample(corr, normalization).mean()
 
 
-def _check_dense(config):
+def _check(config):
     if config.relocalization_k_size > 1:
         raise ValueError(
             "weak_loss does not support relocalization configs "
@@ -58,11 +73,7 @@ def _check_dense(config):
             "the weak loss of refine_factor > 0 (coarse-to-fine refinement) "
             "is not ported yet (ROADMAP A10)"
         )
-    if config.nc_topk > 0:
-        raise NotImplementedError(
-            "the weak loss of nc_topk > 0 (band training: band_coverage and "
-            "band_match_score_per_sample) is not ported yet (ROADMAP A8)"
-        )
+    check_supported(config)
 
 
 def weak_loss(model, config, batch, normalization="softmax"):
@@ -97,15 +108,29 @@ def weak_loss_from_features(model, config, batch, normalization="softmax"):
                           normalization)
 
 
+def pair_score(neigh_consensus, config, feat_a, feat_b,
+               normalization="softmax"):
+    """``[b]`` best-match scores of the pairs ``(feat_a, feat_b)``: the
+    dense pipeline and `match_score_per_sample`, or with ``nc_topk > 0``
+    the band pipeline and `band_match_score_per_sample`."""
+    if config.nc_topk > 0:
+        band, indices, grid_b = sparse_match_pipeline(
+            neigh_consensus.params(), config, feat_a, feat_b,
+            layer=neigh_consensus.band_layer)
+        return band_match_score_per_sample(band, indices, grid_b, normalization)
+    corr = match_pipeline(neigh_consensus, config, feat_a, feat_b)
+    return match_score_per_sample(corr, normalization)
+
+
 def weak_loss_core(neigh_consensus, config, feat_a, feat_b,
                    normalization="softmax"):
     """The shared post-trunk loss: rolled negatives, then the positive and
-    the negative pipeline as two separate `match_pipeline` calls (as the
-    JAX package runs them), then ``mean(neg) - mean(pos)``."""
-    _check_dense(config)
+    the negative pair scored by two separate pipeline calls (as the JAX
+    package runs them), then ``mean(neg) - mean(pos)``."""
+    _check(config)
     feat_a_neg = torch.roll(feat_a, -1, 0)
-    corr_pos = match_pipeline(neigh_consensus, config, feat_a, feat_b)
-    score_pos = match_score_per_sample(corr_pos, normalization)
-    corr_neg = match_pipeline(neigh_consensus, config, feat_a_neg, feat_b)
-    score_neg = match_score_per_sample(corr_neg, normalization)
+    score_pos = pair_score(neigh_consensus, config, feat_a, feat_b,
+                           normalization)
+    score_neg = pair_score(neigh_consensus, config, feat_a_neg, feat_b,
+                           normalization)
     return score_neg.mean() - score_pos.mean()

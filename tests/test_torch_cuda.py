@@ -1,5 +1,5 @@
-"""The hand-written Hopper kernels (conv4d forward, dx and dw, band GEMM)
-against their plain versions, on a card.
+"""The hand-written Hopper kernels (conv4d forward, dx and dw; the band
+layer's forward, dx and dw) against their plain versions, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 the port is installed:
@@ -12,12 +12,16 @@ Without a CUDA device every test skips (a CUDA kernel has no CPU mode).
 import pytest
 import torch
 
-from ncnet_tpu_torch.kernels.band_gemm import band_gemm_fwd
+from ncnet_tpu_torch.kernels.band_gemm import band_gemm_dx, band_gemm_fwd
+from ncnet_tpu_torch.kernels.band_gemm_dw import band_gemm_dw
 from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd, route
 from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
 from ncnet_tpu_torch.ops.band import (
     BandGeometry,
     b_major_order,
+    band_dw_plain,
+    band_dx_plain,
+    band_hits_plain,
     band_layer,
     band_layer_plain,
     topk_band,
@@ -530,3 +534,157 @@ def test_relocalization_forward_through_kernels(card, tgt_hw):
         assert torch.equal(a, b)
     err = float((corr_k - corr_p).abs().max())
     assert err <= 3e-2 * float(corr_p.abs().max())
+
+
+BAND_GRAD_CASES = [
+    # (b, hA, wA, hB, wB, K, k, cin, cout, swapped): the band-training
+    # layers at 25x25 (K = 50 is the slice's band: 1,250 candidates a cell,
+    # past the kernels' 1,024-candidate tile), K = 1 and 16, the complete
+    # band at 192 px, a rectangular B grid
+    (2, 25, 25, 25, 25, 50, 5, 16, 16, False),
+    (2, 25, 25, 25, 25, 50, 5, 16, 16, True),
+    (2, 25, 25, 25, 25, 50, 5, 16, 1, True),
+    (2, 25, 25, 25, 25, 50, 5, 1, 16, False),
+    (2, 25, 25, 25, 25, 16, 5, 16, 16, True),
+    (2, 25, 25, 25, 25, 1, 5, 16, 1, False),
+    (2, 25, 25, 25, 25, 1, 5, 1, 16, True),
+    (2, 12, 12, 12, 12, 144, 5, 16, 16, False),
+    (2, 12, 12, 12, 12, 144, 5, 16, 16, True),
+    (1, 25, 25, 19, 25, 50, 5, 16, 16, True),
+    (1, 25, 25, 19, 25, 16, 5, 1, 16, False),
+    (1, 4, 3, 3, 5, 4, 3, 3, 9, True),  # tiny grid, cout not 1/4/16
+]
+
+
+def _band_grad_inputs(case, dtype, device):
+    b, ha, wa, hb, wb, K, k, cin, cout, swapped = BAND_GRAD_CASES[case]
+    g = torch.Generator(device=device).manual_seed(300 + case)
+    scores = torch.randn(b, ha, wa, hb, wb, generator=g, device=device)
+    _, idx = topk_band(scores, K, mutual=True)
+    geom = BandGeometry(idx, (hb, wb), *(b_major_order(idx) if swapped else ()))
+    n = ha * wa * K
+    bound = (cin * k**4) ** -0.5
+    x = torch.rand(b, n, cin, generator=g, device=device)
+    w = (torch.rand(k, k, k, k, cin, cout, generator=g, device=device) * 2 - 1) * bound
+    # a ReLU-masked cotangent: about half its entries are zero
+    gp = torch.randn(b, n, cout, generator=g, device=device)
+    gp = gp * (torch.rand(b, n, cout, generator=g, device=device) > 0.5)
+    return x.to(dtype), w.to(dtype), gp.to(dtype), geom
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(BAND_GRAD_CASES)))
+def test_band_dx_kernel_matches_plain(card, case, dtype):
+    dt = getattr(torch, dtype)
+    x, w, gp, geom = _band_grad_inputs(case, dt, card)
+    before = band_gemm_dx.launches, band_gemm_fwd.launches
+    got = band_gemm_dx(gp, w, geom.indices, geom.grid_b, geom.inv)
+    torch.cuda.synchronize()
+    assert (band_gemm_dx.launches, band_gemm_fwd.launches) == (before[0] + 1,
+                                                               before[1])
+    assert got.dtype == dt and got.shape == x.shape
+    want = band_dx_plain(gp.float(), w.float(), geom)
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    # the forward kernel's sums in linear mode: float32 sums of up to
+    # k^4*cout products in other orders; bfloat16 rounds the sum once
+    # (2^-8 relative) where the plain float32 reference does not
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert err <= tol * scale, (err, scale)
+    assert torch.equal(band_gemm_dx(gp, w, geom.indices, geom.grid_b, geom.inv),
+                       got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(BAND_GRAD_CASES)))
+def test_band_dw_kernel_matches_plain(card, case, dtype):
+    dt = getattr(torch, dtype)
+    x, w, gp, geom = _band_grad_inputs(case, dt, card)
+    kernel = tuple(w.shape[:4])
+    hits = geom.hits(kernel)
+    # the hit list is the plain derivation's, element for element
+    want_hits = band_hits_plain(geom.indices, geom.grid_b, kernel, geom.inv)
+    for got_t, want_t in zip(hits[:3], want_hits[:3]):
+        assert torch.equal(got_t, want_t)
+    before = band_gemm_dw.launches
+    got = band_gemm_dw(x, gp, hits)
+    torch.cuda.synchronize()
+    assert band_gemm_dw.launches == before + 1
+    assert got.dtype == dt and got.shape == w.shape
+    want = band_dw_plain(x, gp, geom, kernel)
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    # float32 sums of up to a tap's hits (at most b*N) in other orders;
+    # bfloat16 rounds each once (2^-8 relative) where the reference keeps
+    # float32
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    assert err <= tol * scale, (err, scale)
+    # the list and the sums have a fixed order, no atomics on floats
+    again = band_gemm_dw.hit_list(geom.indices, geom.grid_b, kernel, geom.inv)
+    assert all(torch.equal(a, b) for a, b in zip(again[:3], hits[:3]))
+    assert torch.equal(band_gemm_dw(x, gp, again), got)
+
+
+def test_band_layer_on_card_gives_weight_gradients(card):
+    """A band forward on the card with trainable weights is differentiable:
+    its gradients run through the kernels and equal autograd's through
+    the plain layer."""
+    x, w, gp, geom = _band_grad_inputs(1, torch.float32, card)
+    bias = torch.linspace(-0.05, 0.05, w.shape[5], device=card)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    bias.requires_grad_(True)
+    before = (band_gemm_fwd.launches, band_gemm_dx.launches,
+              band_gemm_dw.launches)
+    out = band_layer(x, w, bias, geom)
+    assert out.grad_fn is not None
+    (out * gp).sum().backward()
+    torch.cuda.synchronize()
+    after = (band_gemm_fwd.launches, band_gemm_dx.launches,
+             band_gemm_dw.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    got = [t.grad.clone() for t in (x, w, bias)]
+    for t in (x, w, bias):
+        t.grad = None
+    (band_layer_plain(x, w, bias, geom) * gp).sum().backward()
+    for gk, gr in zip(got, (x.grad, w.grad, bias.grad)):
+        scale = float(gr.abs().max())
+        assert scale > 0
+        # float32 sums in other orders
+        assert float((gk - gr).abs().max()) <= 1e-4 * scale
+
+
+def test_band_nc_gradients_through_kernels_match_plain(card):
+    """The band NC stack's parameter gradients (both passes, three layers)
+    through the kernels against autograd through the plain layer; layer
+    1's input gradient is never launched (the band values need none)."""
+    from ncnet_tpu_torch.models.neigh_consensus import init_neigh_consensus
+    from ncnet_tpu_torch.sparse import sparse_neigh_consensus_apply
+
+    params = [{k: v.to(card).requires_grad_(True) for k, v in p.items()}
+              for p in init_neigh_consensus((5, 5, 5), (16, 16, 1))]
+    g = torch.Generator(device=card).manual_seed(7)
+    scores = torch.rand(2, 12, 12, 12, 12, generator=g, device=card)
+    values, idx = topk_band(scores, 50, mutual=True)
+
+    def grads(layer):
+        for p in params:
+            p["kernel"].grad = p["bias"].grad = None
+        out = sparse_neigh_consensus_apply(params, values, idx, (12, 12),
+                                           layer=layer)
+        (out * torch.linspace(-1, 1, out.numel(), device=card)
+         .reshape(out.shape)).sum().backward()
+        return [t.grad.clone() for p in params for t in (p["kernel"], p["bias"])]
+
+    before = (band_gemm_fwd.launches, band_gemm_dx.launches,
+              band_gemm_dw.launches)
+    got = grads(band_layer)
+    torch.cuda.synchronize()
+    after = (band_gemm_fwd.launches, band_gemm_dx.launches,
+             band_gemm_dw.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 4, 6)
+    want = grads(band_layer_plain)
+    for gk, gr in zip(got, want):
+        scale = float(gr.abs().max())
+        # float32 sums in other orders through three layers and back
+        assert float((gk - gr).abs().max()) <= 1e-4 * scale, (gk, gr)

@@ -138,8 +138,9 @@ def test_cli_trains_at_toy_size_and_resumes(tmp_path, capsys):
                                "--max-steps", "3"])
     assert report["steps"] == 3 and report["stopped_at_max_steps"]
     assert all(np.isfinite(report["step_losses"]))
-    assert report["kernel_launches"] == {"conv4d_fwd": 0, "conv4d_dx": 0,
-                                         "conv4d_dw": 0}  # CPU: plain versions
+    assert report["kernel_launches"] == {  # CPU: plain versions
+        "conv4d_fwd": 0, "conv4d_dx": 0, "conv4d_dw": 0, "band_gemm_fwd": 0,
+        "band_gemm_dx": 0, "band_gemm_dw": 0}
     assert report["config"]["half_precision"] is True  # --bf16 by default
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed["steps"] == 3

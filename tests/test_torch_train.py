@@ -153,7 +153,7 @@ def test_weak_loss_from_features_matches_weak_loss():
 @pytest.mark.parametrize(
     "override,error,item",
     [
-        (dict(nc_topk=8), NotImplementedError, "A8"),
+        (dict(nc_topk=8, corr_impl="stream"), NotImplementedError, "A9"),
         (dict(refine_factor=2), NotImplementedError, "A10"),
         (dict(relocalization_k_size=2), ValueError, "relocalization"),
     ],
