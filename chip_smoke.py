@@ -6,18 +6,18 @@ NVIDIA GPU and fails unless every phase holds.
 Phases, one JSON line each:
 
 1. device  — CUDA must be present; the card's name and power limit.
-2. build   — the four kernel libraries (conv4d forward, which dx reuses;
-             conv4d dw; band GEMM, whose linear mode is the band dx; band
-             dw) are built with nvcc from the
+2. build   — the five kernel libraries (conv4d forward, which dx reuses;
+             conv4d dw; band GEMM forward; band dw with the hit list; band
+             dx) are built with nvcc from the
              repository's sources, one nvcc each, started together
              (seconds and ptxas's register/spill report); then each
              library's HMMA/HGMMA (tensor-core) instructions per kernel
              function, from ``cuobjdump -sass``: the bfloat16 routes of
-             conv4d forward and dw (functions named ``bf16_tc``) and the
-             forward's float32 split-TF32 route (``tf32x3``) must have
-             some in every function, and their CUDA-core (FFMA) functions
-             none, or the phase fails; without cuobjdump the phase says
-             so.
+             conv4d forward and dw and of the band dw and dx (functions
+             named ``bf16_tc``) and the conv4d forward's float32
+             split-TF32 route (``tf32x3``) must have some in every
+             function, and their CUDA-core (FFMA) functions none, or the
+             phase fails; without cuobjdump the phase says so.
 3. kernels — the conv4d kernel against its plain PyTorch version (TF32
              off) at the PF-Pascal NC layer shapes (batch 2x2 on the 25^4
              grid), a rectangular and a tiny grid, float32 and bfloat16;
@@ -44,14 +44,18 @@ Phases, one JSON line each:
              synthetic pairs through the trunk, as the train_band step
              builds it; 25x25 grids, 16 x 31,250 entries), both passes,
              the three layers, bfloat16:
-             the forward, dx (the forward kernel's linear mode on
-             flip(w)^T; layers 2 and 3) and dw (csrc/band_gemm_dw.cu over
-             the pass's hit list, built once a pass and shared) against
-             their plain versions (per sample, float32 sums of the same
-             bfloat16 inputs), each repeated bitwise (the hit list too),
-             timed by CUDA events beside the plain version in bfloat16
-             and the bound (FLOPs of this band's hits against the bytes of
-             the entry lists, indices and weights).
+             the forward, dx (csrc/band_gemm_dx.cu; layers 2 and 3) and
+             dw (csrc/band_gemm_dw.cu), both over the pass's hit list,
+             built once a pass and shared, against their plain versions
+             (per sample, float32 sums of the same bfloat16 inputs), each
+             repeated bitwise (the hit list and its per-(tap, block)
+             offsets too), timed by CUDA events beside the plain version
+             in bfloat16 and the bound (FLOPs of this band's hits against
+             the bytes of the entry lists, indices and weights); the hit
+             list's build timed beside its own bound (the bytes it
+             writes: 8 a hit and its offsets); then dx and dw of the
+             16->16 layer on K = 16 and K = 50 bands of random features
+             (as many (cell, tap) pairs, fewer hits: the "walk" record).
 5. serve   — ImMatchNet at the PF-Pascal config (ResNet-101, NC 5-5-5 /
              16-16-1, 400 px) with random weights from a seed behind the
              port's ServeEngine: 8 requests at the 400x400 bucket and 4 at
@@ -221,7 +225,7 @@ TRAIN_STEPS = 3
 WIDE_HW, WIDE_GRID = (768, 768), 48
 # the libraries whose bfloat16 route runs on the tensor cores, and the one
 # whose float32 route does (split-TF32) where its shape rule says so
-BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw")
+BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw", "band_gemm_dw", "band_gemm_dx")
 TF32X3_ROUTES = ("conv4d_fwd",)
 # eval: synthetic convergence at its defaults (128 px, patch16, identity NC
 # init, NC 3-3 / 16-1, 400 steps): PCK@0.15 after training must clear PCK
@@ -2020,14 +2024,21 @@ def phase_band_train_kernels(smi, model, config, kernels):
         kernel = (KSIZE,) * 4
         hits = geom.hits(kernel)
         again = dw.hit_list(geom.indices, geom.grid_b, kernel, geom.inv)
-        hits_bitwise = all(torch.equal(a, b) for a, b in zip(hits[:3], again[:3]))
+        hits_bitwise = all(torch.equal(getattr(hits, f), getattr(again, f))
+                           for f in ("tap_start", "n", "m", "block_start"))
         del again
         hit_ms = time_ms(lambda: dw.hit_list(geom.indices, geom.grid_b, kernel,
                                              geom.inv), reps=3)
+        # its least time: the bytes it writes (8 a hit and the int64
+        # offsets of every (tap, block) run) and reads (indices, inv)
+        hit_bytes = (8 * hits.count + 8 * hits.block_start.numel()
+                     + 4 * geom.indices.numel() * (2 if geom.swapped else 1))
         hit_lists.append({"pass": name, "hits": hits.count,
                           "hits_per_entry": hits.count / hits.rows,
-                          "mbytes": 8 * hits.count / 1e6, "ms": hit_ms,
-                          "bitwise_repeat": hits_bitwise})
+                          "mbytes": 8 * hits.count / 1e6,
+                          "offsets_mbytes": 8 * hits.block_start.numel() / 1e6,
+                          "ms": hit_ms, "bound_ms": 1e3 * hit_bytes / PEAK_BYTES,
+                          "bound_by": "bytes", "bitwise_repeat": hits_bitwise})
         if not hits_bitwise:
             emit({"phase": "band_train_kernels", "hit_lists": hit_lists})
             raise AssertionError(f"the hit list does not repeat: {hit_lists[-1]}")
@@ -2059,7 +2070,7 @@ def phase_band_train_kernels(smi, model, config, kernels):
                     ("dw", lambda: dw(x, gp, hits), lambda: plain_dw(x, gp),
                      lambda: plain_dw(x, gp), hit_ms / len(NC_LAYERS))]
             if li > 0:
-                runs.append(("dx", lambda: dx(gp, w, geom.indices, geom.grid_b, geom.inv),
+                runs.append(("dx", lambda: dx(gp, w, hits),
                              lambda: per_sample(lambda gg, g: band_dx_plain(gg, w, g), gp),
                              lambda: per_sample(lambda gg, g: band_dx_plain(
                                  gg.float(), w.float(), g), gp), 0.0))
@@ -2091,9 +2102,33 @@ def phase_band_train_kernels(smi, model, config, kernels):
                         f"{timed[kname][-1]}")
         del subs, hits
         torch.cuda.empty_cache()
+    walk = band_walk(kernels)
     emit({"phase": "band_train_kernels", "card": smi, "timed": timed,
-          "hit_lists": hit_lists})
+          "hit_lists": hit_lists, "walk": walk})
     return timed
+
+
+def band_walk(kernels):
+    """dx and dw of the 16 -> 16 layer, bfloat16, on the plain pass of
+    mutual bands of random features (16 samples on 25x25 grids) at K = 16
+    and K = 50: as many (input cell, tap) pairs as the training band, with
+    fewer hits (the K = 16 list fits in L2). Where dx's time follows the
+    pairs and not the hits, its walk over the runs bounds it."""
+    dx, dw = kernels["band_gemm_dx"], kernels["band_gemm_dw"]
+    out = {}
+    for k in (16, 50):
+        _, idx = real_band(TRAIN_BATCH, (GRID, GRID), (GRID, GRID), k, SEED + 13)
+        geom = band_geometries(idx, (GRID, GRID))["plain"]
+        hits = geom.hits((KSIZE,) * 4)
+        n = idx[0].numel()
+        x, w, _ = band_layer_inputs(TRAIN_BATCH, n, 16, 16, torch.bfloat16, seed=170)
+        gp = torch.randn(TRAIN_BATCH, n, 16, device="cuda").to(torch.bfloat16)
+        out[f"k{k}"] = {"hits": hits.count, "list_mbytes": 8 * hits.count / 1e6,
+                        "cell_tap_pairs": TRAIN_BATCH * GRID**2 * KSIZE**4,
+                        "dx_ms": time_ms(lambda: dx(gp, w, hits), reps=10),
+                        "dw_ms": time_ms(lambda: dw(x, gp, hits), reps=10)}
+        del hits
+    return out
 
 
 class TimedCalls:
@@ -2505,10 +2540,10 @@ def main():
                "conv4d_dw": conv4d_dw, "band_gemm_fwd": band_gemm_fwd,
                "band_gemm_dx": band_gemm_dx, "band_gemm_dw": band_gemm_dw}
     smi = phase_device()
-    # conv4d_dx launches conv4d_fwd's library and band_gemm_dx
-    # band_gemm_fwd's: four builds
+    # conv4d_dx launches conv4d_fwd's library: five builds
     phase_build({"conv4d_fwd": conv4d_fwd, "band_gemm_fwd": band_gemm_fwd,
-                 "conv4d_dw": conv4d_dw, "band_gemm_dw": band_gemm_dw})
+                 "conv4d_dw": conv4d_dw, "band_gemm_dw": band_gemm_dw,
+                 "band_gemm_dx": band_gemm_dx})
     layers = phase_kernels(smi, conv4d_fwd, conv4d_plain)
     fwd_train_layers, dx_layers, dw_layers = phase_train_kernels(
         smi, kernels, conv4d_plain, conv4d_dx_plain, conv4d_dw_plain)
@@ -2573,14 +2608,14 @@ def main():
                     f"K = {BAND_K}, {TRAIN_STEPS} band training steps' and "
                     f"the synthetic run's at K = {SYNTH_BAND_K}", smi,
                     band_by_path),
-        kernel_line("band_gemm_dx", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
+        kernel_line("band_gemm_dx", "ncnet_tpu_torch/csrc/band_gemm_dx.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:147",
                     sum(band_train_by_path("band_gemm_dx").values()),
                     band_train_layers["dx"],
                     "the input gradients of band NC layers 2 and 3 x 2 "
                     "symmetric passes of one pipeline call of a band training "
-                    f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16: the "
-                    "forward kernel in its linear mode on flip(w)^T. "
+                    f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16, over "
+                    "the pass's hit list (which dw builds and shares). "
                     f"Launches: {TRAIN_STEPS} band training steps' and the "
                     f"synthetic run's at K = {SYNTH_BAND_K}", smi,
                     band_train_by_path("band_gemm_dx")),

@@ -15,13 +15,6 @@
 // bfloat16 the result is rounded as the reference rounds it (the product to
 // bfloat16 first, then the bfloat16 bias added and the sum rounded again).
 //
-// Linear mode (linear = 1) skips the bias and the ReLU and writes the float32
-// sum rounded once to the activation dtype: the layer's input gradient,
-// dx = the same contraction of the ReLU-masked output cotangent with the
-// spatially flipped, channel-transposed kernel over the same band (the
-// neighbour relation is symmetric within each pass; the JAX package's
-// band_gemm_pallas.py::_bwd, band_conv_gemm(gp, wflip, ptr)).
-//
 // The symmetric pass (inv given: the inverse of sparse/nc.py's
 // b_major_order permutation) runs over the entries enumerated B-major: the
 // A and B offsets trade roles (A by (d3, d4), B by (d1, d2)), entry e's
@@ -99,7 +92,6 @@ struct Band {
   int C, O;
   int ka_i, ka_j, kb_i, kb_j;  // the pass's A- and B-offset extents
   int swapped;                 // 1: the symmetric pass (inv given)
-  int linear;                  // 1: no bias, no ReLU (the input gradient)
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -286,13 +278,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         if (o + v < s.O) {
-          T* dst = out + (base + row) * s.O + o + v;
-          if (s.linear) {
-            *dst = from_f32<T>(acc[v]);
-          } else {
-            const float y = round_like<T>(acc[v]) + bias[o + v];
-            *dst = from_f32<T>(fmaxf(y, 0.f));
-          }
+          const float y = round_like<T>(acc[v]) + bias[o + v];
+          out[(base + row) * s.O + o + v] = from_f32<T>(fmaxf(y, 0.f));
         }
       }
     }
@@ -344,14 +331,13 @@ int dispatch(const void* x, const int* indices, const int* inv, const void* w,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. bias is float32 (the activation-dtype
-// bias converted exactly); linear = 1 skips the bias (which may be NULL)
-// and the ReLU. inv ([B, N] int32, a permutation of [0, N)) is NULL on the
+// bias converted exactly). inv ([B, N] int32, a permutation of [0, N)) is NULL on the
 // plain pass and given on the symmetric pass. Returns 0 on a successful
 // launch, a cudaError_t value (> 0) when CUDA refused it, or one of the
 // negative codes above.
 int band_gemm_fwd(const void* x, const void* indices, const void* inv,
                   const void* w, const void* bias, void* out, int dtype,
-                  int linear, int B, int hA, int wA, int hB, int wB, int K,
+                  int B, int hA, int wA, int hB, int wB, int K,
                   int C, int O, int k1, int k2, int k3, int k4, void* stream) {
   if (B < 1 || hA < 1 || wA < 1 || hB < 1 || wB < 1 || K < 1 || C < 1 ||
       O < 1 || k1 < 1 || k2 < 1 || k3 < 1 || k4 < 1)
@@ -369,8 +355,7 @@ int band_gemm_fwd(const void* x, const void* indices, const void* inv,
   s.ka_i = swapped ? k3 : k1, s.ka_j = swapped ? k4 : k2;
   s.kb_i = swapped ? k1 : k3, s.kb_j = swapped ? k2 : k4;
   s.swapped = swapped;
-  s.linear = linear != 0;
-  if (!s.linear && bias == nullptr) return kErrBadShape;
+  if (bias == nullptr) return kErrBadShape;
   const int* ix = static_cast<const int*>(indices);
   const int* iv = static_cast<const int*>(inv);
   const float* bs = static_cast<const float*>(bias);
@@ -385,7 +370,7 @@ const char* band_gemm_fwd_error_string(int code) {
   switch (code) {
     case kErrBadShape:
       return "shape not taken: every dim >= 1, K <= hB*wB, hB < 2^15 and "
-             "wB < 2^16, and a bias unless linear";
+             "wB < 2^16, and a bias";
     case kErrGrid:
       return "grid too large: B must be <= 65535 and hA*wA*K < 2^31";
     case kErrDtype:

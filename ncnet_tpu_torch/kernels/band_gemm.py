@@ -1,5 +1,5 @@
-"""Wrappers of the hand-written Hopper sparse-band NC layer: the forward and,
-through the same kernel in its linear mode, the input gradient.
+"""Wrappers of the hand-written Hopper kernels of the sparse-band NC layer:
+the forward and the input gradient.
 
 Replaces the TPU kernel ``ncnet_tpu/kernels/band_gemm_pallas.py:83``
 ``_fused_kernel`` (public ``band_conv_bias_relu_pallas``) with
@@ -16,11 +16,13 @@ band, 0.3 GFLOP a 16->16 layer at 4 samples, against a few MB of entries,
 indices and weights); in practice the tap derivation and the gathers from
 L2 (see the source's header).
 
-The input gradient of the layer is the same contraction of the
-ReLU-masked output cotangent with the spatially flipped, channel-transposed
-kernel over the same band, with no bias and no ReLU (the JAX package's
-``band_gemm_pallas.py::_bwd``): `band_gemm_dx` launches the forward's
-library in its linear mode, with its own launch count.
+The input gradient (the dx half of the JAX package's
+``band_gemm_pallas.py::_bwd``) is a kernel of its own,
+``csrc/band_gemm_dx.cu``: it reads the pass's hit list, which the weight
+gradient's kernel builds (`ncnet_tpu_torch.kernels.band_gemm_dw`), and
+sums each input row's hits, tap by tap, ``gp[n] @ w[t]^T`` (bfloat16 at
+16 input channels on the tensor cores, the rest on FFMA; see the source's
+header).
 
 The wrappers take CUDA tensors only: `ncnet_tpu_torch.ops.band.band_layer`
 routes CPU tensors to the plain PyTorch versions, and nothing here falls
@@ -33,9 +35,10 @@ import os
 import torch
 
 from ncnet_tpu_torch.kernels import _build
-from ncnet_tpu_torch.kernels.conv4d import flip_transpose
+from ncnet_tpu_torch.kernels.band_gemm_dw import aligned, cell_major, pass_order
 
 SOURCE = os.path.join(_build.CSRC, "band_gemm_fwd.cu")
+DX_SOURCE = os.path.join(_build.CSRC, "band_gemm_dx.cu")
 MAX_COUT = 16  # the instantiations take 1..16 output channels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,7 +50,7 @@ class BandGemmForwardKernel:
     ``N = hA*wA*K``.
     ``w``: ``[k1, k2, k3, k4, cin, cout]`` of x's dtype and device.
     ``bias``: ``[cout]`` on x's device, rounded to x's dtype as the
-    reference casts it; None runs the linear mode (`run`).
+    reference casts it.
     ``indices``: ``[b, hA, wA, K]`` int32, the band's B-indices sorted
     ascending per A cell (`ncnet_tpu_torch.ops.band.topk_band`).
     ``grid_b``: ``(hB, wB)``.
@@ -65,7 +68,7 @@ class BandGemmForwardKernel:
         self.launches = 0
         self._lib = _build.KernelLibrary(
             SOURCE, "band_gemm", "band_gemm_fwd",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
         )
 
     def load(self):
@@ -138,8 +141,7 @@ class BandGemmForwardKernel:
             )
         if not all(t.is_contiguous() for _, t in (("x", x), ("w", w)) + int_inputs):
             raise ValueError("band kernel takes contiguous x, w, indices and inv")
-        if bias is not None and (bias.shape != (w.shape[5],)
-                                 or bias.device != x.device):
+        if bias.shape != (w.shape[5],) or bias.device != x.device:
             raise ValueError(
                 f"bias must be [{w.shape[5]}] on {x.device}, got "
                 f"{tuple(bias.shape)} on {bias.device}"
@@ -149,24 +151,14 @@ class BandGemmForwardKernel:
 
     def __call__(self, x, w, bias, indices, grid_b, inv=None):
         if bias is None:
-            raise ValueError("the band forward takes a bias; band_gemm_dx "
-                             "runs the kernel's linear mode")
-        out = self.run(x, w, bias, indices, grid_b, inv)
-        self.launches += 1
-        return out
-
-    def run(self, x, w, bias, indices, grid_b, inv=None):
-        """One launch, not counted here: `__call__` and `band_gemm_dx` count
-        their own. ``bias=None`` runs the linear mode (no bias, no ReLU)."""
+            raise ValueError("the band forward takes a bias")
         self.check(x, w, bias, indices, grid_b, inv)
-        linear = bias is None
         b, n, cin = x.shape
         _, ha, wa, k = indices.shape
         hb, wb = (int(d) for d in grid_b)
         cout = w.shape[5]
-        if not linear:
-            # the reference adds the bias in the activation dtype
-            bias = bias.to(x.dtype).to(torch.float32).contiguous()
+        # the reference adds the bias in the activation dtype
+        bias = bias.to(x.dtype).to(torch.float32).contiguous()
         out = torch.empty((b, n, cout), dtype=x.dtype, device=x.device)
         if out.numel() == 0:
             return out
@@ -175,54 +167,118 @@ class BandGemmForwardKernel:
             code, msg = self._lib.launch(
                 x.data_ptr(), indices.data_ptr(),
                 None if inv is None else inv.data_ptr(),
-                w.data_ptr(), None if linear else bias.data_ptr(),
-                out.data_ptr(), _DTYPE_CODES[x.dtype], int(linear),
-                b, ha, wa, hb, wb, k, cin, cout, *w.shape[:4], stream,
+                w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                _DTYPE_CODES[x.dtype], b, ha, wa, hb, wb, k, cin, cout,
+                *w.shape[:4], stream,
             )
         if code != 0:
             raise RuntimeError(
                 f"band kernel launch failed (code {code}): {msg}; "
                 f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}, "
-                f"indices {tuple(indices.shape)}, grid_b {(hb, wb)}, "
-                f"linear {linear}"
+                f"indices {tuple(indices.shape)}, grid_b {(hb, wb)}"
             )
-        return out
-
-
-class BandGemmInputGradKernel:
-    """Callable wrapper: ``kernel(gp, w, indices, grid_b, inv=None) -> dx``,
-    the input gradient of one band NC layer for its ReLU-masked output
-    cotangent ``gp``.
-
-    ``gp``: CUDA ``[b, N, cout]``; ``w``: the forward's ``[k1, k2, k3, k4,
-    cin, cout]`` (odd sizes) of gp's dtype; ``indices``, ``grid_b`` and
-    ``inv``: the pass's band, as the forward took them. Returns ``[b, N,
-    cin]`` in gp's dtype: the forward kernel in its linear mode on
-    ``flip(w)^T`` (prepared here with plain torch), the float32 sum rounded
-    once. ``launches`` counts this wrapper's launches.
-    """
-
-    def __init__(self, forward):
-        self.launches = 0
-        self._forward = forward
-
-    def load(self):
-        """Build (first use) and load the forward's library."""
-        return self._forward.load()
-
-    def __call__(self, gp, w, indices, grid_b, inv=None):
-        if w.dim() != 6 or any(k % 2 == 0 for k in w.shape[:4]):
-            raise ValueError(
-                "band dx takes w [k1,k2,k3,k4,cin,cout] with odd sizes (the "
-                f"flipped-kernel identity), got {tuple(w.shape)}"
-            )
-        out = self._forward.run(gp, flip_transpose(w), None, indices, grid_b,
-                                inv)
         self.launches += 1
         return out
 
 
+class BandGemmInputGradKernel:
+    """Callable wrapper: ``kernel(gp, w, hits) -> dx``, the input gradient
+    of one band NC layer for its ReLU-masked output cotangent ``gp``.
+
+    ``gp``: CUDA ``[b, N, cout]`` float32 or bfloat16, contiguous, in the
+    pass's entry order; ``w``: the forward's ``[k1, k2, k3, k4, cin,
+    cout]`` (odd sizes, not flipped) of gp's dtype; ``hits``: the pass's
+    `ncnet_tpu_torch.kernels.band_gemm_dw.BandHits` for w's kernel size,
+    which the layer's dw reads too. Returns ``[b, N, cin]`` in gp's dtype
+    and the pass's order, each float32 sum rounded once (on the symmetric
+    pass the kernel runs in cell-major order: gp is gathered into it and
+    dx out of it). ``launches`` counts this wrapper's launches, and
+    nothing else adds to it.
+    """
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = _build.KernelLibrary(
+            DX_SOURCE, "band_gemm_dx", "band_gemm_dx",
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+        )
+
+    def load(self):
+        """Build (first use) and load the library; returns the ptxas log."""
+        return self._lib.load()
+
+    def tensor_core_counts(self):
+        """``{kernel function: HMMA/HGMMA count}`` of the built library, or
+        None without ``cuobjdump``."""
+        return self._lib.tensor_core_counts()
+
+    @staticmethod
+    def check(gp, w, hits):
+        """Raise ValueError/TypeError on inputs the kernel does not take."""
+        if w.dim() != 6 or any(k % 2 == 0 for k in w.shape[:4]):
+            raise ValueError(
+                "band dx takes w [k1,k2,k3,k4,cin,cout] with odd sizes, got "
+                f"{tuple(w.shape)}"
+            )
+        if not gp.is_cuda:
+            raise ValueError(
+                "band dx kernel takes CUDA tensors; CPU tensors go through "
+                "ncnet_tpu_torch.ops.band.band_dx_plain"
+            )
+        if gp.dtype not in _DTYPE_CODES:
+            raise TypeError(f"band dx kernel takes float32 or bfloat16, got {gp.dtype}")
+        if w.dtype != gp.dtype or w.device != gp.device:
+            raise ValueError(
+                f"w must share gp's dtype and device ({gp.dtype}, {gp.device}); "
+                f"got ({w.dtype}, {w.device})"
+            )
+        if tuple(w.shape[:4]) != hits.kernel:
+            raise ValueError(f"the hit list is for kernel {hits.kernel}, w is "
+                             f"{tuple(w.shape)}")
+        b, ha, wa, k = hits.band
+        if gp.dim() != 3 or tuple(gp.shape[:2]) != (b, ha * wa * k):
+            raise ValueError(
+                f"band dx kernel takes gp [b,N,cout] over the hit list's "
+                f"{b} x {ha * wa * k} entries; got {tuple(gp.shape)}"
+            )
+        if gp.shape[2] != w.shape[5]:
+            raise ValueError(f"gp has {gp.shape[2]} channels, w's cout is {w.shape[5]}")
+        if not (1 <= w.shape[4] <= MAX_COUT and 1 <= w.shape[5] <= MAX_COUT):
+            raise ValueError(
+                f"band dx kernel takes 1 to {MAX_COUT} channels in and out, "
+                f"got {tuple(w.shape[4:])}"
+            )
+        if not (gp.is_contiguous() and w.is_contiguous()):
+            raise ValueError("band dx kernel takes contiguous gp and w")
+        if hits.block_start.device != gp.device:
+            raise ValueError(f"the hit list is on {hits.block_start.device}, "
+                             f"gp on {gp.device}")
+
+    def __call__(self, gp, w, hits):
+        self.check(gp, w, hits)
+        gp, w = aligned(cell_major(gp, hits)), aligned(w)
+        b, ha, wa, k = hits.band
+        cin, cout = w.shape[4:]
+        dx = torch.empty((b, ha * wa * k, cin), dtype=gp.dtype, device=gp.device)
+        with torch.cuda.device(gp.device):
+            stream = torch.cuda.current_stream(gp.device).cuda_stream
+            code, msg = self._lib.launch(
+                gp.data_ptr(), w.data_ptr(), hits.block_start.data_ptr(),
+                hits.n.data_ptr(), hits.m.data_ptr(), dx.data_ptr(),
+                _DTYPE_CODES[gp.dtype], int(hits.inv is not None), b, ha, wa,
+                k, cin, cout, *hits.kernel, stream,
+            )
+        if code != 0:
+            raise RuntimeError(
+                f"band dx kernel launch failed (code {code}): {msg}; gp "
+                f"{tuple(gp.shape)} {gp.dtype}, w {tuple(w.shape)}, band "
+                f"{hits.band}"
+            )
+        self.launches += 1
+        return pass_order(dx, hits)
+
+
 #: The one wrapper the port launches the forward kernel through.
 band_gemm_fwd = BandGemmForwardKernel()
-#: The input gradient: the same library in its linear mode, counted apart.
-band_gemm_dx = BandGemmInputGradKernel(band_gemm_fwd)
+#: The one wrapper the port launches the input-gradient kernel through.
+band_gemm_dx = BandGemmInputGradKernel()

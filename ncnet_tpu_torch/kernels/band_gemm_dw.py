@@ -1,5 +1,6 @@
-"""Wrapper of the hand-written Hopper kernel for the sparse-band NC layer's
-weight gradient.
+"""Wrapper of the hand-written Hopper kernels for the sparse-band NC layer's
+weight gradient, and of the hit list that it and the layer's input
+gradient (`ncnet_tpu_torch.kernels.band_gemm.band_gemm_dx`) read.
 
 Replaces the dw half of ``ncnet_tpu/kernels/band_gemm_pallas.py::_bwd``
 (the custom VJP of the TPU kernel ``_fused_kernel``, where dw is the
@@ -10,14 +11,17 @@ from the repository's source on first use and bound through ``ctypes``:
     dw[t, c, o] = sum over the hits (b, n, m) of tap t of x[b, m, c] * gp[b, n, o]
 
 The kernel derives the hits from the band's indices as the forward kernel
-does; no pointer table exists. `BandGemmWeightGradKernel.hit_list` lists
-them by tap once per pass geometry (a counting sort: counts, prefix sums,
-fill, all in a fixed order; 8 bytes a hit) and cuts each tap's run into
-segments of at most `SEGMENT` hits; each layer's dw sums every segment in
-a block, then each tap's segments in order, float32 sums rounded once to
-the activation dtype: two calls are bitwise equal. What bounds it on the
-card: the hits' derivation and the gathers of the hit rows, not the FLOPs
-(see the source's header).
+does, through a bitmap of the band's cells; no pointer table exists.
+`BandGemmWeightGradKernel.hit_list` lists them once per pass geometry by
+tap, then output A cell (block), then slot (a counting sort: counts,
+prefix sums, fill, all in a fixed order; 8 bytes a hit; every offset into
+the list int64), and keeps the offsets of every (tap, block) run, which
+dx reads. dw cuts the list evenly into
+segments of `SEGMENT` hits on the device, sums each tap's piece of a
+segment in a block, then each tap's pieces in order: float32 sums rounded
+once to the activation dtype, two calls bitwise equal. Routes: bfloat16 at
+16 -> 16 channels on the tensor cores (``mma.sync``), float32 and the
+narrow layers on FFMA (see the source's header).
 
 The wrapper takes CUDA tensors only: `ncnet_tpu_torch.ops.band` routes CPU
 tensors to the plain PyTorch version (`band_dw_plain`), and nothing here
@@ -29,59 +33,89 @@ import math
 import os
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ncnet_tpu_torch.kernels import _build
 
 SOURCE = os.path.join(_build.CSRC, "band_gemm_dw.cu")
 MAX_CHANNELS = 16  # cin and cout
-MAX_TAPS = 9**4
-#: the most hits one block of the dw kernel sums (a tap's run is cut into
-#: segments of this length, so the centre tap's B*N hits spread over many
-#: blocks)
+MAX_OFFSETS = 9 * 9  # offsets in each grid: k1 * k2 and k3 * k4
+#: the hits one block of the dw kernel sums: the list is cut evenly into
+#: segments of this length, whatever taps they span
 SEGMENT = 4096
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class BandHits(NamedTuple):
-    """The hits of one pass geometry for one kernel size, by tap.
+    """The hits of one pass geometry for one kernel size, by tap, then
+    output A cell (block ``b * hA * wA + a``), then slot.
 
-    ``tap_start`` ``[T + 1]`` int32: tap t's hits are ``[tap_start[t],
-    tap_start[t + 1])``; ``n`` and ``m`` ``[H]`` int32: the output row and
-    the input row of each hit, flattened over the batch (``b * N + row``,
-    rows in the pass's entry order); ``kernel`` ``(k1, k2, k3, k4)``;
-    ``rows`` ``b * N``; ``segments`` the dw kernel's cut of the list
-    (`segments`), None where no kernel will read it.
+    ``tap_start`` ``[T + 1]`` int64: tap t's hits are ``[tap_start[t],
+    tap_start[t + 1])``; ``n`` and ``m`` ``[H]`` int32: the output entry
+    and the input entry of each hit, cell-major on both passes and
+    flattened over the batch (``b * N + a * K + slot``); ``kernel`` ``(k1,
+    k2, k3, k4)``; ``block_start`` ``[T * b*hA*wA + 1]`` int64: run (tap t, block blk) is ``[block_start[t * nblk + blk],
+    block_start[t * nblk + blk + 1])``; ``band`` ``(b, hA, wA, K)``;
+    ``inv`` and ``perm`` the symmetric pass's B-major order
+    (`ncnet_tpu_torch.ops.band.b_major_order`, int32 ``[b, N]``: the pass's
+    row of entry e is ``inv[e]``), None on the plain pass. The kernels take
+    cell-major rows; `cell_major` and `pass_order` move a tensor between
+    the pass's order and theirs.
     """
 
     tap_start: torch.Tensor
     n: torch.Tensor
     m: torch.Tensor
     kernel: tuple
-    rows: int
-    segments: Optional[tuple] = None
+    block_start: torch.Tensor
+    band: tuple
+    inv: Optional[torch.Tensor] = None
+    perm: Optional[torch.Tensor] = None
 
     @property
     def count(self):
         return int(self.n.numel())
 
+    @property
+    def rows(self):
+        """``b * N``: the entries of the band."""
+        return math.prod(self.band)
 
-def segments(tap_start, device, length=SEGMENT):
-    """The dw kernel's cut of a hit list: ``(lo, hi, first)`` int32 tensors
-    on ``device``, segment s holding the hits ``[lo[s], hi[s])`` of one
-    tap, at most ``length`` of them, and tap t's segments ``[first[t],
-    first[t + 1])``, in tap order. ``tap_start`` is the list's ``[T + 1]``
-    offsets as numpy."""
-    start = np.asarray(tap_start, dtype=np.int64)
-    count = np.diff(start)
-    n_seg = -(-count // length)
-    first = np.concatenate([[0], np.cumsum(n_seg)])
-    tap = np.repeat(np.arange(count.size), n_seg)
-    lo = start[tap] + (np.arange(first[-1]) - first[tap]) * length
-    hi = np.minimum(lo + length, start[tap + 1])
-    return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
-                 for a in (lo, hi, first))
+
+def cell_major(t, hits):
+    """``t`` ``[b, N, c]`` in the pass's entry order, in cell-major order:
+    itself on the plain pass, gathered through ``inv`` on the symmetric
+    pass."""
+    if hits.inv is None:
+        return t
+    return torch.gather(t, 1, hits.inv.long()[..., None].expand(-1, -1, t.shape[2]))
+
+
+def pass_order(t, hits):
+    """The inverse of `cell_major`: cell-major ``t`` in the pass's order."""
+    if hits.perm is None:
+        return t
+    return torch.gather(t, 1, hits.perm.long()[..., None].expand(-1, -1, t.shape[2]))
+
+
+def segments(tap_start, length=SEGMENT):
+    """The dw kernel's cut of a hit list, in plain PyTorch: ``(lo, hi,
+    tap, piece)`` int64 ``[P]``, one row a piece (the hits ``[lo, hi)`` of
+    tap ``tap`` within segment ``s = lo // length``, whose sum goes to
+    partial row ``piece = s + tap``), in list order. ``tap_start`` is the
+    list's ``[T + 1]`` offsets."""
+    start = torch.as_tensor(tap_start, dtype=torch.int64)
+    first, last = start[:-1], start[1:]
+    live = torch.nonzero(last > first).flatten()
+    s0 = torch.div(first[live], length, rounding_mode="floor")
+    s1 = torch.div(last[live] - 1, length, rounding_mode="floor")
+    per_tap = s1 - s0 + 1
+    tap = torch.repeat_interleave(live, per_tap)
+    seg = (torch.repeat_interleave(s0 - (per_tap.cumsum(0) - per_tap), per_tap)
+           + torch.arange(tap.numel()))
+    lo = torch.maximum(seg * length, start[tap])
+    hi = torch.minimum((seg + 1) * length, start[tap + 1])
+    return lo, hi, tap, seg + tap
 
 
 class BandGemmWeightGradKernel:
@@ -89,12 +123,13 @@ class BandGemmWeightGradKernel:
 
     ``x``: CUDA ``[b, N, cin]`` float32 or bfloat16, the layer's input
     entries; ``gp``: ``[b, N, cout]`` of x's dtype, the ReLU-masked output
-    cotangent; both contiguous, in the pass's entry order. ``hits``: the
-    pass's `BandHits` (`hit_list`). Returns ``[k1, k2, k3, k4, cin, cout]``
-    in x's dtype, each float32 sum rounded once.
+    cotangent; both contiguous, in the pass's entry order (on the symmetric
+    pass they are gathered into the kernel's cell-major order first).
+    ``hits``: the pass's `BandHits` (`hit_list`). Returns ``[k1, k2, k3,
+    k4, cin, cout]`` in x's dtype, each float32 sum rounded once.
 
     ``launches`` counts the dw launches; ``hit_builds`` the hit lists built
-    (each three launches of counting and one of filling).
+    (each four launches of counting and offsets, then one of filling).
     """
 
     def __init__(self):
@@ -102,11 +137,11 @@ class BandGemmWeightGradKernel:
         self.hit_builds = 0
         self._lib = _build.KernelLibrary(
             SOURCE, "band_gemm_dw", "band_gemm_dw",
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         )
         self._hits = _build.KernelLibrary(
             SOURCE, "band_gemm_dw", "band_hits",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
         )
 
     def load(self):
@@ -123,7 +158,9 @@ class BandGemmWeightGradKernel:
     @staticmethod
     def check_band(indices, grid_b, kernel, inv=None):
         """Raise ValueError/TypeError on a band the hit list does not take
-        (the device last, so the sizes can be checked on any device)."""
+        (the device last, so the sizes can be checked on any device). The
+        number of hits is bounded by memory alone: the list's offsets are
+        int64, and its length is read back before it is allocated."""
         if indices.dim() != 4 or indices.dtype != torch.int32:
             raise TypeError(
                 f"band dw kernel takes int32 indices [b,hA,wA,K], got "
@@ -133,9 +170,12 @@ class BandGemmWeightGradKernel:
         hb, wb = (int(d) for d in grid_b)
         if len(kernel) != 4 or any(int(d) < 1 or int(d) % 2 == 0 for d in kernel):
             raise ValueError(f"band dw kernel takes odd kernel sizes, got {kernel}")
-        taps = math.prod(int(d) for d in kernel)
-        if taps > MAX_TAPS:
-            raise ValueError(f"band dw kernel takes at most {MAX_TAPS} taps, got {taps}")
+        k1, k2, k3, k4 = (int(d) for d in kernel)
+        taps = k1 * k2 * k3 * k4
+        if k1 * k2 > MAX_OFFSETS or k3 * k4 > MAX_OFFSETS:
+            raise ValueError(
+                f"band dw kernel takes at most {MAX_OFFSETS} offsets in each "
+                f"grid (k1*k2, k3*k4), got kernel {kernel}")
         if not 1 <= k <= hb * wb or hb >= 2**15 or wb >= 2**16:
             raise ValueError(
                 f"band width K={k} must be in [1, hB*wB] for the B grid "
@@ -150,15 +190,10 @@ class BandGemmWeightGradKernel:
             )
         if not (indices.is_contiguous() and (inv is None or inv.is_contiguous())):
             raise ValueError("band dw kernel takes contiguous indices and inv")
+        # hit rows b * N + row stay int32
         nblk = b * ha * wa
         if b > 65535 or nblk * k >= 2**31 or taps * nblk >= 2**31:
             raise ValueError(f"band {tuple(indices.shape)} exceeds the launch grid")
-        # the hit list's offsets are int32: an entry has at most one hit a tap
-        if nblk * k * taps >= 2**31:
-            raise ValueError(
-                f"band {tuple(indices.shape)} with {taps} taps may hold "
-                f"{nblk * k * taps} hits, past the hit list's int32 offsets"
-            )
         if not indices.is_cuda:
             raise ValueError(
                 "band dw kernel takes CUDA tensors; CPU tensors go through "
@@ -167,41 +202,59 @@ class BandGemmWeightGradKernel:
 
     def hit_list(self, indices, grid_b, kernel, inv=None):
         """The pass's `BandHits` for ``kernel``: the plain pass without
-        ``inv``, the symmetric pass (B-major rows) with it. One host sync
-        reads the number of hits before the list is allocated."""
+        ``inv``, the symmetric pass (B-major rows) with it. ``indices``
+        must be strictly ascending per A cell, as `ncnet_tpu_torch.ops.
+        band.topk_band` gives them. One host sync reads the number of hits
+        before the list is allocated."""
         kernel = tuple(int(d) for d in kernel)
         self.check_band(indices, grid_b, kernel, inv)
         b, ha, wa, k = indices.shape
         hb, wb = (int(d) for d in grid_b)
         taps = math.prod(kernel)
         dev = indices.device
-        counts = torch.empty(taps * b * ha * wa, dtype=torch.int32, device=dev)
-        tap_start = torch.empty(taps + 1, dtype=torch.int32, device=dev)
-        args = (b, ha, wa, hb, wb, k, *kernel)
-        inv_ptr = None if inv is None else inv.data_ptr()
+        # the band's bitmap and its ranks, a row of ceil(hB*wB / 32) words
+        # a cell
+        words = b * ha * wa * (-(-hb * wb // 32))
+        bits = torch.empty(words, dtype=torch.int32, device=dev)
+        rank = torch.empty(words, dtype=torch.int32, device=dev)
+        offsets = torch.empty(taps * b * ha * wa + 1, dtype=torch.int64, device=dev)
+        # [T + 1] offsets, then a flag the kernel sets on an unsorted band
+        tap_start = torch.empty(taps + 2, dtype=torch.int64, device=dev)
+        args = (int(inv is not None), b, ha, wa, hb, wb, k, *kernel)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code, msg = self._hits.launch(
-                indices.data_ptr(), inv_ptr, counts.data_ptr(),
-                tap_start.data_ptr(), None, None, 0, *args, stream)
+                indices.data_ptr(), bits.data_ptr(), rank.data_ptr(),
+                offsets.data_ptr(), tap_start.data_ptr(), None, None, 0,
+                *args, stream)
             if code == 0:
-                start = tap_start.cpu().numpy()
-                total = int(start[taps])
+                total, unsorted = tap_start[taps:].tolist()
+                if unsorted:
+                    raise ValueError(
+                        f"band indices {tuple(indices.shape)} must be strictly "
+                        f"ascending in [0, {hb * wb}) per A cell")
+                # 8 bytes a hit: past memory the allocator raises, naming it
                 hit_n = torch.empty(total, dtype=torch.int32, device=dev)
                 hit_m = torch.empty(total, dtype=torch.int32, device=dev)
                 if total:
                     code, msg = self._hits.launch(
-                        indices.data_ptr(), inv_ptr, counts.data_ptr(),
-                        tap_start.data_ptr(), hit_n.data_ptr(),
-                        hit_m.data_ptr(), 1, *args, stream)
+                        indices.data_ptr(), bits.data_ptr(), rank.data_ptr(),
+                        offsets.data_ptr(), tap_start.data_ptr(),
+                        hit_n.data_ptr(), hit_m.data_ptr(), 1, *args, stream)
         if code != 0:
             raise RuntimeError(
                 f"band hit-list launch failed (code {code}): {msg}; indices "
                 f"{tuple(indices.shape)}, grid_b {(hb, wb)}, kernel {kernel}"
             )
+        perm = None
+        if inv is not None:
+            n = ha * wa * k
+            perm = torch.empty_like(inv).scatter_(
+                1, inv.long(), torch.arange(n, dtype=torch.int32,
+                                            device=dev).expand(b, n))
         self.hit_builds += 1
-        return BandHits(tap_start, hit_n, hit_m, kernel, b * ha * wa * k,
-                        segments(start, dev))
+        return BandHits(tap_start[:taps + 1], hit_n, hit_m, kernel, offsets,
+                        (b, ha, wa, k), inv, perm)
 
     @staticmethod
     def check(x, gp, hits):
@@ -218,11 +271,6 @@ class BandGemmWeightGradKernel:
                 f"band dw kernel takes x [b,N,cin] and gp [b,N,cout] over one "
                 f"entry list; got {tuple(x.shape)} and {tuple(gp.shape)}"
             )
-        if x.shape[0] * x.shape[1] != hits.rows:
-            raise ValueError(
-                f"the hit list covers {hits.rows} rows, x {tuple(x.shape)} "
-                f"holds {x.shape[0] * x.shape[1]}"
-            )
         if gp.dtype != x.dtype or gp.device != x.device:
             raise ValueError(
                 f"gp must share x's dtype and device ({x.dtype}, {x.device}); "
@@ -237,25 +285,27 @@ class BandGemmWeightGradKernel:
             raise ValueError("band dw kernel takes contiguous x and gp")
         if hits.tap_start.device != x.device:
             raise ValueError(f"the hit list is on {hits.tap_start.device}, x on {x.device}")
-        if hits.segments is None:
-            raise ValueError("the hit list has no segments: build it with "
-                             "band_gemm_dw.hit_list")
+        b, ha, wa, k = hits.band
+        if tuple(x.shape[:2]) != (b, ha * wa * k):
+            raise ValueError(f"the hit list is for a band {hits.band}, x is "
+                             f"{tuple(x.shape)}")
 
     def __call__(self, x, gp, hits):
         self.check(x, gp, hits)
+        x, gp = aligned(cell_major(x, hits)), aligned(cell_major(gp, hits))
         cin, cout = x.shape[2], gp.shape[2]
         taps = math.prod(hits.kernel)
-        lo, hi, first = hits.segments
+        n_seg = -(-hits.count // SEGMENT)
         dw = torch.empty((*hits.kernel, cin, cout), dtype=x.dtype, device=x.device)
-        partial = torch.empty((lo.numel(), cin * cout), dtype=torch.float32,
+        partial = torch.empty((n_seg + taps, cin * cout), dtype=torch.float32,
                               device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             code, msg = self._lib.launch(
-                x.data_ptr(), gp.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                first.data_ptr(), hits.n.data_ptr(), hits.m.data_ptr(),
-                partial.data_ptr(), dw.data_ptr(), _DTYPE_CODES[x.dtype],
-                lo.numel(), taps, cin, cout, stream,
+                x.data_ptr(), gp.data_ptr(), hits.tap_start.data_ptr(),
+                hits.n.data_ptr(), hits.m.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), _DTYPE_CODES[x.dtype], n_seg, taps, cin, cout,
+                SEGMENT, stream,
             )
         if code != 0:
             raise RuntimeError(
@@ -265,6 +315,13 @@ class BandGemmWeightGradKernel:
             )
         self.launches += 1
         return dw
+
+
+def aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (a view into a larger tensor): the kernels read whole rows as
+    16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 #: The one wrapper the port launches the kernel through.

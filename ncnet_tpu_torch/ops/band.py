@@ -23,12 +23,12 @@ its gradients have two versions over a `BandGeometry`, as
   (`band_taps` mirrors its derivation in plain PyTorch for the tests);
 * input gradient — `band_dx_plain` (the same gather-GEMM of the masked
   cotangent with ``flip(w)^T`` over the same table) and
-  `ncnet_tpu_torch.kernels.band_gemm.band_gemm_dx` (the forward kernel in
-  its linear mode);
+  `ncnet_tpu_torch.kernels.band_gemm.band_gemm_dx` over the geometry's
+  hit list (`band_dx_hits_plain` mirrors its order of work for the
+  tests);
 * weight gradient — `band_dw_plain` (a per-tap gather and product over the
   table, float32) and `ncnet_tpu_torch.kernels.band_gemm_dw.band_gemm_dw`
-  over the geometry's hit list (`band_hits_plain` mirrors it for the
-  tests).
+  over the same hit list (`band_hits_plain` mirrors it for the tests).
 
 `band_layer` is `BandLayerFunction`, which dispatches each of them on the
 tensor's device only: a CPU tensor takes the plain versions, a CUDA tensor
@@ -41,7 +41,12 @@ import torch
 import torch.nn.functional as F
 
 from ncnet_tpu_torch.kernels.band_gemm import band_gemm_dx, band_gemm_fwd
-from ncnet_tpu_torch.kernels.band_gemm_dw import BandHits, band_gemm_dw
+from ncnet_tpu_torch.kernels.band_gemm_dw import (
+    BandHits,
+    band_gemm_dw,
+    cell_major,
+    pass_order,
+)
 from ncnet_tpu_torch.kernels.conv4d import flip_transpose
 
 #: the largest B grid the mutual rank key ``min(ra, rb) * nb + ra`` takes
@@ -285,25 +290,86 @@ def band_taps(indices, grid_b, kernel, swapped=False):
 
 
 def band_hits_plain(indices, grid_b, kernel, inv=None):
-    """The weight-gradient kernel's hit list in plain PyTorch (a test
-    oracle, no path runs it): `band_taps` sorted stably by tap, rows
-    flattened over the batch and, on the symmetric pass (``inv`` given),
-    relabelled B-major. Equal, element for element, to
-    `BandGemmWeightGradKernel.hit_list`."""
+    """The hit list of the backward kernels in plain PyTorch (a test
+    oracle, no path runs it): `band_taps` of the pass (the symmetric pass
+    with ``inv`` given) sorted stably by tap (so by output block, then
+    slot, within a tap), entries cell-major and flattened over the batch;
+    with int64 offsets of every tap and every (tap, block) run. Equal,
+    element for element, to `BandGemmWeightGradKernel.hit_list`."""
     kernel = tuple(int(d) for d in kernel)
     b, ha, wa, k = indices.shape
     n = ha * wa * k
+    taps, nblk = math.prod(kernel), b * ha * wa
     bi, entry, tap, cell = band_taps(indices, grid_b, kernel,
                                      swapped=inv is not None)
+    runs = torch.bincount(tap * nblk + bi * (ha * wa) + entry // k,
+                          minlength=taps * nblk)
+    block_start = torch.cat([runs.new_zeros(1), runs.cumsum(0)])
+    perm = None
     if inv is not None:
-        inv = inv.long()
-        entry, cell = inv[bi, entry], inv[bi, cell]
+        inv = inv.to(torch.int32)
+        perm = torch.argsort(inv.long(), dim=1).to(torch.int32)
     order = torch.argsort(tap, stable=True)
-    counts = torch.bincount(tap, minlength=math.prod(kernel))
-    tap_start = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
-    return BandHits(tap_start.to(torch.int32),
+    return BandHits(block_start[::nblk].clone(),
                     (bi * n + entry)[order].to(torch.int32),
-                    (bi * n + cell)[order].to(torch.int32), kernel, b * n)
+                    (bi * n + cell)[order].to(torch.int32), kernel,
+                    block_start, (b, ha, wa, k), inv, perm)
+
+
+def tap_a_shifts(kernel, swapped=False):
+    """``[T, 2]`` int64: the A-grid shift ``(di, dj)`` of each tap of the
+    pass (row-major over ``kernel``; the A offsets are ``(d1, d2)``, or
+    ``(d3, d4)`` on the symmetric pass, less the kernel's half-width). The
+    hits of tap t from output A cell a read input rows of A cell a +
+    shift."""
+    kernel = tuple(int(d) for d in kernel)
+    d = torch.stack(torch.meshgrid(*(torch.arange(s) for s in kernel),
+                                   indexing="ij"), -1).reshape(-1, 4)
+    a = slice(2, 4) if swapped else slice(0, 2)
+    return d[:, a] - torch.tensor(kernel[a]) // 2
+
+
+def band_dx_hits_plain(gp, w, hits):
+    """The input-gradient kernel's order of work in plain PyTorch (a test
+    oracle, no path runs it; `band_dx_plain` is the reference): ``gp`` in
+    the pass's order, gathered cell-major (`cell_major`); for each input A
+    cell a' of each sample, the taps in order, each tap's run (t, block a'
+    - shift_A(t)) of ``hits`` (`band_hits_plain` or the card's list, read
+    through its per-(tap, block) offsets) adds each hit's ``gp[n] @
+    w[t]^T`` at the slot of its input entry m within cell a', in float32;
+    every row of the cell is written once, rounded once to gp's dtype, and
+    the result returned in the pass's order. Raises AssertionError where a
+    run's input entries leave its cell."""
+    b, ha, wa, k = hits.band
+    n_rows = ha * wa * k
+    taps, nblk = math.prod(hits.kernel), b * ha * wa
+    cin, cout = w.shape[4:]
+    wt = w.reshape(taps, cin, cout).float()
+    g = cell_major(gp, hits).reshape(-1, cout).float()
+    acc = torch.zeros(b, ha, wa, k, cin)  # [b, a', slot, c]
+    shifts = tap_a_shifts(hits.kernel, hits.inv is not None)
+    ia1 = torch.arange(ha)[:, None].expand(ha, wa)
+    ja1 = torch.arange(wa)[None, :].expand(ha, wa)
+    local = torch.arange(b * n_rows) % n_rows  # entries are cell-major
+    for t in range(taps):
+        ia, ja = ia1 - shifts[t, 0], ja1 - shifts[t, 1]
+        on = (ia >= 0) & (ia < ha) & (ja >= 0) & (ja < wa)
+        cells = torch.nonzero(on)  # output cells a' whose run exists
+        if not len(cells):
+            continue
+        bb = torch.arange(b).repeat_interleave(len(cells))
+        ci, cj = cells[:, 0].repeat(b), cells[:, 1].repeat(b)
+        blk = t * nblk + bb * (ha * wa) + (ci - shifts[t, 0]) * wa + cj - shifts[t, 1]
+        lo, hi = hits.block_start[blk], hits.block_start[blk + 1]
+        size = hi - lo
+        which = torch.repeat_interleave(torch.arange(len(blk)), size)
+        h = (torch.repeat_interleave(lo - (size.cumsum(0) - size), size)
+             + torch.arange(int(size.sum())))
+        m, nn = hits.m[h].long(), hits.n[h].long()
+        slot = local[m] - (ci * wa + cj)[which] * k
+        assert bool(((slot >= 0) & (slot < k)).all()), "a run left its cell"
+        acc[bb[which], ci[which], cj[which], slot] += g[nn] @ wt[t].t()
+    return pass_order(acc.reshape(b, n_rows, cin).to(gp.dtype), hits)
 
 
 class BandGeometry:
@@ -312,9 +378,9 @@ class BandGeometry:
     for the symmetric pass the B-major order (``perm``, ``inv`` from
     `b_major_order`; kept as int32, the kernel's index type).
 
-    The plain versions' pointer tables and the weight-gradient kernel's hit
-    lists are built on first use, once per kernel size, and cached here;
-    the card's forward and input-gradient kernels build neither.
+    The plain versions' pointer tables and the backward kernels' hit lists
+    are built on first use, once per kernel size, and cached here; the
+    card's forward kernel builds neither.
     """
 
     def __init__(self, indices, grid_b, perm=None, inv=None):
@@ -346,8 +412,8 @@ class BandGeometry:
 
     def hits(self, kernel):
         """The pass's `BandHits` for ``kernel`` from the card's hit-list
-        kernel (`BandGemmWeightGradKernel.hit_list`), shared by every layer
-        of that kernel size."""
+        kernel (`BandGemmWeightGradKernel.hit_list`), shared by the dx and
+        dw of every layer of that kernel size."""
         kernel = tuple(int(d) for d in kernel)
         if kernel not in self._hits:
             self._hits[kernel] = band_gemm_dw.hit_list(
@@ -426,11 +492,14 @@ class BandLayerFunction(torch.autograd.Function):
         gp = torch.where(out > 0, gy, 0).contiguous()
         dx = dw = db = None
         card = _on_card(gp)
+        # the pass's hit list, built once before the first of dx and dw
+        hits = (geom.hits(w.shape[:4])
+                if card and any(ctx.needs_input_grad[:2]) else None)
         if ctx.needs_input_grad[0]:
-            dx = (band_gemm_dx(gp, w, geom.indices, geom.grid_b, geom.inv)
-                  if card else band_dx_plain(gp, w, geom))
+            dx = (band_gemm_dx(gp, w, hits) if card
+                  else band_dx_plain(gp, w, geom))
         if ctx.needs_input_grad[1]:
-            dw = (band_gemm_dw(x, gp, geom.hits(w.shape[:4])) if card
+            dw = (band_gemm_dw(x, gp, hits) if card
                   else band_dw_plain(x, gp, geom, w.shape[:4]).to(w.dtype))
         if ctx.needs_input_grad[2]:
             db = gp.sum(dim=(0, 1), dtype=torch.float32).to(ctx.bias_dtype)

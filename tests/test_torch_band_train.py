@@ -24,6 +24,7 @@ from ncnet_tpu.sparse.score import (
 from ncnet_tpu.train import loss as jax_loss
 from ncnet_tpu.train import step as jax_step
 from ncnet_tpu_torch import bridge
+from ncnet_tpu_torch.kernels.band_gemm_dw import cell_major
 from ncnet_tpu_torch.models.immatchnet import ImMatchNetConfig
 from ncnet_tpu_torch.ops import band
 from ncnet_tpu_torch.sparse import sparse_neigh_consensus_apply
@@ -222,8 +223,9 @@ def test_band_layer_gradients_are_the_plain_versions():
         counts = hits.tap_start[1:] - hits.tap_start[:-1]
         assert int(counts.sum()) == int((geom.pointers((3,) * 4) != 48).sum())
         tap = torch.repeat_interleave(torch.arange(81), counts.long())
-        prods = (x.reshape(-1, 3)[hits.m.long()][:, :, None]
-                 * gp.reshape(-1, 5)[hits.n.long()][:, None, :])
+        # the list's entries are cell-major: the pass's rows gathered so
+        xc, gc = (cell_major(t, hits).reshape(-1, t.shape[2]) for t in (x, gp))
+        prods = xc[hits.m.long()][:, :, None] * gc[hits.n.long()][:, None, :]
         from_hits = torch.zeros(81, 3, 5).index_add_(0, tap, prods)
         _close(from_hits.reshape(dw.shape), dw.numpy())
         # the Function, on a cotangent that arrives as an expanded view
@@ -465,20 +467,48 @@ def test_cli_band_training_resumes_with_the_band_kept(tmp_path):
 
 
 def test_dw_segments_cut_each_tap_in_order():
-    """The dw kernel's blocks: each tap's run of hits cut into segments of
-    at most `SEGMENT` hits, in tap order; a tap without hits has none."""
+    """The dw kernel's blocks: the list cut evenly into segments of
+    `SEGMENT` hits, each segment's piece of each tap summed apart into
+    partial row segment + tap; each tap's pieces cover its run in order, a
+    tap without hits has none, and no two pieces share a partial row."""
     from ncnet_tpu_torch.kernels.band_gemm_dw import segments
 
-    start = np.array([0, 5, 5, 13, 20, 20])
-    lo, hi, first = segments(start, "cpu", length=4)
-    assert lo.dtype == hi.dtype == first.dtype == torch.int32
-    assert lo.tolist() == [0, 4, 5, 9, 13, 17]
-    assert hi.tolist() == [4, 5, 9, 13, 17, 20]
-    assert first.tolist() == [0, 2, 2, 4, 6, 6]
+    start = torch.tensor([0, 5, 5, 13, 20, 20])
+    lo, hi, tap, piece = segments(start, length=4)
+    assert lo.dtype == hi.dtype == tap.dtype == piece.dtype == torch.int64
+    assert lo.tolist() == [0, 4, 5, 8, 12, 13, 16]
+    assert hi.tolist() == [4, 5, 8, 12, 13, 16, 20]
+    assert tap.tolist() == [0, 0, 2, 2, 2, 3, 3]
+    assert piece.tolist() == [0, 1, 3, 4, 5, 6, 7]
+    assert bool((hi - lo <= 4).all()) and len(set(piece.tolist())) == len(piece)
     for t in range(len(start) - 1):
-        segs = range(int(first[t]), int(first[t + 1]))
-        covered = [h for s in segs for h in range(int(lo[s]), int(hi[s]))]
+        covered = [h for a, b in zip(lo[tap == t].tolist(), hi[tap == t].tolist())
+                   for h in range(a, b)]
         assert covered == list(range(start[t], start[t + 1]))
+
+
+def test_dw_segments_are_exact_past_int32():
+    """A list past 2^32 hits: every piece's bounds are exact int64, and
+    the pieces tile the list."""
+    from ncnet_tpu_torch.kernels.band_gemm_dw import SEGMENT, segments
+
+    per_tap = torch.tensor([2**31 - 5, 0, 7, 3 * 2**30 + 1], dtype=torch.int64)
+    start = torch.cat([per_tap.new_zeros(1), per_tap.cumsum(0)])
+    assert int(start[-1]) > 2**32
+    lo, hi, tap, piece = segments(start)
+    assert lo.dtype == torch.int64 and int(lo[0]) == 0
+    assert int(hi[-1]) == int(start[-1]) == 2**31 - 5 + 7 + 3 * 2**30 + 1
+    assert torch.equal(lo[1:], hi[:-1])  # contiguous, in list order
+    assert bool((hi > lo).all()) and bool((hi - lo <= SEGMENT).all())
+    # each piece lies in its tap and in its segment; the tap of 7 hits
+    # straddles the boundary at 2^31 - 5 + 7 and is cut nowhere else
+    assert bool((lo >= start[tap]).all()) and bool((hi <= start[tap + 1]).all())
+    seg = torch.div(lo, SEGMENT, rounding_mode="floor")
+    assert torch.equal(seg, torch.div(hi - 1, SEGMENT, rounding_mode="floor"))
+    assert torch.equal(piece, seg + tap)
+    assert lo[tap == 2].tolist() == [2**31 - 5, 2**31]
+    assert hi[tap == 2].tolist() == [2**31, 2**31 + 2]
+    assert 1 not in tap.tolist()
 
 
 def test_band_gradient_wrappers_refuse_what_they_do_not_take():
@@ -487,31 +517,140 @@ def test_band_gradient_wrappers_refuse_what_they_do_not_take():
 
     idx = torch.tensor([[[[0], [1]], [[2], [3]]]], dtype=torch.int32)
     x, w = torch.zeros(1, 4, 1), torch.zeros(3, 3, 3, 3, 1, 1)
+    hits = band.band_hits_plain(idx, (2, 2), (3, 3, 3, 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        band_gemm_dx(x, w, idx, (2, 2))
+        band_gemm_dx(x, w, hits)
     with pytest.raises(ValueError, match="odd sizes"):
-        band_gemm_dx(x, torch.zeros(2, 3, 3, 3, 1, 1), idx, (2, 2))
+        band_gemm_dx(x, torch.zeros(2, 3, 3, 3, 1, 1), hits)
     with pytest.raises(ValueError, match="takes a bias"):
         band_gemm_fwd(x, w, None, idx, (2, 2))
     with pytest.raises(ValueError, match="CUDA tensors"):
         band_gemm_dw.hit_list(idx, (2, 2), (3, 3, 3, 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        band_gemm_dw(x, x, band.band_hits_plain(idx, (2, 2), (3, 3, 3, 3)))
+        band_gemm_dw(x, x, hits)
 
 
-@pytest.mark.parametrize("b, k, refused", [
-    (16, 50, False),  # band training's band: 312.5 M hits at most
-    (16, 625, True),  # the complete band at 400 px: 3.9e9, past int32
-    (24, 625, True),  # 5.9e9, which int32 would wrap back to positive
+@pytest.mark.parametrize("b, k", [
+    (16, 50),   # band training's band: 312.5 M hits at most
+    (16, 625),  # the complete band at 400 px: 3.9e9, past int32
+    (24, 625),  # 5.9e9, which int32 offsets would wrap back to positive
 ])
-def test_band_dw_hit_list_refuses_more_hits_than_int32_offsets_hold(b, k, refused):
-    """The hit list's offsets are int32; a band whose hits may pass 2^31
-    (entries x taps) is refused before anything is allocated. Meta tensors
-    carry the shapes without their memory; a band that passes the sizes
-    reaches the device check."""
+def test_band_dw_hit_list_takes_bands_past_int32_offsets(b, k):
+    """The hit list's offsets are int64: no band is refused for the number
+    of hits it may hold (memory bounds it, read back before the list is
+    allocated). Meta tensors carry the shapes without their memory; each
+    band passes the size checks and reaches the device check."""
     from ncnet_tpu_torch.kernels.band_gemm_dw import band_gemm_dw
 
     idx = torch.empty(b, 25, 25, k, dtype=torch.int32, device="meta")
-    match = "int32 offsets" if refused else "CUDA tensors"
-    with pytest.raises(ValueError, match=match):
+    assert b * 625 * k * 625 > 2**31 or k == 50
+    with pytest.raises(ValueError, match="CUDA tensors"):
         band_gemm_dw.hit_list(idx, (25, 25), (5, 5, 5, 5))
+
+
+HIT_CASES = [
+    # (b, hA, wA, hB, wB, K, ksize)
+    (2, 4, 4, 4, 4, 5, 3),
+    (1, 3, 5, 4, 2, 3, 3),
+    (1, 4, 3, 3, 4, 12, 3),  # complete band
+    (1, 5, 4, 3, 5, 4, 5),   # kernel wider than a grid
+]
+
+
+@pytest.mark.parametrize("swapped", [False, True])
+@pytest.mark.parametrize("case", range(len(HIT_CASES)))
+def test_band_hits_plain_offsets_are_int64_and_count_jax_pointers(case, swapped):
+    """`band_hits_plain`: int64 offsets of every tap and every (tap, output
+    block) run, each run's length the non-null pointers of JAX's table at
+    that tap from that A cell; the hits are that table's (entries
+    cell-major), listed by tap, then block, then slot; and every run reads
+    one A cell, its block's shifted by the tap's A offset (the run
+    property dx is built on)."""
+    b, ha, wa, hb, wb, k, ks = HIT_CASES[case]
+    _, idx = _band(np.random.RandomState(30 + case), b, ha, wa, hb, wb, k)
+    kernel = (ks,) * 4
+    taps, nblk, n = ks**4, b * ha * wa, ha * wa * k
+    tidx = torch.from_numpy(idx)
+    geom = band.BandGeometry(tidx, (hb, wb),
+                             *(band.b_major_order(tidx) if swapped else ()))
+    hits = band.band_hits_plain(tidx, (hb, wb), kernel, geom.inv)
+    assert hits.tap_start.dtype == hits.block_start.dtype == torch.int64
+    assert hits.block_start.shape == (taps * nblk + 1,)
+    assert torch.equal(hits.block_start[::nblk], hits.tap_start)
+    # JAX's table over the pass's rows: [b, N, T], null N; on the symmetric
+    # pass row r is cell-major entry perm[r], of A cell perm[r] // K
+    ptr = np.array(_jax_pointers(idx, (hb, wb), kernel, swapped))
+    cell_of_row = (geom.perm.long().numpy() if swapped
+                   else np.broadcast_to(np.arange(n), (b, n))) // k
+    runs = np.zeros((taps, b, ha * wa), np.int64)
+    for bi in range(b):
+        for t in range(taps):
+            live = ptr[bi, :, t] != n
+            np.add.at(runs[t, bi], cell_of_row[bi][live], 1)
+    np.testing.assert_array_equal(np.diff(hits.block_start.numpy()), runs.reshape(-1))
+    # the hits: (n, m) of every non-null pointer, entries cell-major and
+    # flattened over the batch; the table's rows are the pass's (row of
+    # entry e: inv[e] on the symmetric pass)
+    ent_n, ent_m = hits.n.long().numpy(), hits.m.long().numpy()
+    assert ent_n.size == int((ptr != n).sum())
+    row_of = (geom.inv.long().numpy() if swapped
+              else np.broadcast_to(np.arange(n), (b, n)))
+    tap = torch.repeat_interleave(torch.arange(taps), torch.diff(hits.tap_start)).numpy()
+    got = set(zip((ent_n // n * n + row_of.reshape(-1)[ent_n]).tolist(),
+                  (ent_m // n * n + row_of.reshape(-1)[ent_m]).tolist(), tap.tolist()))
+    bi_, r_, t_ = np.nonzero(ptr != n)
+    want = set(zip((bi_ * n + r_).tolist(), (bi_ * n + ptr[bi_, r_, t_]).tolist(),
+                   t_.tolist()))
+    assert got == want
+    # the run property, and slot order within a run
+    shifts = band.tap_a_shifts(kernel, swapped).numpy()
+    starts = hits.block_start.numpy()
+    for r in np.nonzero(np.diff(starts))[0]:
+        t, blk = divmod(int(r), nblk)
+        a = blk % (ha * wa)
+        h = slice(starts[r], starts[r + 1])
+        assert (ent_n[h] % n // k == a).all()
+        want_cell = (a // wa + shifts[t, 0]) * wa + a % wa + shifts[t, 1]
+        assert (ent_m[h] % n // k == want_cell).all()
+        assert (np.diff(ent_n[h]) > 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("swapped", [False, True])
+@pytest.mark.parametrize("case", range(len(LAYER_CASES)))
+def test_band_dx_over_the_hit_list_matches_jax(case, swapped, dtype):
+    """The dx kernel's order of work (`band_dx_hits_plain`: per output A
+    cell, the taps in order, each tap's run of the hit list read through
+    the per-(tap, block) offsets) against ``jax.vjp`` of the JAX band
+    layer's input gradient."""
+    b, ha, wa, hb, wb, k, ks, cin, cout = LAYER_CASES[case]
+    rng = np.random.RandomState(10 + case)
+    _, idx = _band(rng, b, ha, wa, hb, wb, k)
+    n = ha * wa * k
+    kernel = (ks,) * 4
+    x = rng.randn(b, n, cin).astype(np.float32)
+    w = (rng.randn(*kernel, cin, cout) * 0.2).astype(np.float32)
+    bias = (rng.randn(cout) * 0.1).astype(np.float32)
+    gy = rng.randn(b, n, cout).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ptr = _jax_pointers(idx, (hb, wb), kernel, swapped)
+    jw, jb = jnp.asarray(w).astype(jdt), jnp.asarray(bias).astype(jdt)
+
+    def jax_layer(xx):
+        return jax.nn.relu(jnc._band_conv(xx, jw, ptr) + jb.astype(xx.dtype))
+
+    out, vjp = jax.vjp(jax_layer, jnp.asarray(x).astype(jdt))
+    jgy = jnp.asarray(gy).astype(jdt)
+    (want_dx,) = vjp(jgy)
+
+    tdt = getattr(torch, dtype)
+    tidx = torch.from_numpy(idx)
+    geom = band.BandGeometry(tidx, (hb, wb),
+                             *(band.b_major_order(tidx) if swapped else ()))
+    hits = band.band_hits_plain(tidx, (hb, wb), kernel, geom.inv)
+    gp = torch.from_numpy(np.array(jnp.where(out > 0, jgy, 0).astype(jnp.float32)))
+    got = band.band_dx_hits_plain(gp.to(tdt), torch.from_numpy(w).to(tdt), hits)
+    assert got.dtype == tdt and got.shape == (b, n, cin)
+    # bfloat16: both round dx once from float32 sums in other orders
+    rtol, atol = (RTOL, ATOL) if dtype == "float32" else (2e-2, 2e-2)
+    _close(got, np.asarray(want_dx.astype(jnp.float32)), rtol, atol)

@@ -20,6 +20,7 @@ from ncnet_tpu_torch.ops.band import (
     BandGeometry,
     b_major_order,
     band_dw_plain,
+    band_dx_hits_plain,
     band_dx_plain,
     band_hits_plain,
     band_layer,
@@ -577,8 +578,9 @@ def _band_grad_inputs(case, dtype, device):
 def test_band_dx_kernel_matches_plain(card, case, dtype):
     dt = getattr(torch, dtype)
     x, w, gp, geom = _band_grad_inputs(case, dt, card)
+    hits = geom.hits(tuple(w.shape[:4]))
     before = band_gemm_dx.launches, band_gemm_fwd.launches
-    got = band_gemm_dx(gp, w, geom.indices, geom.grid_b, geom.inv)
+    got = band_gemm_dx(gp, w, hits)
     torch.cuda.synchronize()
     assert (band_gemm_dx.launches, band_gemm_fwd.launches) == (before[0] + 1,
                                                                before[1])
@@ -586,13 +588,13 @@ def test_band_dx_kernel_matches_plain(card, case, dtype):
     want = band_dx_plain(gp.float(), w.float(), geom)
     err = float((got.float() - want).abs().max())
     scale = float(want.abs().max())
-    # the forward kernel's sums in linear mode: float32 sums of up to
-    # k^4*cout products in other orders; bfloat16 rounds the sum once
-    # (2^-8 relative) where the plain float32 reference does not
+    # float32 sums of up to k^4*cout products in other orders; bfloat16
+    # rounds the sum once (2^-8 relative) where the plain float32
+    # reference does not
     tol = 1e-5 if dtype == "float32" else 1e-2
     assert err <= tol * scale, (err, scale)
-    assert torch.equal(band_gemm_dx(gp, w, geom.indices, geom.grid_b, geom.inv),
-                       got)
+    # each row's taps are summed in a fixed order, no atomics
+    assert torch.equal(band_gemm_dx(gp, w, hits), got)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -602,10 +604,13 @@ def test_band_dw_kernel_matches_plain(card, case, dtype):
     x, w, gp, geom = _band_grad_inputs(case, dt, card)
     kernel = tuple(w.shape[:4])
     hits = geom.hits(kernel)
-    # the hit list is the plain derivation's, element for element
+    # the hit list is the plain derivation's, element for element, its
+    # offsets too
     want_hits = band_hits_plain(geom.indices, geom.grid_b, kernel, geom.inv)
-    for got_t, want_t in zip(hits[:3], want_hits[:3]):
-        assert torch.equal(got_t, want_t)
+    for name in ("tap_start", "n", "m", "block_start", "inv", "perm"):
+        got_t, want_t = getattr(hits, name), getattr(want_hits, name)
+        assert (got_t is None and want_t is None) or torch.equal(got_t, want_t), name
+    assert hits.tap_start.dtype == hits.block_start.dtype == torch.int64
     before = band_gemm_dw.launches
     got = band_gemm_dw(x, gp, hits)
     torch.cuda.synchronize()
@@ -621,7 +626,8 @@ def test_band_dw_kernel_matches_plain(card, case, dtype):
     assert err <= tol * scale, (err, scale)
     # the list and the sums have a fixed order, no atomics on floats
     again = band_gemm_dw.hit_list(geom.indices, geom.grid_b, kernel, geom.inv)
-    assert all(torch.equal(a, b) for a, b in zip(again[:3], hits[:3]))
+    assert all(torch.equal(getattr(again, f), getattr(hits, f))
+               for f in ("tap_start", "n", "m", "block_start"))
     assert torch.equal(band_gemm_dw(x, gp, again), got)
 
 
@@ -688,3 +694,153 @@ def test_band_nc_gradients_through_kernels_match_plain(card):
         scale = float(gr.abs().max())
         # float32 sums in other orders through three layers and back
         assert float((gk - gr).abs().max()) <= 1e-4 * scale, (gk, gr)
+
+
+# the band training shape: the K = 50 mutual band, batch 16, 25x25 grids,
+# 5^4, both passes; the layers whose dx the step runs (16 -> 16, 16 -> 1)
+TRAIN_BAND_LAYERS = [(16, 16), (16, 1)]
+
+
+@pytest.fixture(scope="module")
+def train_band():
+    """The K = 50 mutual band of 16 random 25x25 correlations, and one
+    `BandGeometry` a sample of each pass (for the plain versions, whose
+    pointer tables are about 1 GB a sample at this width)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the band kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    scores = torch.randn(16, 25, 25, 25, 25, generator=g, device="cuda")
+    _, idx = topk_band(scores, 50, mutual=True)
+    passes = {}
+    for swapped in (False, True):
+        geom = BandGeometry(idx, (25, 25), *(b_major_order(idx) if swapped else ()))
+        order = ((lambda i: (geom.perm[i:i + 1], geom.inv[i:i + 1]))
+                 if swapped else (lambda i: ()))
+        passes[swapped] = (geom, [BandGeometry(idx[i:i + 1], (25, 25), *order(i))
+                                  for i in range(16)])
+    return passes
+
+
+@pytest.mark.parametrize("layer", range(len(TRAIN_BAND_LAYERS)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("swapped", [False, True])
+def test_band_backward_kernels_at_training_shape(card, train_band, swapped,
+                                                 dtype, layer):
+    """dx and dw over one pass's hit list at band training's shape against
+    the plain versions, sample by sample, with bitwise repeats and their
+    launch counters; dx against the plain form of its own order of work."""
+    dt = getattr(torch, dtype)
+    cin, cout = TRAIN_BAND_LAYERS[layer]
+    geom, subs = train_band[swapped]
+    hits = geom.hits((5,) * 4)
+    g = torch.Generator(device=card).manual_seed(40 + layer)
+    n = geom.indices[0].numel()
+    x = torch.rand(16, n, cin, generator=g, device=card).to(dt)
+    w = ((torch.rand(5, 5, 5, 5, cin, cout, generator=g, device=card) * 2 - 1)
+         * (cin * 625) ** -0.5).to(dt)
+    gp = torch.randn(16, n, cout, generator=g, device=card)
+    gp = (gp * (torch.rand(gp.shape, generator=g, device=card) > 0.5)).to(dt)
+    before = band_gemm_dx.launches, band_gemm_dw.launches
+    dx, dw = band_gemm_dx(gp, w, hits), band_gemm_dw(x, gp, hits)
+    torch.cuda.synchronize()
+    assert (band_gemm_dx.launches, band_gemm_dw.launches) == (before[0] + 1,
+                                                              before[1] + 1)
+    want_dx = torch.cat([band_dx_plain(gp[i:i + 1].float(), w.float(), sub)
+                         for i, sub in enumerate(subs)])
+    want_dw = sum(band_dw_plain(x[i:i + 1], gp[i:i + 1], sub, (5,) * 4)
+                  for i, sub in enumerate(subs))
+    # float32 sums in other orders; bfloat16 rounds each result once
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        scale = float(want.abs().max())
+        assert float((got.float() - want).abs().max()) <= tol * scale
+    if dtype == "float32" and layer == 0:  # the kernel's own order of work
+        assert float((dx - band_dx_hits_plain(gp.cpu(), w.cpu(), _cpu(hits))
+                      .to(card)).abs().max()) <= 1e-5 * float(want_dx.abs().max())
+    assert torch.equal(band_gemm_dx(gp, w, hits), dx)
+    assert torch.equal(band_gemm_dw(x, gp, hits), dw)
+
+
+def _cpu(hits):
+    return hits._replace(**{f: None if getattr(hits, f) is None
+                            else getattr(hits, f).cpu()
+                            for f in ("tap_start", "n", "m", "block_start",
+                                      "inv", "perm")})
+
+
+def _complete_band(b, grid=25):
+    """The complete band of a grid x grid / grid x grid pair: every A cell
+    holds every B cell, in order."""
+    nb = grid * grid
+    return (torch.arange(nb, dtype=torch.int32, device="cuda")
+            .expand(b, grid, grid, nb).contiguous())
+
+
+def test_band_hit_list_past_int32_on_the_complete_band(card):
+    """The complete 400 px band (25x25 / 25x25, K = 625) at batch 11 with a
+    5^4 kernel holds 11 x 14,161^2 hits (each 1-D axis gives 25 * 5 - 6 =
+    119 valid (position, offset) pairs), past 2^31: the list's int64
+    offsets count them exactly, and the 16 -> 16 bfloat16 dw over it
+    matches the plain version sample by sample."""
+    idx = _complete_band(11)
+    hits = band_gemm_dw.hit_list(idx, (25, 25), (5,) * 4)
+    want = 11 * 14161**2
+    assert want == 2_205_873_131 > 2**31
+    assert hits.count == want and int(hits.tap_start[-1]) == want
+    assert int(hits.block_start[-1]) == want
+    g = torch.Generator(device=card).manual_seed(5)
+    n = idx[0].numel()
+    x = torch.rand(11, n, 16, generator=g, device=card).to(torch.bfloat16)
+    gp = torch.randn(11, n, 16, generator=g, device=card).to(torch.bfloat16)
+    got = band_gemm_dw(x, gp, hits)
+    del hits
+    torch.cuda.empty_cache()
+    plain = None
+    for i in range(11):
+        geom = BandGeometry(idx[i:i + 1], (25, 25))
+        one = band_dw_plain(x[i:i + 1], gp[i:i + 1], geom, (5,) * 4)
+        plain = one if plain is None else plain + one
+        del geom
+        torch.cuda.empty_cache()
+    scale = float(plain.abs().max())
+    # float32 sums of up to 11 x 390,625 products a tap in other orders;
+    # bfloat16 rounds each sum once
+    assert float((got.float() - plain).abs().max()) <= 1e-2 * scale
+
+
+def test_band_training_step_on_the_complete_band_past_int32(card):
+    """One bfloat16 training step of the PF-Pascal config (ResNet-101, 400
+    px, NC 5-5-5 / 16-16-1) on the complete band (K = 625) at batch 9,
+    whose hits may number 9 x 625^3 > 2^31 a pass: it runs, with a finite
+    loss. Prints its peak memory."""
+    import json
+
+    from ncnet_tpu_torch.data.loader import collate
+    from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+    from ncnet_tpu_torch.train.step import (
+        create_train_state,
+        device_batch,
+        make_train_step,
+    )
+
+    config = ImMatchNetConfig(
+        feature_extraction_cnn="resnet101", ncons_kernel_sizes=(5, 5, 5),
+        ncons_channels=(16, 16, 1), symmetric_mode=True,
+        half_precision=True, nc_topk=625)
+    model = ImMatchNet(config, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    ds = SyntheticPairDataset(n=9, output_size=(400, 400), seed=3)
+    batch = device_batch(collate([ds[i] for i in range(9)]), "cuda")
+    state = create_train_state(model, 5e-4)
+    before = band_gemm_dx.launches, band_gemm_dw.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, loss = make_train_step(config)(state, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert (band_gemm_dx.launches - before[0], band_gemm_dw.launches - before[1]) == (8, 12)
+    print(json.dumps({"test": "complete_band_step", "batch": 9, "k": 625,
+                      "loss": float(loss),
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "card": torch.cuda.get_device_name(0)}))
