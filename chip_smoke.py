@@ -16,16 +16,23 @@ Phases, one JSON line each:
              conv4d forward and dw and of the band dw and dx (functions
              named ``bf16_tc``) and the conv4d forward's float32
              split-TF32 route (``tf32x3``) must have some in every
-             function, and their CUDA-core (FFMA) functions none, or the
-             phase fails; without cuobjdump the phase says so.
+             function, and their CUDA-core (FFMA) functions none, and the
+             conv4d forward's two FFMA functions (``conv4d_fwd_ffma_c1``,
+             ``conv4d_fwd_ffma_o1``) must be there, or the phase fails;
+             without cuobjdump the phase says so.
 3. kernels — the conv4d kernel against its plain PyTorch version (TF32
              off) at the PF-Pascal NC layer shapes (batch 2x2 on the 25^4
-             grid), a rectangular and a tiny grid, float32 and bfloat16;
-             then each layer timed with CUDA events at the serving path's
-             square-batch shape, beside its plain version and its bound
-             (float32-accurate work at the split-TF32 rate, 495/3 TFLOP/s),
-             with its route (split-TF32 tensor cores or FFMA, by the
-             kernel's shape rule), held to TOL and to a bitwise repeat.
+             grid), a rectangular grid (all three layers) and a tiny grid,
+             float32 and bfloat16, every float32 layer with one input or
+             one output channel (the FFMA route) also bit for bit against
+             the chain oracle (one fmaf chain an output, in (di, dj, dk,
+             dl, c) order); then each layer timed with CUDA events at the
+             serving path's square-batch shape, beside its plain version
+             and its bound (float32-accurate work at the split-TF32 rate,
+             495/3 TFLOP/s; the FFMA layers also at FFMA's 67), with its
+             route (split-TF32 tensor cores or FFMA, by the kernel's shape
+             rule), held to TOL, to a bitwise repeat and (FFMA) to the
+             oracle's bits.
 4. band_kernels — the band kernel, which derives each entry's neighbours
              from the band's indices, against its plain version (pointer
              table, gather, matmul, TF32 off) on real K = 16 mutual bands
@@ -93,13 +100,20 @@ Phases, one JSON line each:
              fitted a block), all three layers, float32 and bfloat16, at 1
              sample against the plain version with a bitwise repeat, and
              timed in bfloat16 at the 4 samples of a 768 px pipeline call.
+8b. synthetic_kernels — the forward, dx and dw at the synthetic
+             convergence run's shapes ([16, 8, 8, 8, 8], 3^4, 1->16 and
+             16->1), float32 and bfloat16, against their plain versions
+             with a bitwise repeat, the float32 forward and dx (the FFMA
+             route) bit for bit against the chain oracle; timed beside the
+             plain versions and the bounds.
 9. train   — (a) the NC gradients at the PF-Pascal width (ResNet-101,
              400 px, 5-5-5 / 16-16-1), 2 pairs, of a random linear
              functional of the NC output and of the weak loss's positive
              term, float32 through the kernels, against the same model
              with the plain differentiable conv4d (cuDNN's conv3d and its
              autograd) on float64 correlations: within 4x the same plain
-             version's own float32 error (see GRAD_RATIO);
+             version's own float32 error (see GRAD_RATIO); the 16->1
+             layer's dx of each (FFMA) bit for bit the chain oracle's;
              (b) 3 Adam steps of the trainer API (create_train_state /
              make_train_step) at batch 16, bfloat16, on SyntheticPairDataset:
              finite float32 losses, float32 masters and Adam state, every
@@ -183,6 +197,7 @@ import torch
 # product of the conv4d kernel's float32 route (csrc/mma_tf32.cuh), faster
 # than FP32 FFMA on the CUDA cores (67 TFLOP/s).
 SPLIT_TF32_FLOPS = 495e12 / 3
+FFMA_FLOPS = 67e12
 PEAK_FLOPS = {torch.float32: SPLIT_TF32_FLOPS, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
@@ -227,6 +242,10 @@ WIDE_HW, WIDE_GRID = (768, 768), 48
 # whose float32 route does (split-TF32) where its shape rule says so
 BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw", "band_gemm_dw", "band_gemm_dx")
 TF32X3_ROUTES = ("conv4d_fwd",)
+# the library whose float32 route keeps one input or one output channel on
+# the CUDA cores, in these two kernel functions (no HMMA: other_mma above)
+FFMA_ROUTES = ("conv4d_fwd",)
+FFMA_FUNCTIONS = ("conv4d_fwd_ffma_c1", "conv4d_fwd_ffma_o1")
 # eval: synthetic convergence at its defaults (128 px, patch16, identity NC
 # init, NC 3-3 / 16-1, 400 steps): PCK@0.15 after training must clear PCK
 # before and the degenerate diagonal's by SYNTH_MARGIN (a model collapsed
@@ -335,6 +354,10 @@ def phase_build(kernels):
         if name in BF16_TC_ROUTES and summary["other_mma"] != 0:
             errors[name] = (f"a CUDA-core (FFMA) function holds tensor-core "
                             f"instructions: {counts}")
+        if name in FFMA_ROUTES and not all(
+                any(fn_name in fn for fn in counts) for fn_name in FFMA_FUNCTIONS):
+            errors[name] = (f"the float32 FFMA route lacks one of "
+                            f"{FFMA_FUNCTIONS}: {counts}")
 
     threads = [threading.Thread(target=one, args=item) for item in kernels.items()]
     for t in threads:
@@ -384,6 +407,21 @@ def dw_bound_ms(shape, cin, cout, dtype, ks=KSIZE):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
+def ffma_bound_ms(flops):
+    """The least time of ``flops`` of exact float32 work on the CUDA
+    cores (FFMA, 67 TFLOP/s): the ceiling of the FFMA route, beside the
+    split-TF32 bound every float32 row states."""
+    return 1e3 * flops / FFMA_FLOPS
+
+
+def ffma_oracle_bitwise(conv4d_fwd, got, x, w, b=None):
+    """Whether ``got`` (an FFMA-route output of the kernel on ``x, w, b``)
+    holds the chain oracle's bits exactly: one fmaf chain an output in (di,
+    dj, dk, dl, c) order from +0, the bias last."""
+    want = conv4d_fwd.chain_oracle(x.float(), w.float(), b)
+    return bool(torch.equal(got.float(), want))
+
+
 def time_ms(fn, reps):
     fn()  # warm up
     torch.cuda.synchronize()
@@ -431,8 +469,11 @@ def phase_kernels(smi, conv4d_fwd, conv4d_plain):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = GRID
+    from ncnet_tpu_torch.kernels.conv4d import route
+
     cases = [((4, g, g, g, g), cin, cout) for cin, cout in NC_LAYERS]
-    cases += [((4, g, g, 19, g), 16, 16), ((2, 3, 2, 4, 3), 1, 16),
+    cases += [((4, g, g, 19, g), 16, 16), ((4, g, g, 19, g), 1, 16),
+              ((4, g, g, 19, g), 16, 1), ((2, 3, 2, 4, 3), 1, 16),
               ((2, 3, 2, 4, 3), 16, 1)]
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -440,23 +481,27 @@ def phase_kernels(smi, conv4d_fwd, conv4d_plain):
             x, w, b = nc_inputs(shape, cin, cout, dtype, seed=ci)
             got = conv4d_fwd(x, w, b).float()
             want = conv4d_plain(x.float(), w.float(), b)
+            # the FFMA route keeps the chain oracle's bits exactly
+            oracle = (ffma_oracle_bitwise(conv4d_fwd, got, x, w, b)
+                      if route(dtype, cin, cout) == "ffma" else None)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            ok = bool(torch.isfinite(got).all()) and err <= TOL[dtype] * scale
+            ok = (bool(torch.isfinite(got).all()) and err <= TOL[dtype] * scale
+                  and oracle is not False)
             checks.append({"shape": list(shape), "cin": cin, "cout": cout,
                            "dtype": str(dtype).split(".")[1],
                            "max_abs_err": err, "max_rel_err": err / scale,
-                           "tol_rel": TOL[dtype], "ok": ok})
+                           "tol_rel": TOL[dtype], "oracle_bitwise": oracle,
+                           "ok": ok})
             if not ok:
                 emit({"phase": "kernels", "checks": checks})
                 raise AssertionError(f"conv4d kernel disagrees: {checks[-1]}")
 
     # per-layer times at the serving path's square batch: MAX_BATCH pairs,
     # both symmetric directions batched; each timed layer also held to TOL
-    # against the plain version and to a bitwise repeat, with its route
-    from ncnet_tpu_torch.kernels.conv4d import route
-
+    # against the plain version and to a bitwise repeat, with its route,
+    # and an FFMA layer to the chain oracle's bits
     layers = []
     shape = (2 * MAX_BATCH, g, g, g, g)
     for li, (cin, cout) in enumerate(NC_LAYERS):
@@ -469,16 +514,20 @@ def phase_kernels(smi, conv4d_fwd, conv4d_plain):
         scale = float(want.abs().max())
         bitwise = bool(torch.equal(got, again))
         built = conv4d_fwd.built_route(torch.float32, cin, cout)
+        oracle = (ffma_oracle_bitwise(conv4d_fwd, got, x, w, b)
+                  if built == "ffma" else None)
         bms, by, flops = bound_ms(shape, cin, cout, torch.float32)
         layers.append({"layer": li, "shape": list(shape), "cin": cin,
                        "cout": cout, "dtype": "float32", "route": built,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                       "bound_by": by, "gflop": flops / 1e9,
+                       "bound_by": by, "ffma_bound_ms": ffma_bound_ms(flops),
+                       "gflop": flops / 1e9,
                        "tflops": flops / ms / 1e9, "max_abs_err": err,
                        "max_rel_err": err / scale, "tol_rel": TOL[torch.float32],
-                       "bitwise_repeat": bitwise})
+                       "bitwise_repeat": bitwise, "oracle_bitwise": oracle})
         if not (bitwise and err <= TOL[torch.float32] * scale
-                and built == route(torch.float32, cin, cout)):
+                and built == route(torch.float32, cin, cout)
+                and oracle is not False):
             emit({"phase": "kernels", "checks": checks, "timed": layers})
             raise AssertionError(f"timed float32 layer fails: {layers[-1]}")
     emit({"phase": "kernels", "card": smi,
@@ -1218,6 +1267,8 @@ def phase_synthetic_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
     dx in float32, TOL; dw, DW_TOL) with a bitwise repeat, timed beside the
     plain version in the kernel's dtype and the bound. Returns ``{"fwd",
     "dx", "dw"}`` lists of records."""
+    from ncnet_tpu_torch.kernels.conv4d import flip_transpose
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     shape, ks = SYNTH_SHAPE, SYNTH_KS
@@ -1245,10 +1296,19 @@ def phase_synthetic_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
                 plain_ms = time_ms(plain, reps=5)
                 got, again = kern(), kern()
                 bitwise = bool(torch.equal(got, again))
+                # float32 forward and dx run on the FFMA route (one input or
+                # one output channel): the chain oracle's bits exactly
+                oracle = None
+                if dtype == torch.float32 and name == "fwd":
+                    oracle = ffma_oracle_bitwise(kernels["conv4d_fwd"], got, x, w, b)
+                elif dtype == torch.float32 and name == "dx":
+                    oracle = ffma_oracle_bitwise(kernels["conv4d_fwd"], got, gr,
+                                                 flip_transpose(w))
                 got, want = got.float(), reference().float()
                 err = float((got - want).abs().max())
                 scale = float(want.abs().max())
-                ok = bool(torch.isfinite(got).all()) and err <= tol * scale and bitwise
+                ok = (bool(torch.isfinite(got).all()) and err <= tol * scale
+                      and bitwise and oracle is not False)
                 bms, by, flops = bound(shape, cin, cout, dtype, ks)
                 timed[name].append({
                     "layer": li, "shape": list(shape), "cin": cin, "cout": cout,
@@ -1257,7 +1317,8 @@ def phase_synthetic_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
                     "bound_by": by, "gflop": flops / 1e9,
                     "tflops": flops / ms / 1e9, "max_abs_err": err,
                     "max_rel_err": err / scale, "tol_rel": tol,
-                    "bitwise_repeat": bitwise, "ok": ok})
+                    "bitwise_repeat": bitwise, "oracle_bitwise": oracle,
+                    "ok": ok})
                 if not ok:
                     emit({"phase": "synthetic_kernels", "timed": timed})
                     raise AssertionError(
@@ -1351,8 +1412,10 @@ def train_stage_breakdown(model, config, batch, optimizer):
 def phase_train(smi, model, config, kernels, conv4d_plain):
     """Gradient check, 3 trainer steps at the PF-Pascal config, the CLI;
     returns the launches of the 3 steps per kernel."""
+    import ncnet_tpu_torch.ops.conv4d as ops_conv4d
     from ncnet_tpu_torch.data.loader import DataLoader
     from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
+    from ncnet_tpu_torch.kernels.conv4d import flip_transpose
     from ncnet_tpu_torch.models.immatchnet import ImMatchNet
     from ncnet_tpu_torch.train.checkpoint import load_checkpoint, restore
     from ncnet_tpu_torch.train.step import (
@@ -1368,9 +1431,32 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
     # float64; the same plain version in float32 is reported beside it
     f32 = config.replace(half_precision=False)
     batch = synthetic_batch(2, SEED + 3)
-    grad_check = []
+    grad_check, dx_oracle = [], []
     for objective in ("linear", "score"):
-        loss_k, grads_k = nc_grads(model, f32, batch, objective)
+        # the 16->1 layer's dx (a 1->16 layer on the FFMA route) as the
+        # check runs it: held to the chain oracle's bits
+        calls = []
+        real_dx = ops_conv4d.conv4d_dx
+
+        def recording_dx(g, w, real_dx=real_dx, calls=calls):
+            out = real_dx(g, w)
+            if g.dtype == torch.float32 and g.shape[-1] == 1:
+                calls.append({"objective": objective, "shape": list(g.shape),
+                              "oracle_bitwise": ffma_oracle_bitwise(
+                                  kernels["conv4d_fwd"], out, g,
+                                  flip_transpose(w))})
+            return out
+
+        ops_conv4d.conv4d_dx = recording_dx
+        try:
+            loss_k, grads_k = nc_grads(model, f32, batch, objective)
+        finally:
+            ops_conv4d.conv4d_dx = real_dx
+        dx_oracle += calls
+        if not calls or not all(c["oracle_bitwise"] for c in calls):
+            emit({"phase": "train", "grad_check_dx_oracle": dx_oracle})
+            raise AssertionError(
+                f"the gradient check's 16->1 dx is not the chain oracle's: {calls}")
         conv = model.neigh_consensus.conv
         model.neigh_consensus.conv = conv4d_plain
         try:
@@ -1501,7 +1587,8 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
             and set(cli_want) == set(kernels)):
         raise AssertionError(f"training CLI report or checkpoint wrong: {cli}")
     emit({"phase": "train", "card": smi, "config": bf16.to_dict(),
-          "batch": TRAIN_BATCH, "grad_check": grad_check, "losses": [float(l) for l in losses],
+          "batch": TRAIN_BATCH, "grad_check": grad_check,
+          "grad_check_dx_oracle": dx_oracle, "losses": [float(l) for l in losses],
           "step_ms": step_ms, "launches_per_step": per_step,
           "launches": launches, "nc_param_max_move": moved,
           "peak_memory_bytes": peak, "stages_ms": stages, "wide_step": wide,

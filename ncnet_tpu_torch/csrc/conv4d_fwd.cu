@@ -106,13 +106,42 @@
 //     instructions an MMA and runs at about a third of the TF32 rate.
 //     wgmma, reading B (and A, where its rows are regular) from shared
 //     memory, is the next step;
-//   * FFMA on the CUDA cores, conv4d_fwd_kernel, for the layers f32_route
-//     keeps there (one input or one output channel; why, at f32_route):
-//     each thread holds 4 positions x OT output channels of
-//     float32 accumulators, reads one activation per position and a
-//     broadcast float4 of weights per step (register-blocked FFMA); the
-//     staged halo stores each position with an odd float stride, so a
-//     warp's activation reads fall in distinct banks.
+//   * FFMA on the CUDA cores for the layers f32_route keeps there (one
+//     input or one output channel; why, at f32_route), two kernels, one
+//     a shape class:
+//       - conv4d_fwd_ffma_c1 (C == 1: the 1->16 layer, the 16->1 layer's
+//         dx): a thread owns R = 4 or 5 consecutive outputs along l x 16
+//         (8, 4) output channels and, per dk, its input window's R + ks - 1
+//         activations in registers; a tap is OT / 4 broadcast float4
+//         weight loads for R x OT FMAs;
+//       - conv4d_fwd_ffma_o1 (O == 1: the 16->1 layer): a thread owns R =
+//         4 or 5 consecutive outputs along l and, per dk, the ks x 16
+//         weights in registers; it walks its input window once in (l, c)
+//         order, one float4 a 4-channel chunk, into every owned output the
+//         chunk is a tap of, so a staged activation feeds up to ks FMAs
+//         from registers (the one generic FFMA kernel these replaced read
+//         one activation from shared memory per FMA);
+//       - both: the lanes of a warp run down k (the halo's row pitch is
+//         odd, so their loads fall in distinct banks); a group of threads
+//         owns one tile of k rows of one (b, i, j) row and
+//         a block as many groups as fill about 128 threads, so small grids
+//         keep their lanes busy; each (di, dj) input row's halo and weights
+//         are copied by cp.async (16-byte chunks where C or O allow);
+//         halo cells off the grid are zeroed once and never copied. C == 1
+//         double-buffers (a row is 3.4 KB at 25^4: the next row's copy
+//         runs under this row's FMAs, one barrier a row); O == 1 stages
+//         one row (53.8 KB at 25^4 and 16 channels), so four blocks fit an
+//         SM and cover each other's copies: on an H100 at 8 samples on
+//         25^4, 2.35 ms against 2.59 double-buffered with two blocks an SM
+//         (PERF.md);
+//     The chain rule: one thread owns an output and sums one fmaf chain
+//     from +0 in (di, dj, dk, dl, c) order over the taps whose input row
+//     (ii, jj) lies on the grid, the bias added last in float32, as that
+//     generic kernel did. A term whose input is in the
+//     zero halo or a zero-padded channel adds +0 * w, which leaves every
+//     finite sum's bits as they are (a sum from +0 is never -0), so both
+//     kernels are bitwise equal to that kernel and to the test-only chain
+//     oracle (conv4d_fwd_chain_oracle) at every shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,163 +153,603 @@
 
 namespace {
 
-constexpr int kThreads = 160;     // 5 warps
-constexpr int kPosPerThread = 4;  // output (k, l) positions per thread
-constexpr int kTile = kThreads * kPosPerThread;
-
 // Error codes returned besides cudaError_t values (which are >= 0).
 constexpr int kErrBadShape = -1;
 constexpr int kErrSharedMemory = -2;
 constexpr int kErrGrid = -3;
 constexpr int kErrDtype = -4;
 
-struct Shape {
+// ---------------------------------------------------------------------------
+// float32 route on the CUDA cores (FFMA): the layers f32_route keeps there
+// (see the header). Both kernels share one frame: a group of threads owns
+// one tile of one (b, i, j) output row; a block holds G groups; every
+// group stages the halo of its own input row and the block the weights of
+// the (di, dj) step with cp.async (ffma_steps).
+
+constexpr int kFfmaMaxThreads = 256;  // threads a block, at most
+constexpr int kFfmaGroupTarget = 128;  // a block takes groups up to this
+constexpr int kO1Rec = 16;  // floats a staged position (O == 1, C <= 16)
+
+struct FfmaShape {
   int B, I, J, K, L, C, O, ks;
-  int cp;        // floats per staged (k, l) position: C rounded up to odd
-  int x_floats;  // floats of the staged halo region (multiple of 4)
+  int W;         // staged halo columns
+  int rec;       // floats a staged position: 1 (C == 1), 4 * C4p (O == 1)
+  int C4p;       // O == 1: 4-channel chunks a position, a multiple of 4
+  int tile;      // k rows a tile, at most
+  int n_tiles;   // tiles a (b, i, j) row
+  int S;         // threads a group: one tile of one (b, i, j) row
+  int G;         // groups a block
+  int n_seg;     // segments of R outputs a k row
+  int OT;        // C == 1: output channels a block; O == 1: 1
+  int x_floats;  // floats of one halo buffer of a group (a multiple of 4)
+  int w_floats;  // floats of one staged weight slice (a multiple of 4)
+  int vec_x;     // O == 1: stage the halo in 16-byte chunks
+  int vec_w;     // stage the weights in 16-byte chunks
+  long long n_items;  // groups in all: B * I * J * n_tiles
 };
+static_assert(sizeof(FfmaShape) <= 128, "kernel parameters past 128 bytes");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   mma16::smem_addr(dst)),
+               "l"(src));
 }
 
-template <typename T, int OT>
-__global__ void __launch_bounds__(kThreads)
-    conv4d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const float* __restrict__ bias, T* __restrict__ out,
-                      const Shape s) {
-  extern __shared__ __align__(16) float smem[];
-  const int p = s.ks / 2;
-  const int KL = s.K * s.L;
-  const int cols = s.L + 2 * p;
-  const int n_otiles = (s.O + OT - 1) / OT;
-  const int tile = blockIdx.x / n_otiles;
-  const int o0 = (blockIdx.x % n_otiles) * OT;
-  const int j = blockIdx.y;
-  const int b = blockIdx.z / s.I;
-  const int i = blockIdx.z % s.I;
-  const int p0 = tile * kTile;
-  const int p1 = min(p0 + kTile, KL);
-  const int kmin = p0 / s.L;
-  const int kmax = (p1 - 1) / s.L;
-  const int rows = kmax - kmin + 1 + 2 * p;  // staged padded k-rows
-  const int taps2 = s.ks * s.ks;             // (dk, dl) pairs
-  const int cp = s.cp;
-  float* sx = smem;               // [rows][cols][cp]
-  float* sw = smem + s.x_floats;  // [ks][ks][C][OT]
-  const int tid = threadIdx.x;
+// Where 4-channel chunk c4 of a staged position of halo row hk lives
+// (O == 1): the low two bits rotate with hk / 2, so the 8 lanes of a
+// quarter-warp, on 8 consecutive k rows, read 8 distinct 16-byte bank
+// groups.
+__device__ __forceinline__ int o1_slot(int c4, int hk) {
+  return (c4 & ~3) | ((c4 ^ (hk >> 1)) & 3);
+}
 
-  int base[kPosPerThread];
-  bool valid[kPosPerThread];
-#pragma unroll
-  for (int q = 0; q < kPosPerThread; ++q) {
-    const int pos = p0 + tid + q * kThreads;
-    valid[q] = pos < p1;
-    const int kk = valid[q] ? pos / s.L : kmin;
-    const int ll = valid[q] ? pos % s.L : 0;
-    base[q] = ((kk - kmin) * cols + ll) * cp;
+struct FfmaItem {
+  int b, i, j, tile;
+  bool valid;
+};
+
+// Group item n: the (b, i, j) output row and the tile of it.
+__device__ __forceinline__ FfmaItem ffma_item(const FfmaShape& s,
+                                              long long n) {
+  FfmaItem it;
+  it.valid = n < s.n_items;
+  if (!it.valid) n = 0;
+  it.tile = (int)(n % s.n_tiles);
+  n /= s.n_tiles;
+  it.j = (int)(n % s.J);
+  n /= s.J;
+  it.i = (int)(n % s.I);
+  it.b = (int)(n / s.I);
+  return it;
+}
+
+// Input row (ii, jj) of item it at step v = di * ks + dj; true where it
+// lies on the grid.
+__device__ __forceinline__ bool ffma_row(const FfmaShape& s, const FfmaItem& it,
+                                         int ks, int v, int& ii, int& jj) {
+  const int p = ks / 2;
+  ii = it.i + v / ks - p;
+  jj = it.j + v % ks - p;
+  return it.valid && ii >= 0 && ii < s.I && jj >= 0 && jj < s.J;
+}
+
+// The cells (r, q) of an nrows x m array, walked by the S threads of a
+// group: thread t takes column t % m of every (S / m)-th row where a row
+// is no wider than the group, else cells t, t + S, ... in row order.
+template <typename F>
+__device__ __forceinline__ void ffma_cells(int nrows, int m, int t, int S,
+                                           F f) {
+  if (S >= m) {
+    const int step = S / m;
+    if (t >= step * m) return;
+    const int q = t % m;
+    for (int r = t / m; r < nrows; r += step) f(r, q);
+    return;
   }
+  int r = 0, q = t;
+  for (int e = t; e < nrows * m; e += S) {
+    f(r, q);
+    q += S;
+    if (q >= m) q -= m, ++r;
+  }
+}
 
-  float acc[kPosPerThread][OT];
-#pragma unroll
-  for (int q = 0; q < kPosPerThread; ++q)
-#pragma unroll
-    for (int o = 0; o < OT; ++o) acc[q][o] = 0.f;
+// Zero the block's shared memory: halo cells off the grid, channels past
+// C and weight columns past O are never written after, so they stay 0.
+__device__ __forceinline__ void ffma_zero(float* smem, int floats) {
+  float4* z = reinterpret_cast<float4*>(smem);
+  for (int e = threadIdx.x; e < floats / 4; e += blockDim.x)
+    z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+}
 
-  const int64_t row_elems = (int64_t)KL * s.C;
-  for (int di = 0; di < s.ks; ++di) {
-    const int ii = i + di - p;
-    if (ii < 0 || ii >= s.I) continue;  // uniform over the block
-    for (int dj = 0; dj < s.ks; ++dj) {
-      const int jj = j + dj - p;
-      if (jj < 0 || jj >= s.J) continue;
-      __syncthreads();  // the previous tap's reads of sx/sw are done
-      const T* xr = x + (((int64_t)b * s.I + ii) * s.J + jj) * row_elems;
-      for (int e = tid; e < rows * cols; e += kThreads) {
-        const int kk = kmin - p + e / cols;
-        const int ll = e % cols - p;
-        float* dst = sx + e * cp;
-        if (kk >= 0 && kk < s.K && ll >= 0 && ll < s.L) {
-          const T* src = xr + ((int64_t)kk * s.L + ll) * s.C;
-          for (int c = 0; c < s.C; ++c) dst[c] = to_f32(src[c]);
-        } else {
-          for (int c = 0; c < s.C; ++c) dst[c] = 0.f;
+// The block's (di, dj) steps in ascending order. kBuffers = 2: step v +
+// 1's weights and rows are copied while step v's FMAs run, one barrier a
+// step. kBuffers = 1: one staged row, copied once every group is done
+// with the last (two barriers a step); the copy's wait is hidden by the
+// other blocks of the SM, which the halved footprint lets in. With one
+// group a block, the steps whose input row is off the grid are skipped
+// (uniform over the block); with several, every step runs and a group off
+// the grid idles through it.
+template <int kBuffers, typename Stage, typename Compute>
+__device__ __forceinline__ void ffma_steps(const FfmaShape& s,
+                                           const FfmaItem& lead, int ks,
+                                           Stage stage, Compute compute) {
+  const int T = ks * ks;
+  auto next = [&](int v) {
+    int ii, jj;
+    while (v < T && s.G == 1 && !ffma_row(s, lead, ks, v, ii, jj)) ++v;
+    return v;
+  };
+  if constexpr (kBuffers == 1) {
+    for (int v = next(0); v < T; v = next(v + 1)) {
+      __syncthreads();  // every group is done with the staged row
+      stage(v, 0);
+      mma16::cp_async_commit();
+      mma16::cp_async_wait<0>();
+      __syncthreads();  // step v landed
+      compute(v, 0);
+    }
+    return;
+  }
+  int v = next(0);
+  if (v < T) stage(v, 0);
+  mma16::cp_async_commit();
+  int buf = 0;
+  while (v < T) {
+    const int vn = next(v + 1);
+    mma16::cp_async_wait<0>();
+    __syncthreads();  // step v landed; every group is done with buf ^ 1
+    if (vn < T) stage(vn, buf ^ 1);
+    mma16::cp_async_commit();
+    compute(v, buf);
+    v = vn;
+    buf ^= 1;
+  }
+}
+
+// C == 1 (the 1->16 layer, the 16->1 layer's dx): a thread owns R
+// consecutive outputs (k, l .. l + R - 1) of one k row x OT output
+// channels (R x OT float32 accumulators); the lanes of a warp run down k.
+// Per dk it holds its input window's R + ks - 1 activations in registers
+// (one scalar shared load each) and, per dl, the OT weights of the tap as
+// broadcast float4s, which feed R x OT FMAs: output s takes window entry
+// s + dl, so its terms come in (dk, dl) order. KS = 0: any kernel size,
+// the window read from shared memory a use.
+template <int KS, int OT, int R>
+__global__ void __launch_bounds__(kFfmaMaxThreads, 1)
+    conv4d_fwd_ffma_c1(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ bias,
+                       float* __restrict__ out, const FfmaShape s) {
+  extern __shared__ __align__(16) float ffma_smem[];
+  const int ks = KS > 0 ? KS : s.ks;
+  const int p = ks / 2;
+  const int T = ks * ks;
+  const int KL = s.K * s.L;
+  const int tid = threadIdx.x;
+  const int g = min(tid / s.S, s.G - 1);
+  const int t = tid - g * s.S;  // >= S past the last group's threads
+  const bool in_group = t < s.S;
+  const int o0 = blockIdx.y * OT;
+  const long long item0 = (long long)blockIdx.x * s.G;
+  const FfmaItem it = ffma_item(s, item0 + g);
+  const FfmaItem lead = ffma_item(s, item0);
+  const int k0 = it.tile * s.tile;
+  const int kl = t % s.tile;   // lanes run down k
+  const int seg = t / s.tile;  // < n_seg in a group
+  const bool owner = in_group && it.valid && k0 + kl < s.K;
+  float* sw = ffma_smem;  // [2][T][OT]
+  float* sx = ffma_smem + 2 * s.w_floats + (size_t)g * 2 * s.x_floats;
+  ffma_zero(ffma_smem, 2 * (s.w_floats + s.G * s.x_floats));
+
+  float acc[R][OT];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int o = 0; o < OT; ++o) acc[r][o] = 0.f;
+
+  auto stage = [&](int v, int buf) {
+    // step v's weights as [tap][OT]: channels past O stay 0
+    float* dw = sw + buf * s.w_floats;
+    const float* wv = w + (int64_t)v * T * s.O + o0;
+    if (s.vec_w) {
+      for (int e = tid; e < T * (OT / 4); e += blockDim.x) {
+        const int tap = e / (OT / 4), q = e % (OT / 4);
+        if (o0 + 4 * q < s.O)
+          mma16::cp_async16(dw + tap * OT + 4 * q,
+                            wv + (int64_t)tap * s.O + 4 * q, 16);
+      }
+    } else {
+      for (int e = tid; e < T * OT; e += blockDim.x) {
+        const int tap = e / OT, oo = e % OT;
+        if (o0 + oo < s.O) cp_async4(dw + tap * OT + oo, wv + (int64_t)tap * s.O + oo);
+      }
+    }
+    int ii, jj;
+    if (!in_group || !ffma_row(s, it, ks, v, ii, jj)) return;
+    // the on-grid cells of the tile's halo rows k0 - p .. k0 + tile + p - 1
+    const int k_lo = max(0, k0 - p), k_hi = min(s.K, k0 + s.tile + p);
+    const float* xr = x + (((int64_t)it.b * s.I + ii) * s.J + jj) * KL +
+                      (int64_t)k_lo * s.L;
+    float* xb = sx + buf * s.x_floats + (k_lo - k0 + p) * s.W + p;
+    ffma_cells(k_hi - k_lo, s.L, t, s.S, [&](int r, int c) {
+      cp_async4(xb + r * s.W + c, xr + (int64_t)r * s.L + c);
+    });
+  };
+
+  auto compute = [&](int v, int buf) {
+    int ii, jj;
+    if (!owner || !ffma_row(s, it, ks, v, ii, jj)) return;
+    const float* xk = sx + buf * s.x_floats + kl * s.W + seg * R;
+    const float4* wk = reinterpret_cast<const float4*>(sw + buf * s.w_floats);
+#pragma unroll 1
+    for (int dk = 0; dk < ks; ++dk, xk += s.W, wk += ks * (OT / 4)) {
+      if constexpr (KS > 0) {
+        float xw[R + KS - 1];  // the input window of row k + dk - p
+#pragma unroll
+        for (int e = 0; e < R + KS - 1; ++e) xw[e] = xk[e];
+#pragma unroll
+        for (int dl = 0; dl < KS; ++dl)
+#pragma unroll
+          for (int o4 = 0; o4 < OT / 4; ++o4) {
+            const float4 wv = wk[dl * (OT / 4) + o4];
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              acc[r][4 * o4 + 0] = fmaf(xw[r + dl], wv.x, acc[r][4 * o4 + 0]);
+              acc[r][4 * o4 + 1] = fmaf(xw[r + dl], wv.y, acc[r][4 * o4 + 1]);
+              acc[r][4 * o4 + 2] = fmaf(xw[r + dl], wv.z, acc[r][4 * o4 + 2]);
+              acc[r][4 * o4 + 3] = fmaf(xw[r + dl], wv.w, acc[r][4 * o4 + 3]);
+            }
+          }
+      } else {
+        for (int dl = 0; dl < ks; ++dl)
+#pragma unroll
+          for (int o4 = 0; o4 < OT / 4; ++o4) {
+            const float4 wv = wk[dl * (OT / 4) + o4];
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float xv = xk[r + dl];
+              acc[r][4 * o4 + 0] = fmaf(xv, wv.x, acc[r][4 * o4 + 0]);
+              acc[r][4 * o4 + 1] = fmaf(xv, wv.y, acc[r][4 * o4 + 1]);
+              acc[r][4 * o4 + 2] = fmaf(xv, wv.z, acc[r][4 * o4 + 2]);
+              acc[r][4 * o4 + 3] = fmaf(xv, wv.w, acc[r][4 * o4 + 3]);
+            }
+          }
+      }
+    }
+  };
+
+  ffma_steps<2>(s, lead, ks, stage, compute);
+
+  if (!owner) return;
+  const bool vec_out = s.O % 4 == 0 && o0 + OT <= s.O;
+  float* dst = out + ((((int64_t)it.b * s.I + it.i) * s.J + it.j) * KL +
+                      (k0 + kl) * s.L + seg * R) * s.O + o0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (seg * R + r >= s.L) break;
+    float* d = dst + (int64_t)r * s.O;
+    if (vec_out) {
+#pragma unroll
+      for (int o4 = 0; o4 < OT / 4; ++o4)
+        reinterpret_cast<float4*>(d)[o4] = make_float4(
+            acc[r][4 * o4 + 0] + bias[o0 + 4 * o4 + 0],
+            acc[r][4 * o4 + 1] + bias[o0 + 4 * o4 + 1],
+            acc[r][4 * o4 + 2] + bias[o0 + 4 * o4 + 2],
+            acc[r][4 * o4 + 3] + bias[o0 + 4 * o4 + 3]);
+    } else {
+#pragma unroll
+      for (int o = 0; o < OT; ++o)
+        if (o0 + o < s.O) d[o] = acc[r][o] + bias[o0 + o];
+    }
+  }
+}
+
+// O == 1, C >= 2 (the 16->1 layer): a thread owns R consecutive outputs
+// (k, l .. l + R - 1) of one k row; the lanes of a warp run down k. Per
+// dk it holds the ks x 16 weights w[di, dj, dk, :, :] in registers (KS >
+// 0, C <= 16) and walks its input window (l .. l + R + ks - 2) in (ll, c)
+// order, one float4 load a 4-channel chunk, FMA-ing each chunk into every
+// owned output whose window covers it: output s takes it as tap dl = ll -
+// s, so its terms still come in (dk, dl, c) order, and a staged
+// activation feeds up to ks outputs instead of one. One staged row a
+// group (ffma_steps<1>). KS = 0: any kernel size and channel count, the
+// weights read from shared memory a use.
+template <int KS, int R>
+__global__ void __launch_bounds__(kFfmaMaxThreads, 1)
+    conv4d_fwd_ffma_o1(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ bias,
+                       float* __restrict__ out, const FfmaShape s) {
+  extern __shared__ __align__(16) float ffma_smem[];
+  constexpr bool kReg = KS > 0;
+  const int ks = kReg ? KS : s.ks;
+  const int p = ks / 2;
+  const int T = ks * ks;
+  const int KL = s.K * s.L;
+  const int rec = kReg ? kO1Rec : s.rec;
+  const int tid = threadIdx.x;
+  const int g = min(tid / s.S, s.G - 1);
+  const int t = tid - g * s.S;
+  const bool in_group = t < s.S;
+  const long long item0 = (long long)blockIdx.x * s.G;
+  const FfmaItem it = ffma_item(s, item0 + g);
+  const FfmaItem lead = ffma_item(s, item0);
+  const int k0 = it.tile * s.tile;
+  const int kl = t % s.tile;   // lanes run down k
+  const int seg = t / s.tile;  // < n_seg in a group
+  const bool owner = in_group && it.valid && k0 + kl < s.K;
+  float* sw = ffma_smem;  // [T][rec], one staged step
+  float* sx = ffma_smem + s.w_floats + (size_t)g * s.x_floats;
+  ffma_zero(ffma_smem, s.w_floats + s.G * s.x_floats);
+
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+
+  auto stage = [&](int v, int) {
+    // step v's weights as [tap][rec]: channels past C stay 0
+    float* dw = sw;
+    const float* wv = w + (int64_t)v * T * s.C;
+    if (s.vec_w) {
+      const int c4s = s.C / 4;
+      for (int e = tid; e < T * c4s; e += blockDim.x) {
+        const int tap = e / c4s, q = e % c4s;
+        mma16::cp_async16(dw + tap * rec + 4 * q, wv + tap * s.C + 4 * q, 16);
+      }
+    } else {
+      for (int e = tid; e < T * s.C; e += blockDim.x) {
+        const int tap = e / s.C, c = e % s.C;
+        cp_async4(dw + tap * rec + c, wv + tap * s.C + c);
+      }
+    }
+    int ii, jj;
+    if (!in_group || !ffma_row(s, it, ks, v, ii, jj)) return;
+    // the on-grid cells of the tile's halo rows k0 - p .. k0 + tile + p - 1
+    const int k_lo = max(0, k0 - p), k_hi = min(s.K, k0 + s.tile + p);
+    const float* xr = x + (((int64_t)it.b * s.I + ii) * s.J + jj) * KL * s.C;
+    float* xb = sx;
+    const int hk0 = k_lo - k0 + p;  // halo row of k_lo
+    if (s.vec_x) {
+      const int c4s = s.C / 4;
+      ffma_cells(k_hi - k_lo, s.L * c4s, t, s.S, [&](int r, int q) {
+        const int ll = q / c4s, c4 = q - ll * c4s, hk = hk0 + r;
+        mma16::cp_async16(
+            xb + (hk * s.W + p + ll) * rec + 4 * o1_slot(c4, hk),
+            xr + ((int64_t)(k_lo + r) * s.L + ll) * s.C + 4 * c4, 16);
+      });
+    } else {
+      ffma_cells(k_hi - k_lo, s.L * s.C, t, s.S, [&](int r, int q) {
+        const int ll = q / s.C, c = q - ll * s.C, hk = hk0 + r;
+        cp_async4(xb + (hk * s.W + p + ll) * rec + 4 * o1_slot(c >> 2, hk) +
+                      (c & 3),
+                  xr + ((int64_t)(k_lo + r) * s.L + ll) * s.C + c);
+      });
+    }
+  };
+
+  auto compute = [&](int v, int) {
+    int ii, jj;
+    if (!owner || !ffma_row(s, it, ks, v, ii, jj)) return;
+    const float* xb = sx;
+    const float* wb = sw;
+#pragma unroll 1
+    for (int dk = 0; dk < ks; ++dk) {
+      const int hk = kl + dk;
+      const float* xrow = xb + (hk * s.W + seg * R) * rec;
+      if constexpr (kReg) {
+        float4 wr[KS][4];  // w[dk, dl, 4 c4 .. 4 c4 + 3]
+#pragma unroll
+        for (int dl = 0; dl < KS; ++dl)
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4)
+            wr[dl][c4] = reinterpret_cast<const float4*>(
+                wb + (dk * KS + dl) * kO1Rec)[c4];
+        const float* xp[4];
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) xp[c4] = xrow + 4 * o1_slot(c4, hk);
+#pragma unroll
+        for (int ll = 0; ll < R + KS - 1; ++ll) {
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) {
+            const float4 xv =
+                *reinterpret_cast<const float4*>(xp[c4] + ll * kO1Rec);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const int dl = ll - r;
+              if (dl < 0 || dl >= KS) continue;
+              acc[r] = fmaf(xv.x, wr[dl][c4].x, acc[r]);
+              acc[r] = fmaf(xv.y, wr[dl][c4].y, acc[r]);
+              acc[r] = fmaf(xv.z, wr[dl][c4].z, acc[r]);
+              acc[r] = fmaf(xv.w, wr[dl][c4].w, acc[r]);
+            }
+          }
         }
-      }
-      const T* wr = w + (int64_t)(di * s.ks + dj) * taps2 * s.C * s.O;
-      for (int e = tid; e < taps2 * s.C * OT; e += kThreads) {
-        const int o = e % OT;
-        const int tc = e / OT;  // (dk * ks + dl) * C + c
-        sw[e] = (o0 + o < s.O) ? to_f32(wr[(int64_t)tc * s.O + o0 + o]) : 0.f;
-      }
-      __syncthreads();
-
-      for (int dk = 0; dk < s.ks; ++dk) {
-        for (int dl = 0; dl < s.ks; ++dl) {
-          const int off = (dk * cols + dl) * cp;
-          const float* wt = sw + (dk * s.ks + dl) * s.C * OT;
-#pragma unroll 2
-          for (int c = 0; c < s.C; ++c) {
-            float xv[kPosPerThread];
+      } else {
+        for (int ll = 0; ll < R + ks - 1; ++ll) {
+          for (int c4 = 0; c4 < s.C4p; ++c4) {
+            const float4 xv = *reinterpret_cast<const float4*>(
+                xrow + ll * rec + 4 * o1_slot(c4, hk));
 #pragma unroll
-            for (int q = 0; q < kPosPerThread; ++q) xv[q] = sx[base[q] + off + c];
-            if constexpr (OT % 4 == 0) {
-              const float4* w4 = reinterpret_cast<const float4*>(wt + c * OT);
-#pragma unroll
-              for (int o4 = 0; o4 < OT / 4; ++o4) {
-                const float4 wv = w4[o4];
-#pragma unroll
-                for (int q = 0; q < kPosPerThread; ++q) {
-                  acc[q][4 * o4 + 0] = fmaf(xv[q], wv.x, acc[q][4 * o4 + 0]);
-                  acc[q][4 * o4 + 1] = fmaf(xv[q], wv.y, acc[q][4 * o4 + 1]);
-                  acc[q][4 * o4 + 2] = fmaf(xv[q], wv.z, acc[q][4 * o4 + 2]);
-                  acc[q][4 * o4 + 3] = fmaf(xv[q], wv.w, acc[q][4 * o4 + 3]);
-                }
-              }
-            } else {
-#pragma unroll
-              for (int o = 0; o < OT; ++o) {
-                const float wv = wt[c * OT + o];
-#pragma unroll
-                for (int q = 0; q < kPosPerThread; ++q)
-                  acc[q][o] = fmaf(xv[q], wv, acc[q][o]);
-              }
+            for (int r = 0; r < R; ++r) {
+              const int dl = ll - r;
+              if (dl < 0 || dl >= ks) continue;
+              const float4 wv = reinterpret_cast<const float4*>(
+                  wb + (dk * ks + dl) * rec)[c4];
+              acc[r] = fmaf(xv.x, wv.x, acc[r]);
+              acc[r] = fmaf(xv.y, wv.y, acc[r]);
+              acc[r] = fmaf(xv.z, wv.z, acc[r]);
+              acc[r] = fmaf(xv.w, wv.w, acc[r]);
             }
           }
         }
       }
     }
-  }
+  };
 
+  ffma_steps<1>(s, lead, ks, stage, compute);
+
+  if (!owner) return;
+  float* dst = out + (((int64_t)it.b * s.I + it.i) * s.J + it.j) * KL +
+               (k0 + kl) * s.L + seg * R;
 #pragma unroll
-  for (int q = 0; q < kPosPerThread; ++q) {
-    if (!valid[q]) continue;
-    const int pos = p0 + tid + q * kThreads;
-    T* dst = out + ((((int64_t)b * s.I + i) * s.J + j) * KL + pos) * s.O + o0;
-#pragma unroll
-    for (int o = 0; o < OT; ++o)
-      if (o0 + o < s.O) dst[o] = from_f32<T>(acc[q][o] + bias[o0 + o]);
-  }
+  for (int r = 0; r < R; ++r)
+    if (seg * R + r < s.L) dst[r] = acc[r] + bias[0];
 }
 
-template <typename T, int OT>
-int launch(const void* x, const void* w, const float* bias, void* out,
-           const Shape& s, int n_tiles, size_t smem, cudaStream_t stream) {
-  auto kernel = conv4d_fwd_kernel<T, OT>;
+// The test-only chain oracle: one thread an output, the whole (di, dj,
+// dk, dl, c) chain in that order with every tap (an input off the grid
+// reads 0), fmaf from +0, the bias added last. Nothing on the main path
+// launches it; the tests hold the FFMA kernels to it bit for bit.
+__global__ void __launch_bounds__(256)
+    conv4d_fwd_chain_oracle_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ w,
+                                   const float* __restrict__ bias,
+                                   float* __restrict__ out, int B, int I,
+                                   int J, int K, int L, int C, int O, int ks) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= (int64_t)B * I * J * K * L * O) return;
+  int64_t r = n;
+  const int o = (int)(r % O);
+  r /= O;
+  const int l = (int)(r % L);
+  r /= L;
+  const int k = (int)(r % K);
+  r /= K;
+  const int j = (int)(r % J);
+  r /= J;
+  const int i = (int)(r % I);
+  const int b = (int)(r / I);
+  const int p = ks / 2;
+  float acc = 0.f;
+  for (int di = 0; di < ks; ++di)
+    for (int dj = 0; dj < ks; ++dj)
+      for (int dk = 0; dk < ks; ++dk)
+        for (int dl = 0; dl < ks; ++dl) {
+          const int ii = i + di - p, jj = j + dj - p, kk = k + dk - p,
+                    ll = l + dl - p;
+          const bool on = ii >= 0 && ii < I && jj >= 0 && jj < J && kk >= 0 &&
+                          kk < K && ll >= 0 && ll < L;
+          const float* xs =
+              x + (((((int64_t)b * I + ii) * J + jj) * K + kk) * L + ll) * C;
+          const float* ws =
+              w + ((((int64_t)di * ks + dj) * ks + dk) * ks + dl) * C * O + o;
+          for (int c = 0; c < C; ++c)
+            acc = fmaf(on ? xs[c] : 0.f, ws[(int64_t)c * O], acc);
+        }
+  out[n] = acc + bias[o];
+}
+
+// The FFMA plan of a float32 layer with C == 1 or O == 1 (the kernel
+// taken, its tile, groups and shared memory), from the shape and the
+// block's shared-memory limit alone. kernels/conv4d.py::ffma_plan mirrors
+// it. Returns 0 or an error code.
+struct FfmaPlan {
+  FfmaShape s;
+  int o1;       // 1: conv4d_fwd_ffma_o1; 0: conv4d_fwd_ffma_c1
+  int KS;       // the kernel's KS: ks where unrolled (3 or 5), else 0
+  int R;        // outputs a thread along l
+  int threads;  // a block
+  long long blocks;
+  size_t smem;
+};
+
+int plan_ffma(int B, int I, int J, int K, int L, int C, int O, int ks,
+              int max_smem, FfmaPlan& plan) {
+  FfmaShape& s = plan.s;
+  s = FfmaShape{B, I, J, K, L, C, O, ks};
+  const int p = ks / 2;
+  const int T = ks * ks;
+  plan.o1 = C >= 2;
+  const bool unrolled = ks == 3 || ks == 5;
+  // R = 5 or 4 outputs a thread along l, whichever pads the row less (5
+  // on a tie); W odd, so lanes down k read distinct banks
+  plan.R = (L + 4) / 5 * 5 <= (L + 3) / 4 * 4 ? 5 : 4;
+  s.n_seg = (L + plan.R - 1) / plan.R;
+  if (s.n_seg > kFfmaMaxThreads) return kErrSharedMemory;
+  s.W = (s.n_seg * plan.R + 2 * p) | 1;
+  // C == 1 double-buffers its rows and weights, O == 1 stages one of each
+  const size_t buffers = plan.o1 ? 1 : 2;
+  if (!plan.o1) {  // C == 1
+    plan.KS = unrolled ? ks : 0;
+    s.OT = O <= 4 ? 4 : (O <= 8 ? 8 : 16);
+    s.rec = 1;
+  } else {  // O == 1
+    const bool reg = unrolled && C <= 16;
+    plan.KS = reg ? ks : 0;
+    s.OT = 1;
+    s.C4p = reg ? 4 : ((C + 3) / 4 + 3) / 4 * 4;
+    s.rec = 4 * s.C4p;
+  }
+  s.w_floats = (T * s.OT * s.rec + 3) / 4 * 4;
+  // k rows a tile: as many as the block's threads and shared memory take
+  int tile = K < kFfmaMaxThreads / s.n_seg ? K : kFfmaMaxThreads / s.n_seg;
+  auto x_floats = [&](int rows) {
+    return ((size_t)(rows + 2 * p) * s.W * s.rec + 3) / 4 * 4;
+  };
+  while (tile > 0 && 4 * buffers * (x_floats(tile) + s.w_floats) >
+                         (size_t)max_smem)
+    --tile;
+  if (tile == 0) return kErrSharedMemory;
+  s.n_tiles = (K + tile - 1) / tile;
+  s.tile = (K + s.n_tiles - 1) / s.n_tiles;
+  s.x_floats = (int)x_floats(s.tile);
+  s.S = s.tile * s.n_seg;
+  s.n_items = (long long)B * I * J * s.n_tiles;
+  const size_t group_bytes = 4 * buffers * s.x_floats;
+  const size_t w_bytes = 4 * buffers * s.w_floats;
+  long long G = kFfmaGroupTarget / s.S;
+  if (G > s.n_items) G = s.n_items;
+  if (G < 1) G = 1;
+  while (G > 1 && w_bytes + G * group_bytes > (size_t)max_smem) --G;
+  s.G = (int)G;
+  plan.smem = w_bytes + G * group_bytes;
+  plan.threads = (s.G * s.S + 31) / 32 * 32;
+  plan.blocks = (s.n_items + G - 1) / G;
+  if (plan.blocks > 2147483647LL) return kErrGrid;
+  return 0;
+}
+
+template <typename Kernel>
+int launch_ffma(Kernel kernel, const void* x, const void* w,
+                const float* bias, void* out, const FfmaPlan& plan,
+                cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_otiles = (s.O + OT - 1) / OT;
-  const dim3 grid(n_tiles * n_otiles, s.J, s.B * s.I);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x),
-                                           static_cast<const T*>(w), bias,
-                                           static_cast<T*>(out), s);
+  const dim3 grid((unsigned)plan.blocks,
+                  plan.o1 ? 1 : (plan.s.O + plan.s.OT - 1) / plan.s.OT);
+  kernel<<<grid, plan.threads, plan.smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), bias,
+      static_cast<float*>(out), plan.s);
   return (int)cudaGetLastError();
+}
+
+template <int KS, int R>
+int launch_c1(const void* x, const void* w, const float* bias, void* out,
+              const FfmaPlan& plan, cudaStream_t stream) {
+  if (plan.s.OT == 4)
+    return launch_ffma(conv4d_fwd_ffma_c1<KS, 4, R>, x, w, bias, out, plan,
+                       stream);
+  if (plan.s.OT == 8)
+    return launch_ffma(conv4d_fwd_ffma_c1<KS, 8, R>, x, w, bias, out, plan,
+                       stream);
+  return launch_ffma(conv4d_fwd_ffma_c1<KS, 16, R>, x, w, bias, out, plan,
+                     stream);
+}
+
+template <int KS>
+int launch_c1(const void* x, const void* w, const float* bias, void* out,
+              const FfmaPlan& plan, cudaStream_t stream) {
+  if (plan.R == 5) return launch_c1<KS, 5>(x, w, bias, out, plan, stream);
+  return launch_c1<KS, 4>(x, w, bias, out, plan, stream);
+}
+
+template <int KS>
+int launch_o1(const void* x, const void* w, const float* bias, void* out,
+              const FfmaPlan& plan, cudaStream_t stream) {
+  if (plan.R == 5)
+    return launch_ffma(conv4d_fwd_ffma_o1<KS, 5>, x, w, bias, out, plan, stream);
+  return launch_ffma(conv4d_fwd_ffma_o1<KS, 4>, x, w, bias, out, plan, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -644,18 +1113,21 @@ int launch_tc(const void* x, const void* w, const float* bias, void* out,
 // float32 route on the tensor cores: split-TF32 (see the header).
 
 // The float32 routes, by shape alone (f32_route): never a retry after a
-// failed build or launch, which raises. On an H100 at 8 samples on 25^4:
-//   * C == 1 (the 1->16 layer, and the 16->1 layer's dx) keeps FFMA: a
-//     split-TF32 form with K over the taps took 3.54 ms against FFMA's
-//     3.19, with too little work a staged row to hide the row's load,
-//     split and barriers;
-//   * O == 1 (the 16->1 layer) keeps FFMA: a split-TF32 form with the
-//     bfloat16 route's Z pass (N over dl) took 8.8 ms against 10.9, at
-//     2.1e-6 of the scale from the plain version (FFMA: 5.7e-6), but on
-//     the PF-Pascal gradient check's batch its last bits route the score
-//     objective's max and ReLU gradients otherwise than the plain float32
-//     version does (3.1e-4 of the scale off float64, against 5.6e-5),
-//     past that check's gate.
+// failed build or launch, which raises. C == 1 and O == 1 run on FFMA
+// (conv4d_fwd_ffma_c1 and conv4d_fwd_ffma_o1, bitwise the chain oracle);
+// on an H100 at 8 samples on 25^4 (PERF.md):
+//   * C == 1 (the 1->16 layer, and the 16->1 layer's dx): 1.73 ms. A
+//     split-TF32 form with K over the taps took 3.54 ms against the
+//     generic FFMA kernel's 3.19, with too little work a staged row to
+//     hide the row's load, split and barriers;
+//   * O == 1 (the 16->1 layer): 2.35 ms. A split-TF32 form with the
+//     bfloat16 route's Z pass (N over dl) took 8.8 ms against the generic
+//     FFMA kernel's 10.9, at 2.1e-6 of the scale from the plain version
+//     (FFMA: 5.7e-6), but on the PF-Pascal gradient check's batch its
+//     last bits route the score objective's max and ReLU gradients
+//     otherwise than the plain float32 version does (3.1e-4 of the scale
+//     off float64, against 5.6e-5), past that check's gate. The FFMA
+//     kernels keep every output's bits, so no gate moves.
 constexpr int kRouteFfma = 0;
 constexpr int kRouteTf32x3 = 1;
 constexpr int kRouteBf16 = 2;
@@ -1088,36 +1560,67 @@ int conv4d_fwd(const void* x, const void* w, const void* bias, void* out,
     return conv4d_fwd_f32_tc(x, w, static_cast<const float*>(bias), out, B, I,
                              J, K, L, C, O, ks,
                              static_cast<cudaStream_t>(stream));
-  // FFMA
-  const int p = ks / 2;
-  const int KL = K * L;
-  const int cols = L + 2 * p;
-  const int n_tiles = (KL + kTile - 1) / kTile;
-  int rows_max = 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int p0 = t * kTile;
-    const int p1 = KL < p0 + kTile ? KL : p0 + kTile;
-    const int rows = (p1 - 1) / L - p0 / L + 1 + 2 * p;
-    if (rows > rows_max) rows_max = rows;
-  }
-  const int OT = O == 1 ? 1 : (O <= 8 ? 8 : 16);
-  Shape s{B, I, J, K, L, C, O, ks, C | 1, 0};
-  s.x_floats = (rows_max * cols * s.cp + 3) / 4 * 4;
-  const size_t smem =
-      ((size_t)s.x_floats + (size_t)ks * ks * C * OT) * sizeof(float);
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)max_smem) return kErrSharedMemory;
-
+  // FFMA: one of C == 1 or O == 1
+  int max_smem = 0;
+  const int err = max_shared_memory(&max_smem);
+  if (err != 0) return err;
+  FfmaPlan plan;
+  const int code = plan_ffma(B, I, J, K, L, C, O, ks, max_smem, plan);
+  if (code != 0) return code;
+  plan.s.vec_x = plan.o1 && C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  plan.s.vec_w =
+      (plan.o1 ? C % 4 == 0 : O % 4 == 0) && (uintptr_t)w % 16 == 0;
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (OT == 1) return launch<float, 1>(x, w, b, out, s, n_tiles, smem, st);
-  if (OT == 8) return launch<float, 8>(x, w, b, out, s, n_tiles, smem, st);
-  return launch<float, 16>(x, w, b, out, s, n_tiles, smem, st);
+  if (plan.o1) {
+    if (plan.KS == 5) return launch_o1<5>(x, w, b, out, plan, st);
+    if (plan.KS == 3) return launch_o1<3>(x, w, b, out, plan, st);
+    return launch_o1<0>(x, w, b, out, plan, st);
+  }
+  if (plan.KS == 5) return launch_c1<5>(x, w, b, out, plan, st);
+  if (plan.KS == 3) return launch_c1<3>(x, w, b, out, plan, st);
+  return launch_c1<0>(x, w, b, out, plan, st);
+}
+
+// The test-only chain oracle (conv4d_fwd_chain_oracle_kernel) on float32
+// tensors: 0 on a successful launch, else a code as conv4d_fwd's.
+int conv4d_fwd_chain_oracle(const void* x, const void* w, const void* bias,
+                            void* out, int B, int I, int J, int K, int L,
+                            int C, int O, int ks, void* stream) {
+  if (B < 1 || I < 1 || J < 1 || K < 1 || L < 1 || C < 1 || O < 1 ||
+      ks < 1 || ks % 2 == 0)
+    return kErrBadShape;
+  const long long blocks =
+      ((long long)B * I * J * K * L * O + 255) / 256;
+  if (blocks > 2147483647LL) return kErrGrid;
+  conv4d_fwd_chain_oracle_kernel<<<(unsigned)blocks, 256, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(out), B, I, J, K,
+      L, C, O, ks);
+  return (int)cudaGetLastError();
+}
+
+// The FFMA route's plan of a float32 (C, O) layer (C == 1 or O == 1)
+// under a shared-memory limit, for the tests: out[0..17] = o1, KS, R, W,
+// rec, C4p, tile, n_tiles, S, G, n_seg, OT, x_floats, w_floats, threads,
+// blocks, smem, n_items. Returns 0 or an error code.
+int conv4d_fwd_ffma_plan(int B, int I, int J, int K, int L, int C, int O,
+                         int ks, int max_smem, long long* out) {
+  if (B < 1 || I < 1 || J < 1 || K < 1 || L < 1 || C < 1 || O < 1 ||
+      ks < 1 || ks % 2 == 0 || f32_route(C, O) != kRouteFfma)
+    return kErrBadShape;
+  FfmaPlan plan;
+  const int code = plan_ffma(B, I, J, K, L, C, O, ks, max_smem, plan);
+  if (code != 0) return code;
+  const FfmaShape& s = plan.s;
+  const long long v[] = {plan.o1, plan.KS,  plan.R,   s.W,        s.rec,
+                         s.C4p,   s.tile,   s.n_tiles, s.S,       s.G,
+                         s.n_seg, s.OT,     s.x_floats, s.w_floats,
+                         plan.threads, plan.blocks, (long long)plan.smem,
+                         s.n_items};
+  for (int e = 0; e < 18; ++e) out[e] = v[e];
+  return 0;
 }
 
 // The route conv4d_fwd takes for a (dtype, C, O) layer: 0 = FFMA, 1 =

@@ -378,6 +378,70 @@ def test_f32_route_edges_match_plain_and_repeat(card, case):
         assert torch.equal(got, again), name
 
 
+# the float32 FFMA route (one input or one output channel) against the
+# chain oracle, bit for bit: (x shape [b,i,j,k,l], k, cin, cout)
+FFMA_CASES = [
+    ((2, 25, 25, 25, 25), 5, 1, 16),   # the PF-Pascal layers (dx: 16->1's)
+    ((2, 25, 25, 25, 25), 5, 16, 1),
+    ((16, 8, 8, 8, 8), 3, 1, 16),      # the synthetic run's
+    ((16, 8, 8, 8, 8), 3, 16, 1),
+]
+FFMA_CASES += [case for case in dict.fromkeys(BF16_CASES + F32_CASES + CASES)
+               if 1 in case[2:] and case not in FFMA_CASES]
+
+
+@pytest.mark.parametrize("case", range(len(FFMA_CASES)))
+def test_ffma_route_bitwise_to_chain_oracle(card, case):
+    """Each output of the two FFMA kernels is one fmaf chain in (di, dj,
+    dk, dl, c) order from +0, the bias last: the naive chain oracle's
+    bits exactly, forward and dx (a cout -> cin layer on flip(w)^T, also
+    on the FFMA route), beside the plain version's 1e-4 of the scale."""
+    from ncnet_tpu_torch.kernels.conv4d import flip_transpose
+
+    shape, k, cin, cout = FFMA_CASES[case]
+    x, w, b = _inputs(shape, k, cin, cout, 900 + case, card)
+    g = torch.randn(*shape, cout, generator=torch.Generator(device=card)
+                    .manual_seed(950 + case), device=card)
+    runs = [
+        ("fwd", (cin, cout), lambda: conv4d_fwd(x, w, b),
+         lambda: conv4d_fwd.chain_oracle(x, w, b), lambda: conv4d_plain(x, w, b)),
+        ("dx", (cout, cin), lambda: conv4d_dx(g, w),
+         lambda: conv4d_fwd.chain_oracle(g, flip_transpose(w)),
+         lambda: conv4d_dx_plain(g, w)),
+    ]
+    for name, (ci, co), kern, oracle, plain in runs:
+        assert route(torch.float32, ci, co) == "ffma"
+        got = kern()
+        want = oracle()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, float((got - want).abs().max()))
+        ref = plain()
+        err = float((got - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (name, err)
+
+
+def test_ffma_plan_matches_the_python_mirror(card):
+    """The launcher's FFMA plan (``conv4d_fwd_ffma_plan``) is
+    ``kernels/conv4d.py::ffma_plan``, which the CPU tests walk."""
+    from ncnet_tpu_torch.kernels.conv4d import ffma_plan
+
+    shapes = {(shape, k, cin, cout) for shape, k, cin, cout in FFMA_CASES}
+    shapes |= {((8, 25, 25, 25, 25), 5, 1, 16), ((8, 25, 25, 25, 25), 5, 16, 1),
+               ((1, 2, 2, 48, 48), 5, 16, 1), ((1, 2, 2, 150, 150), 5, 16, 1),
+               ((1, 2, 2, 40, 400), 5, 1, 16), ((1, 3, 4, 3, 5), 5, 33, 1),
+               ((1, 3, 3, 9, 4), 7, 6, 1), ((1, 3, 3, 4, 9), 7, 1, 5)}
+    def plan(fn, *args):
+        try:
+            return fn(*args)
+        except ValueError:  # no tile fits: both refuse
+            return "refused"
+
+    for shape, k, cin, cout in sorted(shapes):
+        for ci, co in {(cin, cout), (cout, cin)}:
+            args = (shape, k, ci, co)
+            assert plan(conv4d_fwd.ffma_plan, *args) == plan(ffma_plan, *args), args
+
+
 def test_dw_bf16_bitwise_repeat_at_pf_pascal(card):
     """The 16->16 layer's dw at 2 samples: the plan's chunks and the
     second pass sum in a fixed order, so two calls agree bit for bit."""
