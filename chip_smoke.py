@@ -14,8 +14,8 @@ Phases, one JSON line each:
              library's HMMA/HGMMA (tensor-core) instructions per kernel
              function, from ``cuobjdump -sass``: the bfloat16 routes of
              conv4d forward and dw and of the band dw and dx (functions
-             named ``bf16_tc``) and the conv4d forward's float32
-             split-TF32 route (``tf32x3``) must have some in every
+             named ``bf16_tc``) and the float32 split-TF32 routes of the
+             conv4d forward and dw (``tf32x3``) must have some in every
              function, and their CUDA-core (FFMA) functions none, and the
              conv4d forward's two FFMA functions (``conv4d_fwd_ffma_c1``,
              ``conv4d_fwd_ffma_o1``) must be there, or the phase fails;
@@ -99,7 +99,18 @@ Phases, one JSON line each:
              on the 48x48 grid of 768 px (past the grids whose whole halo
              fitted a block), all three layers, float32 and bfloat16, at 1
              sample against the plain version with a bitwise repeat, and
-             timed in bfloat16 at the 4 samples of a 768 px pipeline call.
+             timed in bfloat16 at the 4 samples of a 768 px pipeline call
+             and in float32 at 1 sample. Then the float32 dw (split-TF32:
+             ``--no-bf16`` training, the gradient check, the synthetic
+             float32 run) timed at 2 samples and at the 32 of a
+             ``--no-bf16`` pipeline call, all three layers, beside the
+             plain version, the bound and the FFMA ceiling, with the
+             device time of its split, pass 1 and pass 2 (from a trace
+             that holds every launch the wrapper made, else none), each
+             held to DW_TOL with a bitwise repeat; and the float32 dw at
+             the shapes the old route refused (C4: 5^4 16->64 and 64->16,
+             7^4 32->16) and at the 1->16 layer on an odd count of
+             positions against the plain version with a bitwise repeat.
 8b. synthetic_kernels — the forward, dx and dw at the synthetic
              convergence run's shapes ([16, 8, 8, 8, 8], 3^4, 1->16 and
              16->1), float32 and bfloat16, against their plain versions
@@ -121,6 +132,11 @@ Phases, one JSON line each:
              forward, 4 dx and 6 dw launches per step; then one step's
              stage times and the peak memory; (c) one step at 768 px
              (48x48 grids), batch 2: a finite loss and 6 / 4 / 6 launches;
+             (b') the stage breakdown of 2 float32 steps at batch 16
+             (``half_precision=False``, as ``--no-bf16``), the second under
+             torch.profiler (again, up to 3 steps, where the trace lacks a
+             launch the dw wrapper made): the dw launches' device time by
+             pass and share of the backward, and the step's peak memory;
              (d) ``python -m
              ncnet_tpu_torch.train --synthetic --allow_random_fe
              --max-steps 2`` in a subprocess: its report comes back and its
@@ -191,15 +207,23 @@ import time
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): BF16 and TF32 on
-# the tensor cores, HBM3 bandwidth. Work held to float32 accuracy is
-# bounded at the split-TF32 rate: the TF32 peak over the three MMAs a
-# product of the conv4d kernel's float32 route (csrc/mma_tf32.cuh), faster
-# than FP32 FFMA on the CUDA cores (67 TFLOP/s).
-SPLIT_TF32_FLOPS = 495e12 / 3
-FFMA_FLOPS = 67e12
-PEAK_FLOPS = {torch.float32: SPLIT_TF32_FLOPS, torch.bfloat16: 989e12}
-PEAK_BYTES = 3.35e12
+# Published H100 SXM peaks (NVIDIA data sheet, dense), the bounds built on
+# them, CUDA-event times and the dw kernel's pass times: one module for
+# this script and the kernel check scripts. Work held to float32 accuracy
+# is bounded at the split-TF32 rate: the TF32 peak over the three MMAs a
+# product of the conv4d kernels' float32 routes (csrc/mma_tf32.cuh),
+# faster than FP32 FFMA on the CUDA cores (67 TFLOP/s).
+from ncnet_tpu_torch.kernels.measure import (  # noqa: E402
+    PEAK_BYTES,
+    PEAK_FLOPS,
+    TRACE_TRIES,
+    bound_ms,
+    dw_bound_ms,
+    dw_passes_ms,
+    dw_trace,
+    ffma_bound_ms,
+    time_ms,
+)
 
 SEED = 0
 BAND_K = 16  # the degraded program's band width (scripts/serve.py --degrade 16)
@@ -238,10 +262,19 @@ TRAIN_SAMPLES = 2 * TRAIN_BATCH  # one pipeline call, both directions batched
 TRAIN_STEPS = 3
 # 768 px: the 48x48 grid on which dw stages windows of k-rows
 WIDE_HW, WIDE_GRID = (768, 768), 48
+# float32 dw shapes at the route's edges, (x shape [b, i, j, k, l], ks,
+# cin, cout): those the route before split-TF32 refused (C4), on small
+# grids: `--ncons_kernel_sizes 5 5 5 --ncons_channels 16 64 1`'s 16->64
+# layer, a 64->16 layer and 7^4 32->16; and the 1->16 layer at an odd count
+# of positions (its one-channel x copy ends 8 bytes past a 16-byte
+# boundary unless rounded up, and the g copy after it is read by cp.async)
+DW_EDGE_SHAPES = (((2, 6, 7, 9, 11), 5, 16, 64), ((2, 7, 6, 11, 9), 5, 64, 16),
+                  ((2, 6, 5, 9, 10), 7, 32, 16), ((1, 5, 5, 5, 5), 5, 1, 16),
+                  ((1, 25, 25, 25, 25), 5, 1, 16))
 # the libraries whose bfloat16 route runs on the tensor cores, and the one
 # whose float32 route does (split-TF32) where its shape rule says so
 BF16_TC_ROUTES = ("conv4d_fwd", "conv4d_dw", "band_gemm_dw", "band_gemm_dx")
-TF32X3_ROUTES = ("conv4d_fwd",)
+TF32X3_ROUTES = ("conv4d_fwd", "conv4d_dw")
 # the library whose float32 route keeps one input or one output channel on
 # the CUDA cores, in these two kernel functions (no HMMA: other_mma above)
 FFMA_ROUTES = ("conv4d_fwd",)
@@ -381,57 +414,12 @@ def nc_inputs(shape, cin, cout, dtype, seed, ks=KSIZE):
     return x.to(dtype), w.to(dtype), b
 
 
-def valid_taps(n, k):
-    """Sum over n positions of the taps of a size-k SAME window that land
-    on the grid (the zero-padding taps need no work)."""
-    p = k // 2
-    return sum(min(n, i + p + 1) - max(0, i - p) for i in range(n))
-
-
-def bound_ms(shape, cin, cout, dtype, ks=KSIZE):
-    b, dims = shape[0], shape[1:]
-    flops = 2.0 * b * cin * cout * np.prod([valid_taps(n, ks) for n in dims])
-    elt = torch.finfo(dtype).bits // 8
-    nbytes = (np.prod(shape) * (cin + cout) + ks**4 * cin * cout) * elt + 4 * cout
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
-
-
-def dw_bound_ms(shape, cin, cout, dtype, ks=KSIZE):
-    """`bound_ms` of the weight gradient: the forward's operations; reads x
-    and g, writes a float32 dw."""
-    _, _, flops = bound_ms(shape, cin, cout, dtype, ks)
-    elt = torch.finfo(dtype).bits // 8
-    nbytes = np.prod(shape) * (cin + cout) * elt + ks**4 * cin * cout * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
-
-
-def ffma_bound_ms(flops):
-    """The least time of ``flops`` of exact float32 work on the CUDA
-    cores (FFMA, 67 TFLOP/s): the ceiling of the FFMA route, beside the
-    split-TF32 bound every float32 row states."""
-    return 1e3 * flops / FFMA_FLOPS
-
-
 def ffma_oracle_bitwise(conv4d_fwd, got, x, w, b=None):
     """Whether ``got`` (an FFMA-route output of the kernel on ``x, w, b``)
     holds the chain oracle's bits exactly: one fmaf chain an output in (di,
     dj, dk, dl, c) order from +0, the bias last."""
     want = conv4d_fwd.chain_oracle(x.float(), w.float(), b)
     return bool(torch.equal(got.float(), want))
-
-
-def time_ms(fn, reps):
-    fn()  # warm up
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def host_ms(fn, reps):
@@ -516,7 +504,7 @@ def phase_kernels(smi, conv4d_fwd, conv4d_plain):
         built = conv4d_fwd.built_route(torch.float32, cin, cout)
         oracle = (ffma_oracle_bitwise(conv4d_fwd, got, x, w, b)
                   if built == "ffma" else None)
-        bms, by, flops = bound_ms(shape, cin, cout, torch.float32)
+        bms, by, flops = bound_ms(shape, cin, cout, torch.float32, KSIZE)
         layers.append({"layer": li, "shape": list(shape), "cin": cin,
                        "cout": cout, "dtype": "float32", "route": built,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -1200,7 +1188,7 @@ def phase_train_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
             # dx is a convolution of g (cout channels) into cin channels:
             # the same multiply-adds on the grid as the forward
             bms, by, flops = (dw_bound_ms if name == "dw" else bound_ms)(
-                shape, cin, cout, dtype)
+                shape, cin, cout, dtype, KSIZE)
             timed[name].append({
                 "layer": li, "shape": list(shape), "cin": cin, "cout": cout,
                 "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
@@ -1215,9 +1203,84 @@ def phase_train_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
                     f"conv4d {name} kernel disagrees at the training batch: "
                     f"{timed[name][-1]}")
     wide = dw_wide_grid(kernels["conv4d_dw"], dw_plain)
+    f32 = dw_f32_timed(kernels["conv4d_dw"], dw_plain)
+    timed["dw"] += f32
+    edges = dw_edge_shapes(kernels["conv4d_dw"], dw_plain)
     emit({"phase": "train_kernels", "card": smi, "checks": checks,
-          "timed": timed, "dw_48x48": wide})
+          "timed": timed, "dw_48x48": wide, "dw_edges": edges})
+    if not all(rec["ok"] for rec in f32 + edges):
+        raise AssertionError(f"the float32 dw kernel disagrees: {f32 + edges}")
     return timed["fwd"], timed["dx"], timed["dw"]
+
+
+def dw_f32_timed(conv4d_dw, dw_plain):
+    """The float32 dw of every NC layer at 2 samples (the gradient check's
+    batch) and at 32 (one `--no-bf16` training pipeline call) on the 25^4
+    grid: CUDA-event times beside the plain version (one call between two
+    events), the device time of the split, pass 1 and pass 2, the bound
+    and the FFMA ceiling; held to DW_TOL of the plain version's scale with
+    a bitwise repeat."""
+    records = []
+    for n in (2, TRAIN_SAMPLES):
+        shape = (n, GRID, GRID, GRID, GRID)
+        for li, (cin, cout) in enumerate(NC_LAYERS):
+            x, _, _ = nc_inputs(shape, cin, cout, torch.float32, seed=140 + li)
+            gr = torch.randn(*shape, cout, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(145 + li))
+
+            def kern(x=x, gr=gr):
+                return conv4d_dw(x, gr, KSIZE)
+
+            ms = time_ms(kern, reps=3)
+            passes = dw_passes_ms(conv4d_dw, kern, reps=3)
+            got, again = kern(), kern()
+            bitwise = bool(torch.equal(got, again))
+            del again
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = dw_plain(x, gr, KSIZE)
+            stop.record()
+            stop.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            bms, by, flops = dw_bound_ms(shape, cin, cout, torch.float32, KSIZE)
+            records.append({
+                "layer": li, "shape": list(shape), "cin": cin, "cout": cout,
+                "dtype": "float32", "path": "train", "ms": ms,
+                "plain_ms": start.elapsed_time(stop), "pass_ms": passes,
+                "bound_ms": bms, "bound_by": by,
+                "ffma_bound_ms": ffma_bound_ms(flops), "gflop": flops / 1e9,
+                "tflops": flops / ms / 1e9, "max_abs_err": err,
+                "max_rel_err": err / scale, "tol_rel": DW_TOL[torch.float32],
+                "bitwise_repeat": bitwise,
+                "ok": (bool(torch.isfinite(got).all())
+                       and err <= DW_TOL[torch.float32] * scale and bitwise)})
+            del x, gr, got, want
+            torch.cuda.empty_cache()
+    return records
+
+
+def dw_edge_shapes(conv4d_dw, dw_plain):
+    """The float32 dw at `DW_EDGE_SHAPES` against the plain version
+    (DW_TOL of its scale) with a bitwise repeat."""
+    records = []
+    for ci, (shape, ks, cin, cout) in enumerate(DW_EDGE_SHAPES):
+        x, _, _ = nc_inputs(shape, cin, cout, torch.float32, seed=150 + ci, ks=ks)
+        gr = torch.randn(*shape, cout, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(155 + ci))
+        got, again = conv4d_dw(x, gr, ks), conv4d_dw(x, gr, ks)
+        want = dw_plain(x, gr, ks)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        bitwise = bool(torch.equal(got, again))
+        records.append({
+            "shape": list(shape), "ks": ks, "cin": cin, "cout": cout,
+            "max_abs_err": err, "max_rel_err": err / scale,
+            "tol_rel": DW_TOL[torch.float32], "bitwise_repeat": bitwise,
+            "ok": (bool(torch.isfinite(got).all())
+                   and err <= DW_TOL[torch.float32] * scale and bitwise)})
+    return records
 
 
 def dw_wide_grid(conv4d_dw, dw_plain):
@@ -1245,6 +1308,8 @@ def dw_wide_grid(conv4d_dw, dw_plain):
                    "dtype": str(dtype).split(".")[1], "max_abs_err": err,
                    "max_rel_err": err / scale, "tol_rel": DW_TOL[dtype],
                    "bitwise_repeat": bitwise, "ok": ok}
+            if dtype == torch.float32:
+                rec["ms_1_sample"] = time_ms(lambda: conv4d_dw(x, gr, KSIZE), reps=3)
             del x, gr, got, again, want
             if dtype == torch.bfloat16:
                 shape = (4, g, g, g, g)
@@ -1310,7 +1375,10 @@ def phase_synthetic_kernels(smi, kernels, fwd_plain, dx_plain, dw_plain):
                 ok = (bool(torch.isfinite(got).all()) and err <= tol * scale
                       and bitwise and oracle is not False)
                 bms, by, flops = bound(shape, cin, cout, dtype, ks)
-                timed[name].append({
+                extra = ({"pass_ms": dw_passes_ms(kernels["conv4d_dw"], kern, reps=5),
+                          "ffma_bound_ms": ffma_bound_ms(flops)}
+                         if name == "dw" else {})
+                timed[name].append({**extra,
                     "layer": li, "shape": list(shape), "cin": cin, "cout": cout,
                     "ks": ks, "dtype": str(dtype).split(".")[1], "path": "eval",
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -1407,6 +1475,50 @@ def train_stage_breakdown(model, config, batch, optimizer):
     out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     out["step"] = ev[0].elapsed_time(ev[6])
     return out
+
+
+def f32_stage_breakdown(model, config, batch, optimizer):
+    """`train_stage_breakdown` of 2 float32 steps (``config`` with
+    ``half_precision=False``, as ``train --no-bf16``), the second under
+    ``torch.profiler``: its dw launches' device time (split, pass 1, pass
+    2; `dw_trace`, which checks that the trace holds every launch: a
+    trace short of one is taken again on a further step, up to
+    `TRACE_TRIES`) and
+    their share of the backward; the peak memory of the profiled step. The
+    NC weights and the optimizer's state are restored after, so the
+    phases that follow see the model the bfloat16 steps left."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
+
+    params = model.neigh_consensus.trainable()
+    saved = [t.detach().clone() for t in params]
+    saved_opt = copy.deepcopy(optimizer.state_dict())
+    steps = [train_stage_breakdown(model, config, batch, optimizer)]
+    for _ in range(TRACE_TRIES):
+        calls, pass1 = conv4d_dw.launches, conv4d_dw.pass1_launches
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps.append(train_stage_breakdown(model, config, batch, optimizer))
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        calls = conv4d_dw.launches - calls
+        dw = dw_trace(prof, calls, conv4d_dw.pass1_launches - pass1)
+        if dw["complete"]:
+            break
+    with torch.no_grad():
+        for t, t0 in zip(params, saved):
+            t.copy_(t0)
+    optimizer.load_state_dict(saved_opt)
+    dw_ms = ({k: dw[k] * calls for k in ("split", "pass1", "pass2")}
+             if dw["complete"] else None)
+    return {"steps": steps, "dw_calls": calls, "dw_trace": dw,
+            "dw_device_ms": sum(dw_ms.values()) if dw_ms else None,
+            "dw_device_ms_by_pass": dw_ms, "peak_memory_bytes": peak,
+            "dw_share_of_backward": (sum(dw_ms.values()) / steps[-1]["backward"]
+                                     if dw_ms else None)}
 
 
 def phase_train(smi, model, config, kernels, conv4d_plain):
@@ -1537,6 +1649,7 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
                for k, v in model.feature_extraction.state_dict().items()):
         problems.append("the trunk changed")
     stages = train_stage_breakdown(model, bf16, batches[TRAIN_STEPS], state.optimizer)
+    stages_f32 = f32_stage_breakdown(model, f32, batches[TRAIN_STEPS], state.optimizer)
     if problems:
         emit({"phase": "train", "problems": problems})
         raise AssertionError("; ".join(problems))
@@ -1591,8 +1704,8 @@ def phase_train(smi, model, config, kernels, conv4d_plain):
           "grad_check_dx_oracle": dx_oracle, "losses": [float(l) for l in losses],
           "step_ms": step_ms, "launches_per_step": per_step,
           "launches": launches, "nc_param_max_move": moved,
-          "peak_memory_bytes": peak, "stages_ms": stages, "wide_step": wide,
-          "cli": cli})
+          "peak_memory_bytes": peak, "stages_ms": stages,
+          "stages_ms_float32": stages_f32, "wide_step": wide, "cli": cli})
     return launches
 
 
@@ -2034,7 +2147,7 @@ def inloc_layers(conv4d_fwd, conv4d_plain, grid):
             finite = bool(torch.isfinite(got).all())
             del got, want, x
             torch.cuda.empty_cache()
-            bms, by, flops = bound_ms(shape, cin, cout, dtype, ks=ks)
+            bms, by, flops = bound_ms(shape, cin, cout, dtype, ks)
             rec = {"layer": li, "shape": list(shape), "cin": cin, "cout": cout,
                    "ks": ks, "dtype": "bfloat16", "path": "inloc", "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -2643,10 +2756,19 @@ def main():
     band_launches = phase_serve_band(smi, model, config, conv4d_fwd,
                                      band_gemm_fwd, band_layer_plain)
     phase_full_k(smi, model, config, conv4d_fwd, band_gemm_fwd)
+    # the dw launches of the train and eval paths by dtype (float32: the
+    # gradient check, the float32 stage breakdown, the synthetic float32 run)
+    dw_dtypes = [dict(conv4d_dw.launches_by_dtype)]
     train_launches = phase_train(smi, model, config, kernels, conv4d_plain)
+    dw_dtypes.append(dict(conv4d_dw.launches_by_dtype))
     band_train_launches = phase_train_band(smi, model, config, kernels)
+    dw_dtypes.append(dict(conv4d_dw.launches_by_dtype))
     eval_launches = phase_eval(smi, config, kernels, conv4d_plain,
                                band_layer_plain)
+    dw_dtypes.append(dict(conv4d_dw.launches_by_dtype))
+    dw_by_dtype = {path: {t: after[t] - before[t] for t in after}
+                   for path, before, after in (("train", *dw_dtypes[0:2]),
+                                               ("eval", *dw_dtypes[2:4]))}
     inloc_launches, inloc_layers_ = phase_inloc(smi, kernels, conv4d_plain)
     def band_train_by_path(name):
         return {path: band_train_launches[path][name]
@@ -2728,17 +2850,21 @@ def main():
                     f"launches over {TRAIN_STEPS} steps and the synthetic "
                     "convergence runs", smi,
                     grad_by_path("conv4d_dx")),
-        kernel_line("conv4d_dw", "ncnet_tpu_torch/csrc/conv4d_dw.cu",
-                    "ncnet_tpu/kernels/conv4d_pallas.py:211",
-                    sum(grad_by_path("conv4d_dw").values()),
-                    [{**la, "path": "train"} for la in dw_layers] + synth_layers["dw"],
-                    "the weight gradients of the three NC layers of one "
-                    f"pipeline call of a training step ({TRAIN_BATCH} pairs x "
-                    "2 directions), bfloat16, and of the two NC layers (3^4) "
-                    "of a synthetic convergence call, float32 and bfloat16; "
-                    f"launches over {TRAIN_STEPS} steps and the synthetic "
-                    "convergence runs", smi,
-                    grad_by_path("conv4d_dw")),
+        {**kernel_line(
+            "conv4d_dw", "ncnet_tpu_torch/csrc/conv4d_dw.cu",
+            "ncnet_tpu/kernels/conv4d_pallas.py:211",
+            sum(grad_by_path("conv4d_dw").values()),
+            [{**la, "path": "train"} for la in dw_layers] + synth_layers["dw"],
+            "the weight gradients of the three NC layers of one pipeline call "
+            f"of a training step ({TRAIN_BATCH} pairs x 2 directions), "
+            "bfloat16 and float32 (`--no-bf16`), the float32 ones at 2 "
+            "samples too, and of the two NC layers (3^4) of a synthetic "
+            "convergence call, float32 and bfloat16; launches over "
+            f"{TRAIN_STEPS} steps and the synthetic convergence runs "
+            "(launches_by_dtype_by_path: the train phase's float32 ones are "
+            "the gradient check's and the float32 stage breakdown's)", smi,
+            grad_by_path("conv4d_dw")),
+         "launches_by_dtype_by_path": dw_by_dtype},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

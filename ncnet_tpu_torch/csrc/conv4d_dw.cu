@@ -14,29 +14,26 @@
 // custom VJP at _vjp_bwd).
 //
 // What bounds it on an H100: operations. At the 400 px PF-Pascal config the
-// 16->16 layer's dw at 32 samples is about 3.6 TFLOP on the grid against
-// under 1 GB of x and g, thousands of FLOP per byte.
+// 16->16 layer's dw at 32 samples is about 3.3 TFLOP on the grid against
+// under 2 GB of x and g, thousands of FLOP per byte.
 //
 // Both routes compute the folded GEMM of ncnet_tpu/ops/conv4d.py::_dw_fold:
 // for one (b, i, j) row and one (di, dj) tap pair the contribution is one
 // [ks*ks*C, K*L] @ [K*L, O] product.
-//   * pass 1: one block per (chunk of (b, i, j) rows, (di, dj) tap pair).
-//     For each row of its chunk whose input row (i+di-p, j+dj-p) is on the
-//     grid, the block walks the row in windows of kwin k-rows: it stages
-//     the window's zero-padded (k, l, c) halo (kwin + 2p rows of the input
-//     row) and the window's kwin*L positions of g in shared memory and adds
-//     the product into float32 registers. The windows are the fewest that
-//     keep two blocks on an SM, with K spread evenly over them (all of K at
-//     the PF-Pascal grid, so one window a row; 4 of 12 rows at 48x48), so
-//     the shared memory no longer grows with K; only a single
-//     k-row too wide for the block is refused (L of about 590 at 16
-//     channels);
-//   * every kFlushRows rows the registers are added into the thread's own
-//     slots of a partial buffer in global memory, so no float chain is
-//     longer than kFlushRows rows' worth of a position group's products;
-//   * pass 2: one thread per dw element sums the partials of every chunk
-//     and position group in a fixed order. No atomics: a repeated call is
-//     bitwise reproducible.
+//   * pass 1: one block per (chunk of (b, i, j) rows, (di, dj) tap pair, and
+//     on wide layers a group of output tiles). For each row of its chunk
+//     whose input row (i+di-p, j+dj-p) is on the grid, the block walks the
+//     row in windows of kwin k-rows: it stages the window's zero-padded
+//     (k, l, c) halo (kwin + 2p rows of the input row) and the window's g
+//     rows in shared memory, double-buffered with cp.async so the next
+//     window's copy overlaps this one's MMAs, and adds the product into
+//     float32 registers. The windows are the fewest that keep two blocks on
+//     an SM, with K spread evenly over them, so the shared memory does not
+//     grow with K; only a single k-row too wide for the block is refused;
+//   * the row chunks are sized from the blocks the card holds at once (the
+//     occupancy API on the kernel itself), for a whole number of waves;
+//   * pass 2 sums each dw element's partials over the chunks in a fixed
+//     order. No atomics: a repeated call is bitwise reproducible.
 //
 // bfloat16 (the training path) runs on the tensor cores, bf16 x bf16 ->
 // float32 as the JAX scan's preferred_element_type=f32 (the products are
@@ -69,12 +66,76 @@
 //     positions of a window, not of a row, are the GEMM's K); shapes whose
 //     rows are not 16-byte chunks (C or O not a multiple of 8) stage with
 //     plain loads;
+//   * every kFlushRows rows a warp adds its registers into its own slots
+//     of the partial buffer, one slot set per k-step warp; pass 2
+//     (conv4d_dw_reduce) sums chunks, then k-step warps, one thread an
+//     element;
 //   * the row chunks are sized for 4 waves of the card's resident blocks.
-// float32 (the gradient check) keeps the CUDA-core route: each thread owns
-// one (dk, dl) tap, a tile of CT input and OT output channels and a group
-// of the K*L positions, with CT x OT float32 accumulators (register-blocked
-// FFMA); the float32 halo stores each position with a stride that keeps a
-// warp's float4 reads in distinct banks. TF32 would change the numbers.
+// float32 (dense float32 training, the gradient check, the synthetic
+// float32 run) runs split-TF32 ("3xTF32") on the tensor cores,
+// conv4d_dw_tf32x3_tc, at any odd ks, C and O:
+//   * each float32 of x and g is split once a call (conv4d_dw_split_f32,
+//     a pass over both, into a workspace after the partials) into hi =
+//     cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi), kept side by side as
+//     a float2; a product is lo*hi + hi*lo + hi*hi on mma.sync m16n8k8
+//     .tf32, in that order (mma_tf32.cuh, as the forward's float32 route).
+//     The copies take twice x and g, so the batch is cut into groups of
+//     whole samples whose copies fit kSplitBytes (1 GiB; one sample at
+//     least), split and run through pass 1 in turn, each into partials of
+//     its own: the workspace holds one group's copies, not the batch's;
+//   * the GEMM of a window runs over u = k*(L+2p) + l', the window's
+//     positions at the halo's row pitch. Channel mode (C >= 2): M = (dk,
+//     c), N = (dl, o), and
+//       dw[dk, dl, c, o] = sum_u x_halo[u + dk*(L+2p), c] * G[u + 2p - dl, o]
+//     where G is the window's g rows at the halo's pitch, zero in its pad
+//     columns and 2p zero positions ahead of it: G[u + 2p - dl] is g[k, l'
+//     - dl], zero off the row. So both operands shift by whole positions,
+//     dl moves into N (80 columns at 16->16, 8 at 16->1), and each staged
+//     x fragment feeds every (dl, o) tile of a warp. Taps mode (C == 1:
+//     the 1->16 layer): M = the (dk, dl) taps, N = o, x shifted by dk *
+//     (L+2p) + dl;
+//   * ldmatrix has no .trans for 32-bit data, and both operands here need
+//     the positions (the GEMM's K) contiguous, which x and g are not. So a
+//     lane loads its fragments as float2 (hi, lo) from per-lane offsets
+//     fixed for the whole kernel (a k-step adds 8 positions): 4 8-byte
+//     loads an A tile, 2 a B tile. Records of 16 or more channels XOR the
+//     channel with (position & 3) * 4, so each half-warp's 4 positions x 4
+//     channels fall in distinct bank pairs;
+//   * the tensor cores round each MMA's sum toward zero, which biases a
+//     long sum kept inside them (one undrained sum of 40,000 positions
+//     reads 4e-4 to 5e-4 of the scale in the emulation of
+//     tests/test_torch_tf32_split.py, past the gradient check's 1e-4). So
+//     each tile's k-step (its three products) goes into a zeroed partial,
+//     added into the float32 accumulators with one rounding to nearest:
+//     kDrainK8 = 1, kernels/conv4d_dw.py's DW_PARTIAL_K8, the cadence the
+//     test emulates (about 2e-6). Holding a partial over several k-steps
+//     doubles the accumulator registers, and registers set the warps an SM
+//     holds;
+//   * the three products of a k-step are issued product by product over
+//     the m-tile's n-tiles, so consecutive MMAs are independent (one
+//     tile's three in a row each wait for the last). On an H100 the first
+//     form (three in a row, a partial held over 8 k-steps, 185 registers)
+//     ran the 16->16 layer at 32 samples in 301 ms; this one in 148;
+//   * a warp owns 5 m-tiles x 2 n-tiles (channel mode), 5 x 1 (O == 1) or
+//     2 x 2 (taps mode): up to 40 float32 sums a thread, at most 102
+//     registers (two blocks of 10 warps an SM; the 5 x 2 tile spills a few
+//     bytes, which cost less than half the warps). A block holds up to 10
+//     warps: tile warps, then warps over every KW-th k-step (2 at 16->16;
+//     on the narrow layers as many as keep kStepsPerWarp k-steps each, 8 at
+//     the PF-Pascal grid and 2 at the synthetic run's 8^4), whose sums the
+//     block folds in shared memory in a fixed order before one write per
+//     (chunk, element) (no partial per position group);
+//   * pass 2 (conv4d_dw_reduce_f32) gives each element a warp where one
+//     thread an element would leave the card mostly idle (fewer than 65,536
+//     elements: the synthetic run's 1,296), each lane summing every 32nd
+//     chunk in order, then a fixed xor tree; else one thread an element;
+//   * what bounds it now (PERF.md, probes that compute wrong numbers
+//     on purpose, on an H100): no one part. At 16->16, 32 samples, 148
+//     ms; without the MMAs 62, without the A loads 121, without the
+//     partials' adds 138, without staging past the first window 129. The
+//     narrow layers are bound by staging the float2 copies (without it
+//     1->16 12.6 ms of 22.8, 16->1 19.8 of 32.4). Next: staging raw
+//     float32 where an operand is split once a block anyway, and wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,38 +143,19 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 384;  // __launch_bounds__ of pass 1
 constexpr int kFlushRows = 8;     // rows summed in registers per flush
-constexpr int kBlocksPerSm = 4;   // pass-1 blocks aimed at per SM
 constexpr int kReduceThreads = 256;
 
 // Error codes returned besides cudaError_t values (which are >= 0).
 constexpr int kErrBadShape = -1;
 constexpr int kErrSharedMemory = -2;
-constexpr int kErrUnits = -3;
 constexpr int kSmemReserve = 1024;  // shared memory the runtime keeps a block
 constexpr int kErrDtype = -4;
 constexpr int kErrWorkspace = -5;
-
-struct Plan {
-  int B, I, J, K, L, C, O, ks;
-  int CT, OT;          // channel tiles of a thread
-  int cs, os;          // floats per staged x / g position
-  int n_ct, n_ot;      // tiles over C and O
-  int units;           // ks*ks*n_ct*n_ot: (dk, dl, c tile, o tile)
-  int n_pg;            // position groups (threads = n_pg * units)
-  int rows_per_chunk;  // (b, i, j) rows per pass-1 block
-  int n_chunks;
-  int kwin, n_win;     // k-rows a staged window holds; windows a row
-  int x_floats;        // staged halo floats of a window (a multiple of 4)
-  size_t smem;
-  int64_t workspace;   // partial floats
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
 
 // What a plan needs of the card: its SMs, and the shared memory a block
 // may take to leave room for a second block on its SM (`pair`) or at all
@@ -157,143 +199,6 @@ int choose_window(int K, const Device& d, SmemOf smem_of) {
   return 0;
 }
 
-template <int N>
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int n = 0; n < N / 4; ++n) {
-      const float4 v = reinterpret_cast<const float4*>(src)[n];
-      dst[4 * n + 0] = v.x;
-      dst[4 * n + 1] = v.y;
-      dst[4 * n + 2] = v.z;
-      dst[4 * n + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < N; ++n) dst[n] = src[n];
-  }
-}
-
-template <typename T, int CT, int OT>
-__global__ void __launch_bounds__(kMaxThreads)
-    conv4d_dw_partial(const T* __restrict__ x, const T* __restrict__ g,
-                      float* __restrict__ partial, const Plan s) {
-  extern __shared__ __align__(16) float smem[];
-  const int p = s.ks / 2;
-  const int cols = s.L + 2 * p;
-  const int halo = (s.kwin + 2 * p) * cols;
-  const int KL = s.K * s.L;
-  const int ks2 = s.ks * s.ks;
-  float* sx = smem;               // [kwin+2p][L+2p][cs]
-  float* sg = smem + s.x_floats;  // [kwin*L][os]
-
-  const int chunk = blockIdx.x;
-  const int dij = blockIdx.y;
-  const int di = dij / s.ks;
-  const int dj = dij % s.ks;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int unit = tid % s.units;
-  const int pg = tid / s.units;
-  const int ot = unit % s.n_ot;
-  const int ct = (unit / s.n_ot) % s.n_ct;
-  const int dkl = unit / (s.n_ot * s.n_ct);
-  const int dk = dkl / s.ks;
-  const int dl = dkl % s.ks;
-  const int c0 = ct * CT;
-  const int o0 = ot * OT;
-  // this group's share of a window's positions
-  const int per = (s.kwin * s.L + s.n_pg - 1) / s.n_pg;
-  const int q0 = pg * per;
-  const int xoff = (dk * cols + dl) * s.cs + c0;
-
-  // this thread's slots: partial[chunk][dij][pg][dkl][c][o]
-  float* slot = partial +
-                ((((int64_t)chunk * ks2 + dij) * s.n_pg + pg) * ks2 + dkl) *
-                    s.C * s.O;
-
-  float acc[CT][OT];
-#pragma unroll
-  for (int c = 0; c < CT; ++c)
-#pragma unroll
-    for (int o = 0; o < OT; ++o) acc[c][o] = 0.f;
-  bool first = true;
-  int pending = 0;
-
-  auto flush = [&]() {
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-#pragma unroll
-      for (int o = 0; o < OT; ++o) {
-        if (c0 + c < s.C && o0 + o < s.O) {
-          float* d = slot + (c0 + c) * s.O + o0 + o;
-          *d = first ? acc[c][o] : *d + acc[c][o];
-        }
-        acc[c][o] = 0.f;
-      }
-    }
-    first = false;
-    pending = 0;
-  };
-
-  const int64_t row_x = (int64_t)KL * s.C;
-  const int64_t row_g = (int64_t)KL * s.O;
-  const int rows_total = s.B * s.I * s.J;
-  const int r0 = chunk * s.rows_per_chunk;
-  const int r1 = min(rows_total, r0 + s.rows_per_chunk);
-  for (int r = r0; r < r1; ++r) {
-    const int j = r % s.J;
-    const int i = (r / s.J) % s.I;
-    const int b = r / (s.I * s.J);
-    const int ii = i + di - p;
-    const int jj = j + dj - p;
-    if (ii < 0 || ii >= s.I || jj < 0 || jj >= s.J) continue;  // uniform
-    const T* xr = x + (((int64_t)b * s.I + ii) * s.J + jj) * row_x;
-    const T* gr = g + (((int64_t)b * s.I + i) * s.J + j) * row_g;
-    for (int win = 0; win < s.n_win; ++win) {
-      const int k0 = win * s.kwin;
-      const int npos = min(s.kwin, s.K - k0) * s.L;  // the window's positions
-      __syncthreads();  // the previous window's reads of sx/sg are done
-      for (int e = tid; e < halo * s.cs; e += nthreads) {
-        const int c = e % s.cs;
-        const int cell = e / s.cs;
-        const int kk = k0 + cell / cols - p;
-        const int ll = cell % cols - p;
-        sx[e] = (c < s.C && kk >= 0 && kk < s.K && ll >= 0 && ll < s.L)
-                    ? to_f32(xr[((int64_t)kk * s.L + ll) * s.C + c])
-                    : 0.f;
-      }
-      const T* gw = gr + (int64_t)k0 * s.L * s.O;
-      for (int e = tid; e < npos * s.os; e += nthreads) {
-        const int o = e % s.os;
-        sg[e] = o < s.O ? to_f32(gw[(int64_t)(e / s.os) * s.O + o]) : 0.f;
-      }
-      __syncthreads();
-
-      const int q1 = min(npos, q0 + per);
-      int k = q0 / s.L;
-      int l = q0 % s.L;
-      for (int q = q0; q < q1; ++q) {
-        float xv[CT];
-        float gv[OT];
-        load_vec<CT>(sx + xoff + (k * cols + l) * s.cs, xv);
-        load_vec<OT>(sg + q * s.os + o0, gv);
-#pragma unroll
-        for (int c = 0; c < CT; ++c)
-#pragma unroll
-          for (int o = 0; o < OT; ++o)
-            acc[c][o] = fmaf(xv[c], gv[o], acc[c][o]);
-        if (++l == s.L) {
-          l = 0;
-          ++k;
-        }
-      }
-    }
-    if (++pending == kFlushRows) flush();
-  }
-  if (first || pending) flush();  // a chunk with no row writes zeros
-}
-
 // dw[dij][dkl][c][o] = sum over chunks, then position groups, in order.
 __global__ void __launch_bounds__(kReduceThreads)
     conv4d_dw_reduce(const float* __restrict__ partial, float* __restrict__ dw,
@@ -308,87 +213,6 @@ __global__ void __launch_bounds__(kReduceThreads)
     for (int pg = 0; pg < n_pg; ++pg)
       sum += partial[(((int64_t)ch * ks2 + dij) * n_pg + pg) * per_tap + rest];
   dw[idx] = sum;
-}
-
-int make_plan(int B, int I, int J, int K, int L, int C, int O, int ks,
-              Plan* s) {
-  if (B < 1 || I < 1 || J < 1 || K < 1 || L < 1 || C < 1 || O < 1 ||
-      ks < 1 || ks % 2 == 0)
-    return kErrBadShape;
-  if ((int64_t)B * I * J > 0x7fffffff || (int64_t)K * L > 0x7fffffff)
-    return kErrBadShape;
-  Plan p{};
-  p.B = B, p.I = I, p.J = J, p.K = K, p.L = L, p.C = C, p.O = O, p.ks = ks;
-  p.OT = O == 1 ? 1 : (O <= 4 ? 4 : (O <= 8 ? 8 : 16));
-  p.CT = C == 1 ? 1 : (p.OT <= 4 && C >= 16 ? 16 : 4);
-  p.n_ct = (C + p.CT - 1) / p.CT;
-  p.n_ot = (O + p.OT - 1) / p.OT;
-  p.cs = p.n_ct * p.CT + (p.CT == 16 ? 4 : 0);  // 20 floats: no conflicts
-  p.os = p.n_ot * p.OT;
-  p.units = ks * ks * p.n_ct * p.n_ot;
-  if (p.units > kMaxThreads) return kErrUnits;
-  p.n_pg = kMaxThreads / p.units;
-  if (p.n_pg > K * L) p.n_pg = K * L;
-  const int p2 = ks / 2;
-  const int cols = L + 2 * p2;
-  auto x_floats = [&](int kwin) {
-    return ((kwin + 2 * p2) * cols * p.cs + 3) / 4 * 4;
-  };
-  auto smem_of = [&](int kwin) {
-    return ((size_t)x_floats(kwin) + (size_t)kwin * L * p.os) * sizeof(float);
-  };
-
-  Device d;
-  const int code = query_device(&d);
-  if (code != 0) return code;
-  p.kwin = choose_window(K, d, smem_of);
-  if (p.kwin == 0) return kErrSharedMemory;
-  p.n_win = (K + p.kwin - 1) / p.kwin;
-  p.x_floats = x_floats(p.kwin);
-  p.smem = smem_of(p.kwin);
-
-  const int rows = B * I * J;
-  const int sms = d.sms;
-  int chunks = (kBlocksPerSm * sms + ks * ks - 1) / (ks * ks);
-  if (chunks < 1) chunks = 1;
-  if (chunks > rows) chunks = rows;
-  p.rows_per_chunk = (rows + chunks - 1) / chunks;
-  p.n_chunks = (rows + p.rows_per_chunk - 1) / p.rows_per_chunk;
-  p.workspace = (int64_t)p.n_chunks * ks * ks * p.n_pg * ks * ks * C * O;
-  *s = p;
-  return 0;
-}
-
-template <typename T, int CT, int OT>
-int launch_partial(const void* x, const void* g, float* partial,
-                   const Plan& s, cudaStream_t stream) {
-  auto kernel = conv4d_dw_partial<T, CT, OT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(s.n_chunks, s.ks * s.ks);
-  kernel<<<grid, s.n_pg * s.units, s.smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, s);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* x, const void* g, float* partial, const Plan& s,
-             cudaStream_t st) {
-  if (s.CT == 1) {
-    if (s.OT == 1) return launch_partial<T, 1, 1>(x, g, partial, s, st);
-    if (s.OT == 4) return launch_partial<T, 1, 4>(x, g, partial, s, st);
-    if (s.OT == 8) return launch_partial<T, 1, 8>(x, g, partial, s, st);
-    return launch_partial<T, 1, 16>(x, g, partial, s, st);
-  }
-  if (s.CT == 4) {
-    if (s.OT == 1) return launch_partial<T, 4, 1>(x, g, partial, s, st);
-    if (s.OT == 4) return launch_partial<T, 4, 4>(x, g, partial, s, st);
-    if (s.OT == 8) return launch_partial<T, 4, 8>(x, g, partial, s, st);
-    return launch_partial<T, 4, 16>(x, g, partial, s, st);
-  }
-  if (s.OT == 1) return launch_partial<T, 16, 1>(x, g, partial, s, st);
-  return launch_partial<T, 16, 4>(x, g, partial, s, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -859,53 +683,670 @@ int dispatch_tc(const void* x, const void* g, float* partial, const TcPlan& s,
   return by_instance(x, g, partial, s, st, 0, nullptr);
 }
 
+// ---------------------------------------------------------------------------
+// float32 route: split-TF32 on the tensor cores (see the header).
+
+constexpr int kF32Warps = 10;     // warps a block at most
+constexpr int kF32Waves = 4;      // pass-1 blocks aimed at per resident slot
+constexpr int kDrainK8 = 1;       // k8 steps the MMAs sum between drains
+static_assert(kDrainK8 == 1, "compute() zeroes a partial every k-step");
+constexpr int kStepsPerWarp = 4;  // k-steps a window gives a warp at least
+constexpr int kSplitThreads = 256;
+// bytes of split x and g copies a group of samples may take: the batch is
+// cut into groups of whole samples (at least one) under it, each split and
+// run through pass 1 in turn, so the workspace does not grow with the batch
+constexpr int64_t kSplitBytes = int64_t(1) << 30;
+// warp tiles (m16 tiles x n8 tiles a warp) of the three instantiations:
+// the channel mode with N >= 16, with N <= 8 (O == 1), and the taps mode
+constexpr int kF32Tiles[3][2] = {{5, 2}, {5, 1}, {2, 2}};
+
+struct F32Plan {
+  int B, I, J, K, L, C, O, ks;
+  int taps;         // 1: C == 1, M = the (dk, dl) taps, N = o;
+                    // 0: M = (dk, c), N = (dl, o) on g shifted by dl
+  int tile;         // the warp tile: a row of kF32Tiles
+  int nM, nN;       // m16 and n8 tiles in all
+  int CP, OP;       // float2 (hi, lo) of a staged x / g position
+  int MW, NW, KW;   // warps over m-tile groups, n-tile groups, k-steps
+  int n_mg, n_ng;   // blocks over m-tile and n-tile groups
+  int kwin, n_win;  // k-rows a staged window holds; windows a row
+  int NKS;          // k8 steps a window: u < kwin * (L + 2p)
+  int HPa, GPa;     // staged x / g positions a buffer
+  int nbuf;         // staged buffers: 2 (the next window's copy overlaps
+                    // this one's MMAs) or 1
+  int rows_per_chunk, n_chunks;
+  int smem;
+};
+static_assert(sizeof(F32Plan) <= 128, "F32Plan is the kernel's parameter");
+
+// float2 a pre-split position: 1 for one channel, else C padded to even,
+// so that every channel pair is one 16-byte chunk
+__host__ __device__ __forceinline__ int split_stride(int C) {
+  return C == 1 ? 1 : (C + 1) & ~1;
+}
+
+// Where channel ch of staged position pos lives in its record of `rec`
+// float2: records of 16 or more XOR the channel with (pos & 3) * 4, so
+// that the 4 positions x 4 channels a half-warp reads with one 8-byte load
+// fall in 16 distinct 8-byte bank pairs.
+__device__ __forceinline__ int swz(int ch, int pos, int rec) {
+  return rec >= 16 ? ch ^ ((pos & 3) << 2) : ch;
+}
+
+// 8 bytes global -> shared (zeros where src_bytes is 0).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   mma16::smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// out[pos][cs] = (hi, lo) of src[pos][c], tf32_split (zeros past C): each
+// float32 is split once a call, not once a staged copy.
+__global__ void __launch_bounds__(kSplitThreads)
+    conv4d_dw_split_f32(const float* __restrict__ src, float2* __restrict__ out,
+                        int64_t n_pos, int C, int CS) {
+  const int64_t n = n_pos * CS;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    float v;
+    if (CS == C) {
+      v = src[e];
+    } else {
+      const int64_t pos = e / CS;
+      const int c = (int)(e - pos * CS);
+      v = c < C ? src[pos * C + c] : 0.f;
+    }
+    uint32_t hi, lo;
+    mma32::tf32_split(v, hi, lo);
+    out[e] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+  }
+}
+
+// dw[e] = sum over chunks of partial[chunk][e]: G lanes an element (a power
+// of two up to 32), lane q summing chunks q, q + G, ... in order, then a
+// fixed xor tree over the G lanes (a + b == b + a, so every lane holds the
+// same bits). No atomics: a repeated call is bitwise the first.
+__global__ void __launch_bounds__(kReduceThreads)
+    conv4d_dw_reduce_f32(const float* __restrict__ partial,
+                         float* __restrict__ dw, int n_chunks, int64_t n_el,
+                         int log2_g) {
+  const int G = 1 << log2_g;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t e = t >> log2_g;
+  const int q = (int)(t & (G - 1));
+  float sum = 0.f;
+  if (e < n_el)
+    for (int ch = q; ch < n_chunks; ch += G)
+      sum += partial[(int64_t)ch * n_el + e];
+  for (int off = G / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (e < n_el && q == 0) dw[e] = sum;
+}
+
+// Pass 1 of the float32 route: one block per (chunk of (b, i, j) rows,
+// (di, dj) tap pair, m-tile group, n-tile group). Per window of a row:
+//   D[m][n] += sum_u X[u + ax(m)][ac(m)] * G[u + bx(n)][bc(n)]
+// over u < kwin * (L + 2p), on the staged halo X and g row G; channel
+// mode: m = (dk, c), ax = dk * (L + 2p); n = (dl, o), bx = 2p - dl (G is
+// the g row with 2p zero positions ahead and the halo's row pitch, so
+// G[u + 2p - dl] = g[k, l' - dl], zero off the row). Taps mode (C == 1):
+// m = (dk, dl), ax = dk * (L + 2p) + dl; n = o, bx = 0.
+template <int MPW, int NPW>
+__global__ void __launch_bounds__(kF32Warps * 32, 2)
+    conv4d_dw_tf32x3_tc(const float2* __restrict__ xs,
+                        const float2* __restrict__ gs,
+                        float* __restrict__ partial, const F32Plan s) {
+  extern __shared__ __align__(16) float2 f2_smem[];
+  using namespace mma16;
+  const int p = s.ks / 2;
+  const int cols = s.L + 2 * p;
+  const int T = s.ks * s.ks;
+  const int CS = split_stride(s.C), OS = split_stride(s.O);
+  const int glead = s.taps ? 0 : 2 * p;
+  const int Mr = s.taps ? T : s.ks * s.C;  // rows of M, columns of N
+  const int Nc = s.taps ? s.O : s.ks * s.O;
+  const int chunk = blockIdx.x;
+  const int mg = blockIdx.y % s.n_mg;
+  const int ng = (blockIdx.y / s.n_mg) % s.n_ng;
+  const int dij = blockIdx.y / (s.n_mg * s.n_ng);
+  const int di = dij / s.ks, dj = dij % s.ks;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int TW = s.MW * s.NW;  // tile warps; warp = kw * TW + tile warp
+  const int tw = warp % TW, kw = warp / TW;
+  const int m_first = (mg * s.MW + tw % s.MW) * MPW;
+  const int n_first = (ng * s.NW + tw / s.MW) * NPW;
+  const int n_mt = max(0, min(MPW, s.nM - m_first));
+  const int n_nt = max(0, min(NPW, s.nN - n_first));
+  const int gq = lane >> 2, cq = lane & 3;
+  const int xf2 = s.HPa * s.CP;         // float2 of a buffer's x part
+  const int buf_f2 = xf2 + s.GPa * s.OP;
+
+  // zero the buffers once: the pad channels, the halo's pad columns, g's
+  // pad columns, lead and tail are never copied to
+  {
+    float4* z = reinterpret_cast<float4*>(f2_smem);
+    for (int e = tid; e < s.nbuf * buf_f2 / 2; e += nthreads)
+      z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();  // before any copy lands in the zeroed buffers
+
+  // per lane: the staged float2 of its A rows (g, g+8) at u = cq, and of
+  // its B column g at u = cq; a k-step adds 8 positions, rows and columns
+  // past M and N read position 0 and are never written
+  int aoff[MPW][2];
+#pragma unroll
+  for (int mt = 0; mt < MPW; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = (m_first + mt) * 16 + gq + 8 * h;
+      int xpos = 0, ch = 0;
+      if (m < Mr) {
+        if (s.taps) {
+          xpos = (m / s.ks) * cols + m % s.ks;
+        } else {
+          xpos = (m / s.C) * cols;
+          ch = m % s.C;
+        }
+      }
+      const int pos = xpos + cq;
+      aoff[mt][h] = pos * s.CP + swz(ch, pos, s.CP);
+    }
+  int boff[NPW];
+#pragma unroll
+  for (int nt = 0; nt < NPW; ++nt) {
+    const int n = (n_first + nt) * 8 + gq;
+    int gpos = glead, o = 0;
+    if (n < Nc) {
+      if (s.taps) {
+        o = n;
+      } else {
+        gpos = glead - n / s.O;
+        o = n % s.O;
+      }
+    }
+    const int pos = gpos + cq;
+    boff[nt] = xf2 + pos * s.OP + swz(o, pos, s.OP);
+  }
+
+  // the float32 sums of the warp's tiles
+  float acc[MPW][NPW][4];
+#pragma unroll
+  for (int mt = 0; mt < MPW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NPW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int rows_total = s.B * s.I * s.J;
+  const int r0 = chunk * s.rows_per_chunk;
+  const int r1 = min(rows_total, r0 + s.rows_per_chunk);
+  auto on_grid = [&](int r) {
+    const int ii = (r / s.J) % s.I + di - p;
+    const int jj = r % s.J + dj - p;
+    return ii >= 0 && ii < s.I && jj >= 0 && jj < s.J;
+  };
+  auto next_row = [&](int r) {
+    while (r < r1 && !on_grid(r)) ++r;
+    return r;
+  };
+
+  // the window's halo (kwin + 2p rows of the input row, its L interior
+  // columns) and its kwin k-rows of g, from the pre-split copies, in 16-byte
+  // chunks of two channels (8 bytes where a position has one); rows off the
+  // grid are zero-filled. A thread keeps one (column, chunk) and walks rows.
+  auto stage = [&](int r, int win, int buf) {
+    float2* xb = f2_smem + buf * buf_f2;
+    float2* gb = xb + xf2;
+    const int j = r % s.J, i = (r / s.J) % s.I, b = r / (s.I * s.J);
+    const int k0 = win * s.kwin;
+    const int64_t KL = (int64_t)s.K * s.L;
+    const float2* xr =
+        xs + (((int64_t)b * s.I + i + di - p) * s.J + j + dj - p) * KL * CS;
+    const float2* gr = gs + (((int64_t)b * s.I + i) * s.J + j) * KL * OS;
+    const int nx = s.C == 1 ? 1 : CS / 2;
+    for (int e = tid; e < s.L * nx; e += nthreads) {
+      const int l = e / nx, q = e - l * nx;
+      for (int hr = 0; hr < s.kwin + 2 * p; ++hr) {
+        const int kk = k0 + hr - p;
+        const bool ok = kk >= 0 && kk < s.K;
+        const int pos = hr * cols + p + l;
+        float2* dst = xb + pos * s.CP + swz(2 * q, pos, s.CP);
+        const float2* src = ok ? xr + ((int64_t)kk * s.L + l) * CS + 2 * q : xs;
+        if (s.C == 1)
+          cp_async8(dst, src, ok ? 8 : 0);
+        else
+          cp_async16(dst, src, ok ? 16 : 0);
+      }
+    }
+    const int nq = s.O == 1 ? 1 : OS / 2;
+    for (int e = tid; e < s.L * nq; e += nthreads) {
+      const int l = e / nq, q = e - l * nq;
+      for (int kl = 0; kl < s.kwin; ++kl) {
+        const int kk = k0 + kl;
+        const bool ok = kk < s.K;
+        const int pos = glead + kl * cols + l;
+        float2* dst = gb + pos * s.OP + swz(2 * q, pos, s.OP);
+        const float2* src = ok ? gr + ((int64_t)kk * s.L + l) * OS + 2 * q : gs;
+        if (s.O == 1)
+          cp_async8(dst, src, ok ? 8 : 0);
+        else
+          cp_async16(dst, src, ok ? 16 : 0);
+      }
+    }
+  };
+
+  auto compute = [&](int buf) {
+    const float2* sb = f2_smem + buf * buf_f2;
+    for (int st = kw; st < s.NKS; st += s.KW) {
+      const int ux = st * 8 * s.CP, ug = st * 8 * s.OP;
+      // B: g at positions u and u + 4 of this lane's column, shared by
+      // every m-tile of the warp
+      uint32_t bh[NPW][2], bl[NPW][2];
+#pragma unroll
+      for (int nt = 0; nt < NPW; ++nt) {
+        const float2 v0 = sb[boff[nt] + ug];
+        const float2 v1 = sb[boff[nt] + ug + 4 * s.OP];
+        bh[nt][0] = __float_as_uint(v0.x), bl[nt][0] = __float_as_uint(v0.y);
+        bh[nt][1] = __float_as_uint(v1.x), bl[nt][1] = __float_as_uint(v1.y);
+      }
+      // A: x^T, rows g and g+8 at positions u and u + 4 (rows past M read
+      // position 0). Each tile's k-step goes into a zeroed partial, the
+      // three products of mma_tf32x3 in its order (lo*hi, hi*lo, hi*hi),
+      // each over the m-tile's NPW tiles before the next, so consecutive
+      // MMAs are independent; the partial is then added into the float32
+      // sums with one rounding to nearest (kDrainK8 = 1)
+#pragma unroll
+      for (int mt = 0; mt < MPW; ++mt) {
+        if (mt >= n_mt) break;
+        const float2 v0 = sb[aoff[mt][0] + ux];
+        const float2 v1 = sb[aoff[mt][1] + ux];
+        const float2 v2 = sb[aoff[mt][0] + ux + 4 * s.CP];
+        const float2 v3 = sb[aoff[mt][1] + ux + 4 * s.CP];
+        const uint32_t ah[4] = {__float_as_uint(v0.x), __float_as_uint(v1.x),
+                                __float_as_uint(v2.x), __float_as_uint(v3.x)};
+        const uint32_t al[4] = {__float_as_uint(v0.y), __float_as_uint(v1.y),
+                                __float_as_uint(v2.y), __float_as_uint(v3.y)};
+        float part[NPW][4] = {};
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+          for (int nt = 0; nt < NPW; ++nt)
+            if (nt < n_nt)
+              mma32::mma_tf32(part[nt], q == 0 ? al : ah,
+                              q == 1 ? bl[nt][0] : bh[nt][0],
+                              q == 1 ? bl[nt][1] : bh[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < NPW; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
+      }
+    }
+  };
+
+  // over the windows of the chunk's rows whose input row is on the grid;
+  // with two buffers the next window's copy is in flight during this one's
+  // MMAs
+  auto advance = [&](int& r, int& win) {
+    if (win + 1 == s.n_win) {
+      r = next_row(r + 1);
+      win = 0;
+    } else {
+      ++win;
+    }
+  };
+  const bool two = s.nbuf == 2;
+  int r = next_row(r0), win = 0, buf = 0;
+  if (r < r1) stage(r, 0, 0);
+  cp_async_commit();
+  while (r < r1) {
+    int rn = r, wn = win;
+    advance(rn, wn);
+    if (two) {
+      if (rn < r1) stage(rn, wn, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    compute(buf);
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+    if (!two && rn < r1) {
+      stage(rn, wn, 0);
+      cp_async_commit();
+    }
+    r = rn;
+    win = wn;
+    if (two) buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // fold the k-step warps of each tile warp in order (kw = 0, 1, ...) in
+  // shared memory, then one write per (chunk, element)
+  constexpr int NA = MPW * NPW * 4;
+  float* fold = reinterpret_cast<float*>(f2_smem);
+  __syncthreads();
+  if (kw > 0) {
+    float* f = fold + ((kw - 1) * TW + tw) * NA * 32 + lane;
+#pragma unroll
+    for (int mt = 0; mt < MPW; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NPW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[((mt * NPW + nt) * 4 + e) * 32] = acc[mt][nt][e];
+  }
+  __syncthreads();
+  if (kw > 0) return;
+  for (int k2 = 1; k2 < s.KW; ++k2) {
+    const float* f = fold + ((k2 - 1) * TW + tw) * NA * 32 + lane;
+#pragma unroll
+    for (int mt = 0; mt < MPW; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NPW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += f[((mt * NPW + nt) * 4 + e) * 32];
+  }
+  // partial[chunk][dij][dk][dl][c][o]
+  float* slot = partial + ((int64_t)chunk * T + dij) * ((int64_t)T * s.C * s.O);
+#pragma unroll
+  for (int mt = 0; mt < MPW; ++mt) {
+    if (mt >= n_mt) break;
+#pragma unroll
+    for (int nt = 0; nt < NPW; ++nt) {
+      if (nt >= n_nt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = (m_first + mt) * 16 + gq + (e >> 1) * 8;
+        const int n = (n_first + nt) * 8 + 2 * cq + (e & 1);
+        if (m >= Mr || n >= Nc) continue;
+        int el;
+        if (s.taps) {
+          el = m * s.O + n;  // tap * O + o (C == 1)
+        } else {
+          const int dk = m / s.C, c = m % s.C, dl = n / s.O, o = n % s.O;
+          el = ((dk * s.ks + dl) * s.C + c) * s.O + o;
+        }
+        slot[el] = acc[mt][nt][e];
+      }
+    }
+  }
+}
+
+template <int MPW, int NPW>
+int launch_f32(const float2* xs, const float2* gs, float* partial,
+               const F32Plan& s, cudaStream_t st, int* per_sm) {
+  auto kernel = conv4d_dw_tf32x3_tc<MPW, NPW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = s.MW * s.NW * s.KW * 32;
+  if (per_sm)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, threads, s.smem);
+  const dim3 grid(s.n_chunks, s.ks * s.ks * s.n_mg * s.n_ng);
+  kernel<<<grid, threads, s.smem, st>>>(xs, gs, partial, s);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation of a plan's tile: its occupancy if per_sm is set,
+// else its launch.
+int by_tile(const float2* xs, const float2* gs, float* partial,
+            const F32Plan& s, cudaStream_t st, int* per_sm) {
+  if (s.tile == 0) return launch_f32<5, 2>(xs, gs, partial, s, st, per_sm);
+  if (s.tile == 1) return launch_f32<5, 1>(xs, gs, partial, s, st, per_sm);
+  return launch_f32<2, 2>(xs, gs, partial, s, st, per_sm);
+}
+static_assert(kF32Tiles[0][0] == 5 && kF32Tiles[0][1] == 2 &&
+                  kF32Tiles[1][0] == 5 && kF32Tiles[1][1] == 1 &&
+                  kF32Tiles[2][0] == 2 && kF32Tiles[2][1] == 2,
+              "by_tile instantiates kF32Tiles");
+
+// A float32 call: the batch cut into n_groups groups of `group` samples
+// (the last may hold fewer), pass 1 planned for a whole group, and the
+// workspace: every group's chunk partials, in group order, then one group's
+// split x copy (its float2 rounded up to even, so that the g copy after it
+// starts on 16 bytes for cp.async) and split g copy.
+struct F32Call {
+  F32Plan s;
+  int batch, group, n_groups;
+  int64_t partial_floats, xs_f2, workspace;
+};
+
+// The float32 call's plan.
+int make_f32_plan(int B, int I, int J, int K, int L, int C, int O, int ks,
+                  F32Call* call) {
+  if (B < 1 || I < 1 || J < 1 || K < 1 || L < 1 || C < 1 || O < 1 ||
+      ks < 1 || ks % 2 == 0)
+    return kErrBadShape;
+  if ((int64_t)B * I * J > 0x7fffffff || (int64_t)K * L > 0x7fffffff)
+    return kErrBadShape;
+  const int64_t sample_pos = (int64_t)I * J * K * L;
+  const int64_t sample_bytes =
+      8 * sample_pos * (split_stride(C) + split_stride(O));
+  int64_t most = kSplitBytes / sample_bytes;
+  if (most < 1) most = 1;
+  const int b_groups = (int)((B + most - 1) / most);
+  const int group = (B + b_groups - 1) / b_groups;
+  F32Plan s{};
+  s.B = group, s.I = I, s.J = J, s.K = K, s.L = L, s.C = C, s.O = O, s.ks = ks;
+  const int T = ks * ks;
+  const int p = ks / 2;
+  const int cols = L + 2 * p;
+  s.taps = C == 1;
+  s.tile = s.taps ? 2 : (ks * O <= 8 ? 1 : 0);
+  const int MPW = kF32Tiles[s.tile][0], NPW = kF32Tiles[s.tile][1];
+  s.nM = ((s.taps ? T : ks * C) + 15) / 16;
+  s.nN = ((s.taps ? O : ks * O) + 7) / 8;
+  s.CP = C == 1 ? 1 : (C + 15) / 16 * 16;
+  s.OP = O == 1 ? 1 : (O + 15) / 16 * 16;
+  const int n_groups = (s.nN + NPW - 1) / NPW, m_groups = (s.nM + MPW - 1) / MPW;
+  s.NW = n_groups < kF32Warps ? n_groups : kF32Warps;
+  s.MW = m_groups < kF32Warps / s.NW ? m_groups : kF32Warps / s.NW;
+  s.KW = kF32Warps / (s.MW * s.NW);
+  s.n_mg = (s.nM + s.MW * MPW - 1) / (s.MW * MPW);
+  s.n_ng = (s.nN + s.NW * NPW - 1) / (s.NW * NPW);
+  if ((int64_t)T * s.n_mg * s.n_ng > 65535) return kErrBadShape;
+  const int glead = s.taps ? 0 : 2 * p;
+  // the staged sizes of a window of kwin k-rows (the fold of the k-step
+  // warps at the end reuses the buffers)
+  auto size = [&](int kwin, int nbuf, F32Plan* t) {
+    t->NKS = (kwin * cols + 7) / 8;
+    t->HPa = ((kwin + 2 * p) * cols + 8 + 2 * p + 1) & ~1;
+    t->GPa = (glead + kwin * cols + 8 + 1) & ~1;
+    t->nbuf = nbuf;
+    const size_t stage =
+        (size_t)nbuf * ((size_t)t->HPa * t->CP + (size_t)t->GPa * t->OP) * 8;
+    const size_t fold =
+        (size_t)(t->KW - 1) * t->MW * t->NW * MPW * NPW * 4 * 32 * 4;
+    const size_t smem = ((stage > fold ? stage : fold) + 15) / 16 * 16;
+    t->smem = (int)smem;
+    return smem;
+  };
+
+  Device d;
+  int code = query_device(&d);
+  if (code != 0) return code;
+  // two buffers that leave room for a second block on the SM, else two in
+  // a block's limit, else one; the k-rows spread evenly over the windows
+  const size_t budgets[3] = {d.pair, d.max, d.max};
+  const int bufs[3] = {2, 2, 1};
+  for (int c = 0; c < 3 && s.kwin == 0; ++c)
+    for (int kwin = K; kwin >= 1; --kwin) {
+      F32Plan t = s;
+      if (size(kwin, bufs[c], &t) <= budgets[c]) {
+        const int n_win = (K + kwin - 1) / kwin;
+        s.kwin = (K + n_win - 1) / n_win;
+        s.nbuf = bufs[c];
+        break;
+      }
+    }
+  if (s.kwin == 0) return kErrSharedMemory;
+  s.n_win = (K + s.kwin - 1) / s.kwin;
+  // no more k-step warps than a window's k-steps keep busy: on short rows
+  // smaller blocks, more of them an SM, cover each other's copies
+  {
+    F32Plan t = s;
+    size(s.kwin, s.nbuf, &t);
+    const int kw = t.NKS / kStepsPerWarp;
+    s.KW = kw < 1 ? 1 : (kw < s.KW ? kw : s.KW);
+  }
+  size(s.kwin, s.nbuf, &s);
+
+  // the blocks the card holds at once, from the occupancy of this very
+  // kernel, times kF32Waves: no row chunk past the last whole wave
+  int per_sm = 0;
+  code = by_tile(nullptr, nullptr, nullptr, s, nullptr, &per_sm);
+  if (code != 0) return code;
+  if (per_sm < 1) per_sm = 1;
+  const int rows = group * I * J;
+  const int per_chunk_blocks = T * s.n_mg * s.n_ng;
+  int chunks = kF32Waves * per_sm * d.sms / per_chunk_blocks;
+  if (chunks < 1) chunks = 1;
+  if (chunks > rows) chunks = rows;
+  s.rows_per_chunk = (rows + chunks - 1) / chunks;
+  s.n_chunks = (rows + s.rows_per_chunk - 1) / s.rows_per_chunk;
+  const int64_t n_el = (int64_t)T * T * C * O;
+  const int64_t group_pos = (int64_t)group * sample_pos;
+  call->s = s;
+  call->batch = B, call->group = group, call->n_groups = b_groups;
+  call->partial_floats =
+      ((int64_t)b_groups * s.n_chunks * n_el + 3) / 4 * 4;
+  call->xs_f2 = (group_pos * split_stride(C) + 1) & ~int64_t(1);
+  call->workspace = call->partial_floats +
+                    2 * (call->xs_f2 + group_pos * split_stride(O));
+  return 0;
+}
+
+// make_f32_plan for the last shape this thread planned on this device, from
+// a cache: the wrapper asks for the workspace, then launches, and every
+// call of a training run repeats a few shapes, while a plan costs several
+// CUDA queries (the occupancy among them) of host time, most of a small
+// layer's call.
+int cached_f32_plan(int B, int I, int J, int K, int L, int C, int O, int ks,
+                    F32Call* out) {
+  struct Entry {
+    int key[9];
+    F32Call call;
+  };
+  constexpr int kEntries = 8;
+  thread_local Entry cache[kEntries];
+  thread_local int used = 0, next = 0;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int key[9] = {dev, B, I, J, K, L, C, O, ks};
+  for (int e = 0; e < used; ++e) {
+    bool same = true;
+    for (int k = 0; k < 9; ++k) same = same && cache[e].key[k] == key[k];
+    if (same) {
+      *out = cache[e].call;
+      return 0;
+    }
+  }
+  const int code = make_f32_plan(B, I, J, K, L, C, O, ks, out);
+  if (code != 0) return code;
+  Entry& e = cache[next];
+  for (int k = 0; k < 9; ++k) e.key[k] = key[k];
+  e.call = *out;
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  return 0;
+}
+
+// Per group of samples: split its x and g, then pass 1 into its chunks'
+// partials (a short last group's chunks past its rows write zeros); then
+// pass 2 over every group's chunks in order.
+int run_f32(const float* x, const float* g, float* work, float* dw,
+            const F32Call& call, cudaStream_t st) {
+  const F32Plan& s = call.s;
+  const int64_t sample_pos = (int64_t)s.I * s.J * s.K * s.L;
+  const int CS = split_stride(s.C), OS = split_stride(s.O);
+  const int T = s.ks * s.ks;
+  const int64_t n_el = (int64_t)T * T * s.C * s.O;
+  float2* xs = reinterpret_cast<float2*>(work + call.partial_floats);
+  float2* gs = xs + call.xs_f2;
+  auto split = [&](const float* src, float2* dst, int64_t n_pos, int C,
+                   int stride) {
+    const int64_t n = n_pos * stride;
+    const int64_t want = (n + kSplitThreads - 1) / kSplitThreads;
+    const int blocks = (int)(want < (1 << 20) ? want : (1 << 20));
+    conv4d_dw_split_f32<<<blocks, kSplitThreads, 0, st>>>(src, dst, n_pos, C,
+                                                          stride);
+    return (int)cudaGetLastError();
+  };
+  for (int grp = 0; grp < call.n_groups; ++grp) {
+    const int b0 = grp * call.group;
+    F32Plan sg = s;
+    sg.B = call.batch - b0 < call.group ? call.batch - b0 : call.group;
+    const int64_t pos0 = (int64_t)b0 * sample_pos;
+    const int64_t n_pos = (int64_t)sg.B * sample_pos;
+    int code = split(x + pos0 * s.C, xs, n_pos, s.C, CS);
+    if (code == 0) code = split(g + pos0 * s.O, gs, n_pos, s.O, OS);
+    if (code == 0)
+      code = by_tile(xs, gs, work + (int64_t)grp * s.n_chunks * n_el, sg, st,
+                     nullptr);
+    if (code != 0) return code;
+  }
+  const int n_chunks = call.n_groups * s.n_chunks;
+  // a warp an element where one thread an element would leave most of the
+  // card idle
+  const int log2_g = n_el < (1 << 16) ? 5 : 0;
+  const int64_t threads = n_el << log2_g;
+  const int blocks = (int)((threads + kReduceThreads - 1) / kReduceThreads);
+  conv4d_dw_reduce_f32<<<blocks, kReduceThreads, 0, st>>>(
+      work, dw, n_chunks, n_el, log2_g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. With partial == NULL only the plan is
-// made: *workspace receives the partial buffer's size in floats and nothing
-// is launched. Otherwise partial must hold at least that many floats, and
-// both passes are launched on `stream`. Returns 0 on success, a cudaError_t
-// value (> 0) when CUDA refused a launch, or a negative code below.
+// dtype: 0 = float32, 1 = bfloat16. `workspace` points at two values:
+// workspace[1] receives the launches of pass 1 a call makes (float32: one a
+// group of samples; bfloat16: 1). With partial == NULL only the plan is
+// made: workspace[0] receives the partial buffer's size in floats and
+// nothing is launched. Otherwise partial must hold at least that many
+// floats, and every pass is launched on `stream`. Returns 0 on success, a
+// cudaError_t value (> 0) when CUDA refused a launch, or a negative code
+// below.
 int conv4d_dw(const void* x, const void* g, float* partial, float* dw,
               long long* workspace, int dtype, int B, int I, int J, int K,
               int L, int C, int O, int ks, void* stream) {
   if (dtype != 0 && dtype != 1) return kErrDtype;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int code, n_chunks, n_pg;
-  if (dtype == 1) {
-    TcPlan s;
-    code = make_tc_plan(B, I, J, K, L, C, O, ks, x, g, &s);
+  if (dtype == 0) {
+    F32Call call;
+    const int code = cached_f32_plan(B, I, J, K, L, C, O, ks, &call);
     if (code != 0) return code;
+    workspace[1] = call.n_groups;
     if (partial == nullptr) {
-      *workspace = (long long)s.workspace;
+      *workspace = (long long)call.workspace;
       return 0;
     }
-    if (*workspace < (long long)s.workspace) return kErrWorkspace;
-    code = dispatch_tc(x, g, partial, s, st);
-    n_chunks = s.n_chunks;
-    n_pg = s.KW;
-  } else {
-    Plan s;
-    code = make_plan(B, I, J, K, L, C, O, ks, &s);
-    if (code != 0) return code;
-    if (partial == nullptr) {
-      *workspace = (long long)s.workspace;
-      return 0;
-    }
-    if (*workspace < (long long)s.workspace) return kErrWorkspace;
-    code = dispatch<float>(x, g, partial, s, st);
-    n_chunks = s.n_chunks;
-    n_pg = s.n_pg;
+    if (*workspace < (long long)call.workspace) return kErrWorkspace;
+    return run_f32(static_cast<const float*>(x), static_cast<const float*>(g),
+                   partial, dw, call, st);
   }
+  TcPlan s;
+  int code = make_tc_plan(B, I, J, K, L, C, O, ks, x, g, &s);
+  if (code != 0) return code;
+  workspace[1] = 1;
+  if (partial == nullptr) {
+    *workspace = (long long)s.workspace;
+    return 0;
+  }
+  if (*workspace < (long long)s.workspace) return kErrWorkspace;
+  code = dispatch_tc(x, g, partial, s, st);
   if (code != 0) return code;
   const int ks2 = ks * ks;
   const int per_tap = ks2 * C * O;
   const int64_t n = (int64_t)ks2 * per_tap;
   const int blocks = (int)((n + kReduceThreads - 1) / kReduceThreads);
   conv4d_dw_reduce<<<blocks, kReduceThreads, 0, st>>>(
-      partial, dw, n_chunks, ks2, n_pg, per_tap);
+      partial, dw, s.n_chunks, ks2, s.KW, per_tap);
   return (int)cudaGetLastError();
 }
 
@@ -917,10 +1358,8 @@ const char* conv4d_dw_error_string(int code) {
     case kErrSharedMemory:
       return "one k-row window (its (1+2p) x (L+2p) halo and L positions of "
              "g) exceeds the block's shared memory: the grid's last dim L is "
-             "too wide (about 590 at 16 channels)";
-    case kErrUnits:
-      return "too many (tap, channel tile) units for one block: "
-             "ks^2 * ceil(C/CT) * ceil(O/OT) must be <= 384";
+             "too wide (at 16 channels about 590 in bfloat16, 290 in "
+             "float32)";
     case kErrDtype:
       return "dtype not taken: float32 (0) or bfloat16 (1)";
     case kErrWorkspace:

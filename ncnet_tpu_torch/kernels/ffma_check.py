@@ -30,6 +30,7 @@ from ncnet_tpu_torch.kernels.conv4d import (
     Conv4dInputGradKernel,
     flip_transpose,
 )
+from ncnet_tpu_torch.kernels.measure import time_ms
 from ncnet_tpu_torch.ops.conv4d import conv4d_plain
 
 #: (name, x shape [b, i, j, k, l], ks, cin, cout, pass): "fwd" runs the
@@ -70,19 +71,6 @@ def inputs(shape, ks, cin, cout, seed):
     b = (torch.rand(cout, generator=g, device="cuda") * 2 - 1) * bound
     gr = torch.randn(*shape, cout, generator=g, device="cuda")
     return x, w, b, gr
-
-
-def time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def main(argv=None):

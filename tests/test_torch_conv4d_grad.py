@@ -22,9 +22,9 @@ from ncnet_tpu_torch.ops.conv4d import (
     conv4d_plain,
 )
 
-# float32 sums of at most b*i*j*k*l = 960 products (dw) or k^4*c = 2500
-# (dx) in another order than XLA's: the starting tolerance holds, the
-# absolute part relative to the gradient's scale
+# float32 sums of at most b*i*j*k*l = 960 products (dw) or k^4*c = 40,000
+# (dx: the 16->64 case) in another order than XLA's: the starting
+# tolerance holds, the absolute part relative to the gradient's scale
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -47,6 +47,10 @@ CASES = [
     ((2, 4, 3, 5, 6), 3, 4, 1),  # rectangular grid
     ((1, 3, 4, 3, 4), 5, 4, 1),  # grid smaller than the kernel
     ((2, 3, 3, 4, 3), 5, 1, 4),
+    # C4: shapes the float32 dw kernel once refused (more than 384 (tap,
+    # channel tile) units); the reference computes them
+    ((1, 3, 4, 3, 4), 5, 16, 64),
+    ((1, 3, 3, 4, 3), 7, 32, 16),
 ]
 
 

@@ -220,10 +220,39 @@ def test_dx_kernel_matches_plain(card, case, dtype):
     assert err <= tol * scale, (err, scale)
 
 
+DW_CASES = CASES + [
+    # (x shape [b,i,j,k,l], k, cin, cout): shapes the float32 route before
+    # split-TF32 refused (C4: more than 384 (tap, channel tile) units) ...
+    ((2, 6, 7, 9, 11), 5, 16, 64),
+    ((2, 7, 6, 11, 9), 5, 64, 16),
+    ((2, 6, 5, 9, 10), 7, 32, 16),
+    ((1, 5, 6, 12, 13), 11, 16, 16),
+    # ... the synthetic convergence run's layers ...
+    ((16, 8, 8, 8, 8), 3, 1, 16),
+    ((16, 8, 8, 8, 8), 3, 16, 1),
+    # ... 1,009 rows (a prime): every chunk plan leaves a ragged last
+    # chunk, in the channel mode and in the taps mode ...
+    ((1, 1, 1009, 4, 5), 5, 16, 16),
+    ((1, 1009, 1, 5, 4), 5, 1, 16),
+    # ... a row too wide for two staged windows (one buffer) ...
+    ((1, 2, 3, 3, 150), 5, 16, 16),
+    # ... one input channel at an odd count of positions (the float32 x
+    # copy's float2 rounded up to even, so the g copy after it is 16-byte
+    # aligned for cp.async) ...
+    ((1, 5, 5, 5, 5), 5, 1, 16),
+    ((1, 25, 25, 25, 25), 5, 1, 16),
+    ((3, 3, 5, 7, 3), 3, 1, 2),
+    # ... and a batch cut into groups of samples (the float32 route splits
+    # at most 1 GiB of x and g copies at a time; 100 MB a sample here):
+    # 11 samples in groups of 6 and 5
+    ((11, 25, 25, 25, 25), 5, 16, 16),
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", range(len(CASES)))
+@pytest.mark.parametrize("case", range(len(DW_CASES)))
 def test_dw_kernel_matches_plain(card, case, dtype):
-    shape, k, cin, cout = CASES[case]
+    shape, k, cin, cout = DW_CASES[case]
     dt = getattr(torch, dtype)
     x, _, _ = _inputs(shape, k, cin, cout, case, card)
     g = torch.randn(*shape, cout, generator=torch.Generator(device=card)
@@ -237,9 +266,14 @@ def test_dw_kernel_matches_plain(card, case, dtype):
     want = conv4d_dw_plain(x, g, k)
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    # both sum the same float32 products (bfloat16 inputs are exact in
-    # float32) of up to b*i*j*k*l = 781,250 positions in other orders;
-    # neither rounds its result to bfloat16
+    # sums of up to b*i*j*k*l = 4,296,875 positions in other orders. In
+    # bfloat16 both sum the same float32 products (the inputs are exact in
+    # float32), and neither rounds its result to bfloat16. In float32 the
+    # kernel's terms are split-TF32 products (lo*hi + hi*lo + hi*hi, the
+    # lo*lo part, about 2^-22 relative, dropped), summed in the tensor
+    # cores and drained into float32 every DW_PARTIAL_K8 k8 steps, so its
+    # terms are not the plain version's float32 products
+    assert bool(torch.isfinite(got).all())
     assert err <= 1e-4 * scale, (err, scale)
     # no atomics: a second launch is bitwise the first
     assert torch.equal(conv4d_dw(x, g, k), got)

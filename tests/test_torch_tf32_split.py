@@ -19,15 +19,23 @@ long sum inside the tensor cores would lose most of the split's gain.
 This file imports neither JAX nor the JAX package.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from ncnet_tpu_torch.kernels.conv4d import float32_route, route
+from ncnet_tpu_torch.kernels.conv4d_dw import DW_PARTIAL_K8, SOURCE as DW_SOURCE
 from ncnet_tpu_torch.ops.conv4d import conv4d_plain
 
 # the serving check of chip_smoke.py: kernel vs plain, relative to max |out|
 SERVE_TOL = 1e-4
+# chip_smoke.py's dw check (DW_TOL[float32], relative to max |dw|) and its
+# NC gradient rule: within GRAD_RATIO times the plain float32 version's own
+# error, or GRAD_TOL of the scale where that is larger
+DW_TOL = 1e-4
+GRAD_TOL, GRAD_RATIO = 1e-4, 4.0
 
 
 def cvt_rna_tf32(a):
@@ -170,6 +178,60 @@ def test_one_long_tensor_core_sum_loses_the_split():
     partials = np.abs(mma_sum(pairs, a.shape[1]) - ref).max() / scale
     assert long_sum > 1e-5, long_sum
     assert partials <= long_sum / 10, (partials, long_sum)
+
+
+def _dw_contraction(seed, n=40_000, cin=16, cout=16):
+    """One (di, dj, dk, dl) slice of a 16->16 dw as the float32 route sums
+    it: x^T [cin, n] after a ReLU and a signed g [n, cout] over n positions
+    (the 25^4 grid's 2-sample dw sums 781,250), the float64 answer, and the
+    error of the plain float32 sum (a product, then one add, a position at
+    a time), each relative to max |dw|."""
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.standard_normal((cin, n)), 0).astype(np.float32)
+    g = rng.standard_normal((n, cout)).astype(np.float32)
+    ref = x.astype(np.float64) @ g.astype(np.float64)
+    scale = np.abs(ref).max()
+    plain = np.cumsum(x.T[:, :, None] * g[:, None, :], axis=0, dtype=np.float32)[-1]
+    x_hi, x_lo = tf32_split(x)
+    g_hi, g_lo = tf32_split(g)
+    pairs = [(x_lo, g_hi), (x_hi, g_lo), (x_hi, g_hi)]
+    return pairs, ref, scale, np.abs(plain - ref).max() / scale
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dw_drained_split_holds_dw_tol_and_the_gradient_rule(seed):
+    """The float32 dw route: per k8 step lo*hi, hi*lo, hi*hi into a partial
+    that rounds toward zero, drained into float32 every DW_PARTIAL_K8
+    steps."""
+    pairs, ref, scale, err32 = _dw_contraction(seed)
+    got = mma_sum(pairs, pairs[0][0].shape[1], DW_PARTIAL_K8)
+    err = np.abs(got - ref).max() / scale
+    assert err <= DW_TOL, err
+    assert err <= max(GRAD_RATIO * err32, GRAD_TOL), (err, err32)
+    # the emulation's error is a small share of the check's: about 2e-6
+    assert err <= DW_TOL / 20, err
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dw_one_undrained_tensor_core_sum_misses_the_gradient_rule(seed):
+    """Kept in the tensor cores the whole way, the same sum drifts toward
+    zero by more than the gradient check allows."""
+    pairs, ref, scale, err32 = _dw_contraction(seed)
+    got = mma_sum(pairs, pairs[0][0].shape[1], None)
+    err = np.abs(got - ref).max() / scale
+    assert err > max(GRAD_RATIO * err32, GRAD_TOL), (err, err32)
+
+
+def test_dw_kernel_drains_at_the_emulated_cadence():
+    """The kernel's kDrainK8 is the wrapper's DW_PARTIAL_K8, the cadence the
+    tests above emulate."""
+    with open(DW_SOURCE) as f:
+        src = f.read()
+    found = re.findall(r"constexpr int kDrainK8 = (\d+);", src)
+    assert found == [str(DW_PARTIAL_K8)], found
+    # the k-step loop zeroes a partial for each k-step's three products and
+    # adds it into the float32 sums: the cadence the constant names
+    assert "static_assert(kDrainK8 == 1," in src
 
 
 @pytest.mark.parametrize(
