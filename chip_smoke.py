@@ -187,10 +187,50 @@ Phases, one JSON line each:
              error); the pair's stage times; each conv4d
              layer at the pooled [1, 100, 75, 75, 100] grid and its
              transpose against its plain version (TOL), repeated bitwise,
-             timed beside its plain version and bound.
+             timed beside its plain version and bound. Then the same dump
+             through the device route (``device_preprocess`` and
+             ``device_resize``: uint8 images, the panos upscaled and every
+             image normalized on the card): its .mat against the host
+             route's (the contract; the scores of the rows both hold within
+             INLOC_TOL), one pair's correlation through the device route
+             against the host route's by the tie gate above (each pick
+             short of the best by at most twice their difference), the same
+             launches, and each route's host, transfer and device time for
+             the query and a pano.
+12. finetune — trunk fine-tuning (``--fe_finetune_params 1``: layer3's
+             last bottleneck with the head) at the PF-Pascal config on a
+             model of its own (seed 0): the first NC layer's dx (a 16->1
+             contraction) at the step's shape, 32 samples on 25^4,
+             bfloat16 (O = 1 tensor cores) and float32 (FFMA, also bit for
+             bit the chain oracle), against its plain version, repeated
+             bitwise, timed beside the plain version and the bound; the
+             tail unit's gradients (its convs and all four BN tensors) of 2
+             pairs through the kernels against the plain route in float64
+             (gated as 9a); FT_BF16_STEPS bfloat16 and FT_F32_STEPS float32
+             steps at batch 16 (the counts set to 0 just before): finite
+             losses, the first equal to the frozen-trunk loss on the same
+             batch and weights (bitwise, or within SERVE_TOL), the tail
+             moved, every other trunk tensor bitwise unchanged, 6 conv4d
+             forward, 6 dx and 6 dw launches a step; the step's stages
+             (trunk forward with its grad tail, pipeline forward and loss,
+             backward with the first layer's dx and the tail's backward
+             inside it, Adam) and peak memory.
+13. finetune_band — the same at ``--nc_topk 50``: the band dx of the
+             first band layer (16 into 1) on one training batch's K = 50
+             band, both passes, against ``band_dx_plain``, repeated
+             bitwise; the tail's gradients with the band's selection held
+             fixed; 12 band forward, 12 dx and 12 dw launches a step and no
+             conv4d launch.
+14. trunks — VGG-16 and DenseNet-201 at 400 px (NC 5-5-5 / 16-16-1): a
+             float32 4-pair serving batch through the kernels against the
+             plain conv4d (every pair's readouts up to ties), the trunk's
+             ms a batch of 8 images, and a bfloat16 training step at batch
+             16 with the trunk frozen and one with its last tail unit
+             trainable, finite losses and 15 / 10 / 12 conv4d launches.
 Then the ``{"kernels": [...]}`` line (``launches_by_path`` per kernel:
-serve, serve_band, train, eval, inloc, train_band, synthetic_band), the
-nvidia-smi line, and last
+serve, serve_band, train, eval, inloc, inloc_device_route, train_band,
+synthetic_band, finetune, finetune_band, trunks), the nvidia-smi line,
+and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Needs one card; exits non-zero without CUDA.
 """
@@ -333,6 +373,10 @@ BAND_GRAD_TOL = 1e-2
 # moves a few of that layer's gradient elements by up to 1% of its max
 # (CPU runs at 64 px: L2 2.7e-3; at 192 px: under 2e-5); a wrong backward
 # is off by its own size.
+# trunk fine-tuning (--fe_finetune_params): the last layer3 bottleneck
+# trains with the head; 3 bfloat16 steps, then 1 float32 step
+FT_BLOCKS = 1
+FT_BF16_STEPS, FT_F32_STEPS = 3, 1
 FULL_K_LOSS_TOL = 1e-8
 FULL_K_GRAD_TOL = 1e-2
 
@@ -2013,6 +2057,22 @@ def phase_inloc(smi, kernels, conv4d_plain):
         dump_s = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}
         mat = loadmat(os.path.join(out_dir, "1.mat"))
+        # the same dump through the device route (uint8 images, the panos'
+        # upscale and every normalize on the card)
+        dev_dir = os.path.join(root, "matches_device")
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inloc.dump_matches(
+            model, config, shortlist, root, root, dev_dir,
+            image_size=INLOC_SIZE, n_queries=1, n_panos=len(panos),
+            verbose=False, device_preprocess=True, device_resize=True,
+            read_image=lambda p: np.load(p).astype(np.float32))
+        dev_dump_s = time.perf_counter() - t0
+        dev_launches = {n: k.launches for n, k in kernels.items()}
+        dev_mat = loadmat(os.path.join(dev_dir, "1.mat"))
+        routes = inloc_routes(model, config, root, inloc)
     m = mat["matches"]
     filled = [int((np.abs(m[0, p]).sum(axis=1) > 0).sum()) for p in range(len(panos))]
     problems = []
@@ -2026,6 +2086,9 @@ def phase_inloc(smi, kernels, conv4d_plain):
     if launches["conv4d_fwd"] != 4 * len(panos) or done["pairs"] != len(panos):
         problems.append(f"conv4d launches {launches['conv4d_fwd']} != 4 x "
                         f"{len(panos)} pairs")
+    if dev_launches != launches:
+        problems.append(f"device route launches {dev_launches} != {launches}")
+    route_check = mat_route_check(m, dev_mat["matches"])
 
     # one pair: readout against the plain forward, and its stage times
     t0 = time.perf_counter()
@@ -2067,6 +2130,25 @@ def phase_inloc(smi, kernels, conv4d_plain):
             and bool(torch.isfinite(corr_k).all())):
         problems.append(f"readout disagrees with the plain forward: {readout}")
     del corr_p, delta_p
+    # the device route's pair against the host route's, by the same tie
+    # gate: its picks on the host route's correlation short of the best by
+    # no more than the two correlations differ (the uint8 rounding of the
+    # resized pixels moves the correlation; it is reported, not bounded)
+    with torch.inference_mode():
+        dsrc = inloc.device_normalize(torch.from_numpy(to_uint8_image(
+            resize_bilinear_np(query, *src.shape[1:3]))[None]).cuda())
+        u8 = torch.from_numpy(panos[0][None]).cuda()
+        dtgt = inloc.device_normalize(inloc.device_resize_uint8(u8, *tgt.shape[1:3]))
+        corr_d, delta_d = immatchnet_apply(model, config, dsrc, dtgt)
+        differ_d, shortfall_d = inloc_readout_check(corr_d, corr_k)
+        corr_err_d = float((corr_d - corr_k).abs().max() / corr_k.abs().max())
+    route_check.update(pair_corr_max_rel_err=corr_err_d, pair_picks_differing=differ_d,
+                       pair_max_shortfall_rel=shortfall_d)
+    route_check["ok"] = bool(route_check["ok"] and shortfall_d <= 2 * corr_err_d + 1e-6
+                             and bool(torch.isfinite(corr_d).all()))
+    if not route_check["ok"]:
+        problems.append(f"the device route fails the gate: {route_check}")
+    del corr_d, delta_d, dsrc, dtgt
 
     match_fn = inloc.make_match_fn(config, concat_directions=True)
     kw = dict(scale="positive", do_softmax=True, delta4d=delta_k, k_size=INLOC_K)
@@ -2103,6 +2185,8 @@ def phase_inloc(smi, kernels, conv4d_plain):
             "matches_after_dedup": len(rows[0]),
             "forward_and_readout": time_ms(lambda: match_fn(model, src, tgt), 2),
             "dump_ms_per_pair": 1e3 * dump_s / len(panos),
+            "dump_ms_per_pair_device_route": 1e3 * dev_dump_s / len(panos),
+            "routes": routes,
         }
         del fa, fb, pooled, mm, filtered, out
     torch.cuda.empty_cache()
@@ -2113,10 +2197,84 @@ def phase_inloc(smi, kernels, conv4d_plain):
           "src_shape": list(src.shape), "tgt_shape": list(tgt.shape),
           "mat_shape": list(m.shape), "filled_slots": filled,
           "written": done["written"], "launches": launches,
+          "device_route_launches": dev_launches, "device_route_mat": route_check,
           "readout": readout, "stages_ms": stages, "layers": layers})
     if problems:
         raise AssertionError("; ".join(problems))
-    return launches, layers
+    return {"host": launches, "device": dev_launches}, layers
+
+
+def mat_route_check(host, device):
+    """The device route's ``.mat`` against the host route's: the contract
+    (shape, finite coordinates in [0, 1]) and the scores of the match rows
+    both routes hold (the same four coordinates) within INLOC_TOL of the
+    host route's largest; the share of the host route's rows the device
+    route holds too is reported (a near-tied pick may go either way)."""
+    out = {"shape": list(device.shape), "panos": []}
+    ok = (device.shape == host.shape and bool(np.isfinite(device).all())
+          and bool((device[..., :4] >= 0).all() and (device[..., :4] <= 1).all()))
+    for p in range(host.shape[1]):
+        h, d = host[0, p], device[0, p]
+        h = h[np.abs(h).sum(axis=1) > 0]
+        d = d[np.abs(d).sum(axis=1) > 0]
+        hk = {tuple(r[:4]): r[4] for r in h}
+        dk = {tuple(r[:4]): r[4] for r in d}
+        common = hk.keys() & dk.keys()
+        share = len(common) / max(len(hk), 1)
+        scale = float(np.abs(h[:, 4]).max()) if len(h) else 1.0
+        score_err = (max(abs(hk[c] - dk[c]) for c in common) / scale
+                     if common else float("inf"))
+        out["panos"].append({"rows_host": len(hk), "rows_device": len(dk),
+                             "shared_share": share, "score_max_rel_err": score_err})
+        ok &= score_err <= INLOC_TOL
+    out.update(ok=bool(ok), tol_rel=INLOC_TOL)
+    return out
+
+
+def inloc_routes(model, config, root, inloc):
+    """Per image (the query, which the quantized resize shrinks, and pano
+    0, which it enlarges), each route's host time (read, resize where the
+    host does it, normalize or uint8), transfer time (the host array to
+    the card) and device time (the device route's resize and normalize,
+    then both routes' forward and readout of the pair)."""
+    out = {}
+    shapes = {}
+    for route, kw in (("host", {}),
+                      ("device", dict(device_normalize=True, device_resize=True))):
+        fn = inloc.make_match_fn(config, device_preprocess=route == "device",
+                                 concat_directions=True)
+        rec, on_card = {}, {}
+        for name in ("query", "pano0"):
+            path = os.path.join(root, f"{name}.npy")
+            t0 = time.perf_counter()
+            arr = inloc.load_and_preprocess(path, INLOC_SIZE, INLOC_K, read_image=lambda
+                                            p: np.load(p).astype(np.float32), **kw)
+            host = 1e3 * (time.perf_counter() - t0)
+            arr, hw = arr if route == "device" else (arr, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = torch.from_numpy(arr).cuda()
+            torch.cuda.synchronize()
+            transfer = 1e3 * (time.perf_counter() - t0)
+            resize = (time_ms(lambda: inloc.device_resize_uint8(t, *hw), reps=3)
+                      if hw is not None else 0.0)
+            on_card[name] = t if hw is None else inloc.device_resize_uint8(t, *hw)
+            rec[name] = {"host_ms": host, "transfer_ms": transfer,
+                         "transfer_mbytes": arr.nbytes / 1e6,
+                         "device_resize_ms": resize, "shipped": list(arr.shape),
+                         "resized_on_card_to": list(hw) if hw else None}
+        with torch.inference_mode():
+            rec["pair_forward_readout_ms"] = time_ms(
+                lambda: fn(model, on_card["query"], on_card["pano0"]), reps=2)
+        shapes[route] = [list(v.shape) for v in on_card.values()]
+        rec["host_ms"] = sum(rec[n]["host_ms"] for n in ("query", "pano0"))
+        rec["transfer_ms"] = sum(rec[n]["transfer_ms"] for n in ("query", "pano0"))
+        rec["device_ms"] = (sum(rec[n]["device_resize_ms"] for n in ("query", "pano0"))
+                            + rec["pair_forward_readout_ms"])
+        out[route] = rec
+    if shapes["host"] != shapes["device"]:
+        raise AssertionError(f"the routes feed different shapes: {shapes}")
+    return out
 
 
 def inloc_layers(conv4d_fwd, conv4d_plain, grid):
@@ -2696,6 +2854,403 @@ def phase_train_band(smi, model, config, kernels):
     return {"train_band": launches, "synthetic_band": synth["launches"]}
 
 
+# -- trunk fine-tuning, the other trunks ------------------------------------
+
+
+def first_layer_dx(kernels, dx_plain, dtype):
+    """conv4d dx at the 1->16 layer (a 16->1 contraction of the 16-channel
+    cotangent), at a fine-tuning step's shape (TRAIN_SAMPLES on 25^4, 5^4):
+    against its plain version under TOL, repeated bitwise, the float32
+    FFMA route also bit for bit the chain oracle; timed beside the plain
+    version and the bound (the 1->16 forward's multiply-adds)."""
+    from ncnet_tpu_torch.kernels.conv4d import flip_transpose, route
+
+    shape = (TRAIN_SAMPLES, GRID, GRID, GRID, GRID)
+    _, w, _ = nc_inputs((1, 1, 1, 1, 1), 1, 16, dtype, seed=300)
+    gr = torch.randn(*shape, 16, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(301)).to(dtype)
+    kern = lambda: kernels["conv4d_dx"](gr, w)  # noqa: E731
+    ms = time_ms(kern, reps=3)
+    plain_ms = time_ms(lambda: dx_plain(gr, w), reps=1)
+    got, again = kern(), kern()
+    bitwise = bool(torch.equal(got, again))
+    del again
+    oracle = (ffma_oracle_bitwise(kernels["conv4d_fwd"], got, gr, flip_transpose(w))
+              if dtype == torch.float32 else None)
+    want = dx_plain(gr.float(), w.float())
+    got = got.float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = (bool(torch.isfinite(got).all()) and err <= TOL[dtype] * scale and bitwise
+          and oracle is not False)
+    bms, by, flops = bound_ms(shape, 1, 16, dtype, KSIZE)
+    rec = {"layer": 0, "kernel": "conv4d_dx", "shape": list(shape), "cin": 1,
+           "cout": 16, "contraction": "16->1", "dtype": str(dtype).split(".")[1],
+           "route": route(dtype, 16, 1), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "gflop": flops / 1e9,
+           "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": TOL[dtype],
+           "bitwise_repeat": bitwise, "oracle_bitwise": oracle, "ok": ok}
+    if dtype == torch.float32:
+        rec["ffma_bound_ms"] = ffma_bound_ms(flops)
+    del got, want, gr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def band_first_layer_dx(kernels, model, config):
+    """The band dx at the first band layer (16 cotangent channels into 1),
+    K = 50 on one training batch's band, both passes, bfloat16: against
+    `band_dx_plain` (per sample, float32 sums of the same inputs), repeated
+    bitwise, timed beside the plain version and the bound."""
+    from ncnet_tpu_torch.ops.band import band_dx_plain
+
+    dtype = torch.bfloat16
+    idx, grid_b = training_band(model, config, SEED + 21)
+    out = []
+    for name, geom in band_geometries(idx, grid_b).items():
+        subs = sample_geometries(geom)
+        hits = geom.hits((KSIZE,) * 4)
+        n = geom.indices[0].numel()
+        _, w, _ = band_layer_inputs(TRAIN_BATCH, n, 1, 16, dtype, seed=310)
+        gen = torch.Generator(device="cuda").manual_seed(311)
+        gp = torch.randn(TRAIN_BATCH, n, 16, generator=gen, device="cuda")
+        gp = (gp * (torch.rand(gp.shape, generator=gen, device="cuda") > 0.5)).to(dtype)
+
+        def per_sample(fn):
+            return torch.cat([fn(gp[i:i + 1], g) for i, g in enumerate(subs)])
+
+        kern = lambda: kernels["band_gemm_dx"](gp, w, hits)  # noqa: E731
+        ms = time_ms(kern, reps=5)
+        plain_ms = time_ms(lambda: per_sample(lambda gg, g: band_dx_plain(gg, w, g)), 1)
+        got, again = kern(), kern()
+        bitwise = bool(torch.equal(got, again))
+        want = per_sample(lambda gg, g: band_dx_plain(gg.float(), w.float(), g))
+        got = got.float()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        ok = (bool(torch.isfinite(got).all()) and err <= BAND_GRAD_TOL * scale
+              and bitwise and got.shape == (TRAIN_BATCH, n, 1))
+        out.append({"layer": 0, "kernel": "band_gemm_dx", "pass": name,
+                    "shape": [TRAIN_BATCH, n], "cin": 1, "cout": 16,
+                    "contraction": "16->1", "k": TRAIN_K, "dtype": "bfloat16",
+                    "path": "finetune_band", "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err, "max_rel_err": err / scale,
+                    "tol_rel": BAND_GRAD_TOL, "bitwise_repeat": bitwise, "ok": ok,
+                    **band_bound_ms(geom, 1, 16, dtype)})
+        del subs, hits, got, again, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def tail_grad_check(model, config, state, band):
+    """The trunk tail's gradients (every tensor of the trainable unit) of
+    the weak loss's positive term, 2 pairs, float32 through the kernels,
+    against the plain NC route (cuDNN conv3d, or the plain band layer) in
+    float64 from the same float32 features; the plain route in float32
+    beside it. Gated as the NC gradient check (GRAD_RATIO, GRAD_TOL). On
+    the band the selection is held fixed and the band values are gathered
+    from the differentiable correlation."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features, match_pipeline
+    from ncnet_tpu_torch.ops.band import band_layer, band_layer_plain, topk_band
+    from ncnet_tpu_torch.ops.conv4d import conv4d_plain
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.sparse import band_mutual_matching, sparse_neigh_consensus_apply
+    from ncnet_tpu_torch.sparse.score import band_match_score_per_sample
+    from ncnet_tpu_torch.train.loss import match_score
+
+    f32 = config.replace(half_precision=False, nc_topk=TRAIN_K if band else 0)
+    batch = synthetic_batch(2, SEED + 20)
+    params = state.optimizer.param_groups[0]["params"]
+    tail = [(p, t) for p, t in zip(state.paths, params) if p[0] == "fe_tail"]
+    nc = model.neigh_consensus
+    if band:
+        with torch.no_grad():
+            fa = extract_features(model, f32, batch["source_image"])
+            fb = extract_features(model, f32, batch["target_image"])
+            corr = correlation_4d(fa, fb)
+            _, idx = topk_band(corr, TRAIN_K, values_from=mutual_matching(corr),
+                               mutual=True)
+        grid_b = (fb.shape[1], fb.shape[2])
+
+    def grads(dtype, plain):
+        for t in params:
+            t.grad = None
+        fa = extract_features(model, f32, batch["source_image"]).to(dtype)
+        fb = extract_features(model, f32, batch["target_image"]).to(dtype)
+        if band:
+            corr = mutual_matching(correlation_4d(fa, fb))
+            values = corr.reshape(*idx.shape[:3], -1).gather(-1, idx.long())
+            out = sparse_neigh_consensus_apply(
+                nc.params(), values, idx, grid_b, symmetric=f32.symmetric_mode,
+                layer=band_layer_plain if plain else band_layer)
+            loss = -band_match_score_per_sample(
+                band_mutual_matching(out, idx, grid_b), idx, grid_b).mean()
+        else:
+            conv = nc.conv
+            if plain:
+                nc.conv = conv4d_plain
+            try:
+                loss = -match_score(match_pipeline(nc, f32, fa, fb))
+            finally:
+                nc.conv = conv
+        loss.backward()
+        return float(loss.detach()), [t.grad.clone() for _, t in tail]
+
+    loss_k, gk_all = grads(torch.float32, False)
+    loss_p, gp_all = grads(torch.float64, True)
+    _, g32_all = grads(torch.float32, True)
+    for t in params:
+        t.grad = None
+    checks = []
+    for (path, _), gk, gp, g32 in zip(tail, gk_all, gp_all, g32_all):
+        scale = float(gp.abs().max())
+        err = float((gk.double() - gp.double()).abs().max())
+        err32 = float((g32.double() - gp.double()).abs().max())
+        checks.append({"tensor": "/".join(map(str, path)), "max_abs_err": err,
+                       "scale": scale, "plain_f32_max_abs_err": err32,
+                       "loss": [loss_k, loss_p],
+                       "ok": (bool(torch.isfinite(gk).all())
+                              and err <= max(GRAD_RATIO * err32, GRAD_TOL * scale)
+                              and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p))})
+    torch.cuda.empty_cache()
+    return checks
+
+
+def finetune_stage_breakdown(model, config, batch, optimizer, band):
+    """CUDA-event times of one fine-tuning step: the trunk forward (its
+    tail with grad), the pipeline forward with the loss (dense:
+    correlation, MM, NC, MM, scores; band: correlation, MM, top-K, band NC,
+    band MM, scores), the backward, and within it the first NC layer's dx
+    launches and the trunk tail's backward (from the gradient's arrival at
+    the features to the backward's end), then Adam; the step; the peak
+    memory."""
+    import ncnet_tpu_torch.ops.band as ops_band
+    import ncnet_tpu_torch.ops.conv4d as ops_conv4d
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.train.loss import weak_loss_core
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    dx_events = []
+    mod, attr = (ops_band, "band_gemm_dx") if band else (ops_conv4d, "conv4d_dx")
+    real = getattr(mod, attr)
+
+    def timed_dx(*args, real=real):
+        w = args[1]
+        first = w.shape[4] == 1  # the first layer: one input channel
+        e0 = event() if first else None
+        out = real(*args)
+        if first:
+            dx_events.append((e0, event()))
+        return out
+
+    hooks = []
+    optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    setattr(mod, attr, timed_dx)
+    try:
+        e0 = event()
+        fa = extract_features(model, config, batch["source_image"])
+        fb = extract_features(model, config, batch["target_image"])
+        e1 = event()
+        for f in (fa, fb):
+            f.register_hook(lambda g: hooks.append(event()))
+        loss = weak_loss_core(model.neigh_consensus, config, fa, fb)
+        e2 = event()
+        loss.backward()
+        e3 = event()
+        optimizer.step()
+        e4 = event()
+    finally:
+        setattr(mod, attr, real)
+    e4.synchronize()
+    return {"trunk_forward_with_grad_tail": e0.elapsed_time(e1),
+            "pipeline_forward_and_loss": e1.elapsed_time(e2),
+            "backward": e2.elapsed_time(e3),
+            "first_layer_dx": sum(a.elapsed_time(b) for a, b in dx_events),
+            "first_layer_dx_launches": len(dx_events),
+            "trunk_tail_backward": (max(h.elapsed_time(e3) for h in hooks)
+                                    if hooks else None),
+            "optimizer": e3.elapsed_time(e4), "step": e0.elapsed_time(e4),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "loss": float(loss.detach())}
+
+
+def phase_finetune(smi, kernels, dx_plain, band):
+    """Trunk fine-tuning (``--fe_finetune_params 1``) at the PF-Pascal
+    config on its own model (seed 0; the other phases' trunk stays
+    frozen): dense, or with ``band`` on the K = 50 band. The first NC
+    layer's dx at the step's shape against its plain version (bitwise
+    repeat); the tail's gradients through the kernels against the plain
+    route; FT_BF16_STEPS bfloat16 steps and FT_F32_STEPS float32 steps at
+    batch 16 (the counts set to 0 just before and read just after): finite
+    losses, the first equal to the frozen-trunk loss on the same batch and
+    weights, the tail unit moved and every other trunk tensor bitwise
+    unchanged, the launches of every step; then the stage breakdown.
+    Returns the steps' launches per kernel."""
+    from ncnet_tpu_torch.train.loss import weak_loss
+    from ncnet_tpu_torch.train.step import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    name = "finetune_band" if band else "finetune"
+    model, config = build_model()
+    cfg = config.replace(half_precision=True, nc_topk=TRAIN_K if band else 0)
+    if band:
+        dx_checks = band_first_layer_dx(kernels, model, config)
+    else:
+        dx_checks = [first_layer_dx(kernels, dx_plain, dt)
+                     for dt in (torch.bfloat16, torch.float32)]
+    if not all(c["ok"] for c in dx_checks):
+        emit({"phase": name, "first_layer_dx": dx_checks})
+        raise AssertionError(f"the first layer's dx disagrees: {dx_checks}")
+    batches = [synthetic_batch(TRAIN_BATCH, SEED + 30 + i)
+               for i in range(FT_BF16_STEPS + FT_F32_STEPS + 1)]
+    with torch.no_grad():
+        frozen_loss = weak_loss(model, cfg, batches[0])
+    trunk0 = {k: v.clone() for k, v in model.feature_extraction.state_dict().items()}
+    state = create_train_state(model, 5e-4, fe_finetune_blocks=FT_BLOCKS)
+    tail_prefix = f"layer3.{len(model.feature_extraction.layer3) - FT_BLOCKS}."
+    grad_check = tail_grad_check(model, config, state, band)
+    if not all(c["ok"] for c in grad_check):
+        emit({"phase": name, "tail_grad_check": grad_check})
+        raise AssertionError(f"the trunk tail's gradients disagree: {grad_check}")
+    steps = ([make_train_step(cfg, fe_finetune_blocks=FT_BLOCKS)] * FT_BF16_STEPS
+             + [make_train_step(cfg.replace(half_precision=False),
+                                fe_finetune_blocks=FT_BLOCKS)] * FT_F32_STEPS)
+    if band:
+        want = {n: 0 for n in kernels}
+        want.update(band_gemm_fwd=12, band_gemm_dx=12, band_gemm_dw=12)
+    else:
+        want = {n: 0 for n in kernels}
+        want.update(conv4d_fwd=6, conv4d_dx=6, conv4d_dw=6)
+    torch.cuda.synchronize()
+    losses, step_ms, per_step = [], [], []
+    for k in kernels.values():
+        k.launches = 0
+    for step, b in zip(steps, batches):
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        per_step.append({n: k.launches - before[n] for n, k in kernels.items()})
+    launches = {n: k.launches for n, k in kernels.items()}
+    problems = []
+    if any(p != want for p in per_step):
+        problems.append(f"launches per step {per_step} != {want}")
+    if not all(bool(torch.isfinite(l)) for l in losses):
+        problems.append(f"losses not finite: {losses}")
+    first = float(losses[0])
+    frozen_match = {"frozen_loss": float(frozen_loss), "finetune_loss": first,
+                    "bitwise": bool(torch.equal(losses[0], frozen_loss)),
+                    "rel_err": abs(first - float(frozen_loss))
+                    / max(abs(float(frozen_loss)), 1e-30)}
+    if not (frozen_match["bitwise"] or frozen_match["rel_err"] <= SERVE_TOL):
+        problems.append(f"first loss is not the frozen-trunk loss: {frozen_match}")
+    moved, unchanged = [], []
+    for k, v in model.feature_extraction.state_dict().items():
+        (moved if k.startswith(tail_prefix) else unchanged).append(
+            not torch.equal(v, trunk0[k]))
+    if not (moved and all(moved)):
+        problems.append(f"tail tensors moved: {sum(moved)} of {len(moved)}")
+    if any(unchanged):
+        problems.append(f"{sum(unchanged)} trunk tensors outside the tail changed")
+    stages = finetune_stage_breakdown(model, cfg, batches[-1], state.optimizer, band)
+    emit({"phase": name, "card": smi, "config": cfg.to_dict(),
+          "fe_finetune_blocks": FT_BLOCKS, "batch": TRAIN_BATCH,
+          "trainable_tensors": len(state.paths), "first_layer_dx": dx_checks,
+          "tail_grad_check": grad_check, "losses": [float(l) for l in losses],
+          "step_dtypes": ["bfloat16"] * FT_BF16_STEPS + ["float32"] * FT_F32_STEPS,
+          "step_ms": step_ms, "launches_per_step": per_step, "launches": launches,
+          "frozen_loss_check": frozen_match, "tail_tensors_moved": len(moved),
+          "stages_ms": stages, "seconds": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    del model, state
+    torch.cuda.empty_cache()
+    return launches, dx_checks
+
+
+def phase_trunks(smi, kernels, conv4d_plain):
+    """VGG-16 and DenseNet-201 at the PF-Pascal width (400 px, NC 5-5-5 /
+    16-16-1), random weights from seed 0: a float32 4-pair serving batch
+    through the kernels against the plain conv4d (each pair's readouts up
+    to ties), the trunk's ms a serving batch (8 images), one bfloat16
+    training step at batch 16 with the trunk frozen and one with its last
+    tail unit trainable, each with a finite loss. Returns the launches."""
+    from ncnet_tpu_torch.models.immatchnet import (
+        ImMatchNet,
+        ImMatchNetConfig,
+        extract_features,
+        immatchnet_apply,
+    )
+    from ncnet_tpu_torch.train.step import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, launches = {}, {n: 0 for n in kernels}
+    image = image_maker(SEED + 40)
+    src = torch.from_numpy(np.stack([image(SQUARE_HW) for _ in range(MAX_BATCH)])).cuda()
+    tgt = torch.from_numpy(np.stack([image(SQUARE_HW) for _ in range(MAX_BATCH)])).cuda()
+    batch = synthetic_batch(TRAIN_BATCH, SEED + 41)
+    for cnn in ("vgg", "densenet201"):
+        t0 = time.perf_counter()
+        cfg = ImMatchNetConfig(feature_extraction_cnn=cnn, ncons_kernel_sizes=(5, 5, 5),
+                               ncons_channels=(16, 16, 1), symmetric_mode=True)
+        model = ImMatchNet(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        nc = model.neigh_consensus
+        before = {n: k.launches for n, k in kernels.items()}
+        with torch.inference_mode():
+            corr_k = immatchnet_apply(model, cfg, src, tgt)
+            conv, nc.conv = nc.conv, conv4d_plain
+            try:
+                corr_p = immatchnet_apply(model, cfg, src, tgt)
+            finally:
+                nc.conv = conv
+            agree = [argmax_agrees(corr_k[i:i + 1], corr_p[i:i + 1])
+                     for i in range(MAX_BATCH)]
+            corr_err = float((corr_k - corr_p).abs().max() / corr_p.abs().max())
+            trunk_ms = time_ms(lambda: extract_features(
+                model, cfg, torch.cat([src, tgt])), reps=3)
+        del corr_k, corr_p
+        rec = {"trunk_channels": model.feature_extraction.channels,
+               "serve_batch": MAX_BATCH, "readouts_agree": agree,
+               "corr_max_rel_err": corr_err, "trunk_ms_per_batch": trunk_ms,
+               "trunk_images": 2 * MAX_BATCH}
+        bf16 = cfg.replace(half_precision=True)
+        for blocks in (0, 1):
+            state = create_train_state(model, 5e-4, fe_finetune_blocks=blocks)
+            state, loss = make_train_step(bf16, fe_finetune_blocks=blocks)(state, batch)
+            rec[f"train_loss_fe_finetune_{blocks}"] = float(loss)
+        torch.cuda.synchronize()
+        got = {n: k.launches - before[n] for n, k in kernels.items()}
+        for n in kernels:
+            launches[n] += got[n]
+        # the kernel forward (3, the symmetric pass batched) and the two
+        # steps (frozen: 6 / 4 / 6; the tail trainable: 6 / 6 / 6)
+        want = {n: 0 for n in kernels}
+        want.update(conv4d_fwd=15, conv4d_dx=10, conv4d_dw=12)
+        rec.update(launches=got, seconds=time.perf_counter() - t0)
+        out[cnn] = rec
+        del model, state
+        torch.cuda.empty_cache()
+        if not (all(agree) and corr_err <= SERVE_TOL and got == want
+                and all(np.isfinite(rec[f"train_loss_fe_finetune_{b}"]) for b in (0, 1))):
+            emit({"phase": "trunks", "card": smi, "trunks": out})
+            raise AssertionError(f"the {cnn} trunk failed: {rec}")
+    emit({"phase": "trunks", "card": smi, "hw": list(SQUARE_HW),
+          "trunks": out, "launches": launches})
+    return launches
+
+
 def kernel_line(name, source, replaces, launches, layers, work, smi,
                 launches_by_path=None):
     return {
@@ -2770,19 +3325,28 @@ def main():
                    for path, before, after in (("train", *dw_dtypes[0:2]),
                                                ("eval", *dw_dtypes[2:4]))}
     inloc_launches, inloc_layers_ = phase_inloc(smi, kernels, conv4d_plain)
+    ft_launches, ft_dx = phase_finetune(smi, kernels, conv4d_dx_plain, band=False)
+    ftb_launches, ftb_dx = phase_finetune(smi, kernels, conv4d_dx_plain, band=True)
+    trunk_launches = phase_trunks(smi, kernels, conv4d_plain)
+
     def band_train_by_path(name):
         return {path: band_train_launches[path][name]
-                for path in ("train_band", "synthetic_band")}
+                for path in ("train_band", "synthetic_band")} | {
+                    "finetune_band": ftb_launches[name]}
 
     fwd_by_path = {"serve": launches, "train": train_launches["conv4d_fwd"],
                    "eval": eval_launches["conv4d_fwd"],
-                   "inloc": inloc_launches["conv4d_fwd"]}
+                   "inloc": inloc_launches["host"]["conv4d_fwd"],
+                   "inloc_device_route": inloc_launches["device"]["conv4d_fwd"],
+                   "finetune": ft_launches["conv4d_fwd"],
+                   "trunks": trunk_launches["conv4d_fwd"]}
     band_by_path = {"serve_band": band_launches,
                     "eval": eval_launches["band_gemm_fwd"],
                     **band_train_by_path("band_gemm_fwd")}
 
     def grad_by_path(name):
-        return {"train": train_launches[name], "eval": eval_launches[name]}
+        return {"train": train_launches[name], "eval": eval_launches[name],
+                "finetune": ft_launches[name], "trunks": trunk_launches[name]}
 
     emit({"kernels": [
         kernel_line("conv4d_fwd", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
@@ -2820,13 +3384,15 @@ def main():
         kernel_line("band_gemm_dx", "ncnet_tpu_torch/csrc/band_gemm_dx.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:147",
                     sum(band_train_by_path("band_gemm_dx").values()),
-                    band_train_layers["dx"],
+                    band_train_layers["dx"] + ftb_dx,
                     "the input gradients of band NC layers 2 and 3 x 2 "
                     "symmetric passes of one pipeline call of a band training "
                     f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16, over "
-                    "the pass's hit list (which dw builds and shares). "
-                    f"Launches: {TRAIN_STEPS} band training steps' and the "
-                    f"synthetic run's at K = {SYNTH_BAND_K}", smi,
+                    "the pass's hit list (which dw builds and shares), and of "
+                    "layer 1 (a 16->1 contraction, fine-tuning's) on both "
+                    f"passes. Launches: {TRAIN_STEPS} band training steps', "
+                    f"the synthetic run's at K = {SYNTH_BAND_K} and "
+                    f"{FT_BF16_STEPS + FT_F32_STEPS} band fine-tuning steps'", smi,
                     band_train_by_path("band_gemm_dx")),
         kernel_line("band_gemm_dw", "ncnet_tpu_torch/csrc/band_gemm_dw.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:147",
@@ -2842,13 +3408,17 @@ def main():
         kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:190",
                     sum(grad_by_path("conv4d_dx").values()),
-                    [{**la, "path": "train"} for la in dx_layers] + synth_layers["dx"],
+                    [{**la, "path": "train"} for la in dx_layers] + synth_layers["dx"]
+                    + [{**la, "path": "finetune"} for la in ft_dx],
                     "the input gradients of NC layers 2 and 3 of one pipeline "
                     f"call of a training step ({TRAIN_BATCH} pairs x 2 "
-                    "directions), bfloat16, and of the 16 -> 1 layer (3^4) of "
-                    "a synthetic convergence call, float32 and bfloat16; "
-                    f"launches over {TRAIN_STEPS} steps and the synthetic "
-                    "convergence runs", smi,
+                    "directions), bfloat16, of the 16 -> 1 layer (3^4) of "
+                    "a synthetic convergence call, float32 and bfloat16, and "
+                    "of layer 1 (a 16->1 contraction) at a fine-tuning step's "
+                    "pipeline call, bfloat16 and float32; launches over "
+                    f"{TRAIN_STEPS} steps, the synthetic convergence runs, "
+                    f"{FT_BF16_STEPS + FT_F32_STEPS} fine-tuning steps and the "
+                    "trunks phase's steps", smi,
                     grad_by_path("conv4d_dx")),
         {**kernel_line(
             "conv4d_dw", "ncnet_tpu_torch/csrc/conv4d_dw.cu",

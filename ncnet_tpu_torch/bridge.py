@@ -4,9 +4,12 @@ The JAX tree (numpy arrays; ``init_immatchnet`` or a converted checkpoint)
 is ``{'feature_extraction': trunk, 'neigh_consensus': [{'kernel',
 'bias'}, ...]}``. This module maps it onto `ImMatchNet`'s state dict:
 
-* trunk conv kernels HWIO -> OIHW (``conv1``, ``layer<s>.<b>.conv<n>``,
-  ``downsample_conv``; the patch16 kernel ``[16,16,3,256]``);
-* BN ``{scale, offset, mean, var}`` -> buffers of the same names;
+* trunk conv kernels HWIO -> OIHW (ResNet-101's ``conv1``,
+  ``layer<s>.<b>.conv<n>``, ``downsample_conv``; VGG-16's flat list
+  ``<i>.kernel`` with its ``<i>.bias``; DenseNet-201's ``conv0``,
+  ``denseblock<n>.<i>.conv<1,2>``, ``transition<n>.conv``; the patch16
+  kernel ``[16,16,3,256]``);
+* BN ``{scale, offset, mean, var}`` -> parameters of the same names;
 * NC ``kernel [ki,kj,kk,kl,cin,cout]`` / ``bias`` unchanged (the layout
   the hand kernel takes).
 
@@ -68,10 +71,10 @@ def _trunk_state(tree):
     for path, arr in flatten(tree).items():
         name = path.replace(SEP, ".")
         if name == "kernel":  # patch16: [16, 16, 3, 256] HWIO
-            state["weight"] = arr.transpose(3, 2, 0, 1)
-        elif name.endswith(".kernel"):  # resnet conv HWIO
-            state[name[: -len(".kernel")] + ".weight"] = arr.transpose(3, 2, 0, 1)
-        else:  # BN scale / offset / mean / var
+            state["weight"] = from_jax_layout(arr)
+        elif name.endswith(".kernel"):  # trunk conv HWIO
+            state[name[: -len(".kernel")] + ".weight"] = from_jax_layout(arr)
+        else:  # BN scale / offset / mean / var, VGG conv bias
             state[name] = arr
     return state
 
@@ -113,6 +116,26 @@ def load_jax_params(model, tree):
     return model
 
 
+def jax_path(name):
+    """A trunk tensor's module-relative name (``layer3.22.conv1.weight``)
+    -> its path in the JAX tree (``('layer3', 22, 'conv1', 'kernel')``)."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return tuple(int(p) if p.isdigit() else p for p in parts)
+
+
+def to_jax_layout(arr):
+    """A trunk tensor's array in the JAX layout: conv weights OIHW ->
+    HWIO, the rest unchanged."""
+    return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
+
+
+def from_jax_layout(arr):
+    """Inverse of `to_jax_layout`: HWIO -> OIHW."""
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+
+
 def to_jax_params(model):
     """An `ImMatchNet`'s weights as the JAX param tree (float32 numpy on
     the host): the inverse of `load_jax_params`, OIHW -> HWIO."""
@@ -121,10 +144,8 @@ def to_jax_params(model):
         arr = value.detach().cpu().numpy()
         head, _, rel = name.partition(".")
         if head == "feature_extraction":
-            if rel == "weight" or rel.endswith(".weight"):
-                rel = rel[: -len("weight")] + "kernel"
-                arr = arr.transpose(2, 3, 1, 0)
-            flat[f"feature_extraction{SEP}{rel.replace('.', SEP)}"] = arr
+            path = SEP.join(str(p) for p in jax_path(rel))
+            flat[f"feature_extraction{SEP}{path}"] = to_jax_layout(arr)
         elif head == "neigh_consensus" and rel.startswith("layers."):
             li, leaf = rel[len("layers."):].split(".")
             flat[f"neigh_consensus{SEP}{li}{SEP}{leaf}"] = arr

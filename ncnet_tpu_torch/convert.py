@@ -4,7 +4,10 @@
 The reference schema (train.py:197-205) is ``{epoch, args, state_dict,
 best_test_loss, optimizer, train_loss, test_loss}``; the state dict holds
 ``FeatureExtraction.model.<idx>...`` (torchvision Sequential indices of
-the truncated ResNet-101: 0 = conv1, 1 = bn1, 4/5/6 = layer1/2/3) and
+the truncated trunk: ResNet-101's 0 = conv1, 1 = bn1, 4/5/6 =
+layer1/2/3; VGG-16's conv indices of ``features``; DenseNet-201's 0 =
+conv0, 1 = norm0, 4..7 = denseblock1, transition1, denseblock2,
+transition2) and
 ``NeighConsensus.conv.<2*i>.{weight,bias}``, whose Conv4d weights are
 stored pre-permuted by the reference constructor (lib/conv4d.py:72-77):
 ``[k1, c_out, c_in, k2, k3, k4]``.
@@ -14,15 +17,21 @@ kernels, NC ``[k1,k2,k3,k4,cin,cout]``), which `bridge.from_jax_params`
 loads into an `ImMatchNet`; ``args`` gives the architecture.
 """
 
+import re
+
 import numpy as np
 import torch
 
 from ncnet_tpu_torch.bridge import from_jax_params
+from ncnet_tpu_torch.models.densenet import TRUNK_BLOCKS
 from ncnet_tpu_torch.models.immatchnet import ImMatchNetConfig
 from ncnet_tpu_torch.models.resnet import RESNET101_STAGES
 
 RESNET_SEQUENTIAL = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
                      "6": "layer3"}
+DENSENET_SEQUENTIAL = {"0": "conv0", "1": "norm0", "4": "denseblock1",
+                       "5": "transition1", "6": "denseblock2",
+                       "7": "transition2"}
 
 
 def _np(t):
@@ -88,6 +97,52 @@ def convert_resnet101_trunk(state_dict, prefix="FeatureExtraction.model."):
     return params
 
 
+def convert_vgg16_trunk(state_dict, prefix="FeatureExtraction.model."):
+    """A torchvision ``vgg16.features`` state dict (its conv layers, in
+    Sequential index order) -> the trunk's flat conv list of ``{'kernel',
+    'bias'}``."""
+    sd = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    weights = sorted((int(k.split(".")[0]), k) for k in sd if k.endswith(".weight"))
+    return [{"kernel": _conv2d_kernel(sd[k]), "bias": _np(sd[f"{idx}.bias"])}
+            for idx, k in weights]
+
+
+def convert_densenet201_trunk(state_dict, prefix="FeatureExtraction.model."):
+    """A torchvision-style DenseNet-201 state dict -> the trunk's param
+    tree (``conv0``, ``norm0``, ``denseblock1..2`` lists of layers,
+    ``transition1..2``). Takes the reference's Sequential-index keys (``0``
+    = conv0 .. ``7`` = transition2, lib/model.py:74) or torchvision's
+    attribute keys, including the legacy zoo names
+    ``denselayer<i>.norm.1`` / ``conv.2`` that torchvision remaps."""
+    sd = _strip_prefix(state_dict, prefix, DENSENET_SEQUENTIAL)
+    sd = {re.sub(r"(denselayer\d+\.(?:norm|conv))\.(\d)\.", r"\1\2.", k): v
+          for k, v in sd.items()}
+    params = {"conv0": {"kernel": _conv2d_kernel(sd["conv0.weight"])},
+              "norm0": _bn(sd, "norm0")}
+    for bi, n_layers in enumerate(TRUNK_BLOCKS):
+        block = []
+        for li in range(n_layers):
+            p = f"denseblock{bi + 1}.denselayer{li + 1}."
+            block.append({
+                "norm1": _bn(sd, p + "norm1"),
+                "conv1": {"kernel": _conv2d_kernel(sd[p + "conv1.weight"])},
+                "norm2": _bn(sd, p + "norm2"),
+                "conv2": {"kernel": _conv2d_kernel(sd[p + "conv2.weight"])},
+            })
+        params[f"denseblock{bi + 1}"] = block
+        t = f"transition{bi + 1}."
+        params[f"transition{bi + 1}"] = {
+            "norm": _bn(sd, t + "norm"),
+            "conv": {"kernel": _conv2d_kernel(sd[t + "conv.weight"])},
+        }
+    return params
+
+
+TRUNK_CONVERTERS = {"resnet101": convert_resnet101_trunk,
+                    "vgg": convert_vgg16_trunk,
+                    "densenet201": convert_densenet201_trunk}
+
+
 def convert_neigh_consensus(state_dict, prefix="NeighConsensus.conv.",
                             pre_permuted=True):
     """The Conv4d stack -> ``[{'kernel': [k,k,k,k,cin,cout], 'bias':
@@ -109,7 +164,10 @@ def convert_checkpoint(path):
     """A reference ``.pth.tar`` -> ``(config, params)``: the config from
     the checkpoint's ``args`` (the reference's own record of its
     architecture), the params as the JAX param tree. The legacy key
-    rename ``'vgg' -> 'model'`` (lib/model.py:214) is applied."""
+    rename ``'vgg' -> 'model'`` (lib/model.py:214) is applied to every
+    key first: an old checkpoint's ``FeatureExtraction.vgg.<i>`` becomes
+    ``FeatureExtraction.model.<i>``, and a VGG trunk's own keys (``<i>.
+    weight`` / ``<i>.bias``) hold no ``vgg`` to rename."""
     # the checkpoint pickles an argparse Namespace: not a weights-only file
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = {k.replace("vgg", "model"): v for k, v in ckpt["state_dict"].items()}
@@ -117,12 +175,7 @@ def convert_checkpoint(path):
     cnn = getattr(args, "fe_arch", None) or getattr(
         args, "feature_extraction_cnn", "resnet101"
     )
-    if cnn in ("vgg", "densenet201"):
-        raise NotImplementedError(
-            f"checkpoint trunk {cnn!r} is not ported yet (ROADMAP A4); the "
-            "port loads ResNet-101 checkpoints"
-        )
-    if cnn != "resnet101":
+    if cnn not in TRUNK_CONVERTERS:
         raise ValueError(f"unsupported backbone in checkpoint: {cnn!r}")
     config = ImMatchNetConfig(
         feature_extraction_cnn=cnn,
@@ -130,7 +183,7 @@ def convert_checkpoint(path):
         ncons_channels=tuple(args.ncons_channels),
     )
     params = {
-        "feature_extraction": convert_resnet101_trunk(sd),
+        "feature_extraction": TRUNK_CONVERTERS[cnn](sd),
         "neigh_consensus": convert_neigh_consensus(sd),
     }
     return config, params
@@ -145,20 +198,15 @@ def load_reference_checkpoint(path, device=None):
 
 def load_model(path, device=None):
     """``(config, ImMatchNet)`` from a checkpoint an eval CLI is given: a
-    reference ``.pth.tar`` / ``.pth``, or the port's training ``.npz``.
-    The JAX package's msgpack checkpoints raise: their reader is not
-    ported (ROADMAP A6)."""
+    reference ``.pth.tar`` / ``.pth``, the port's training ``.npz``, or
+    the JAX package's ``.msgpack`` (`ncnet_tpu_torch.train.jax_checkpoint`,
+    its sidecar digest checked where there is one)."""
     if path.endswith((".pth.tar", ".pth")):
         return load_reference_checkpoint(path, device=device)
-    if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: the JAX package's msgpack checkpoints cannot be read by "
-            "the port yet (ROADMAP A6: a reader of their bytes, or a "
-            "converter to the port's .npz)"
-        )
-    if path.endswith(".npz"):
+    if path.endswith((".npz", ".msgpack")):
         from ncnet_tpu_torch.train.checkpoint import load_checkpoint
 
         ck = load_checkpoint(path)
         return ck.config, from_jax_params(ck.params, ck.config, device=device)
-    raise ValueError(f"{path}: expected a .pth.tar, .pth or .npz checkpoint")
+    raise ValueError(
+        f"{path}: expected a .pth.tar, .pth, .npz or .msgpack checkpoint")

@@ -147,7 +147,8 @@ def pck_vs_topk(model, config, loader, ks, alpha=0.1, verbose=False):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="ncnet_tpu_torch PF-Pascal PCK eval")
     p.add_argument("--checkpoint", type=str, required=True,
-                   help="reference .pth.tar or the port's training .npz")
+                   help="reference .pth.tar, the port's training .npz or "
+                        "the JAX package's .msgpack")
     p.add_argument("--image_size", type=int, default=400)
     p.add_argument("--eval_dataset_path", type=str, default="datasets/pf-pascal")
     p.add_argument("--batch_size", type=int, default=1)

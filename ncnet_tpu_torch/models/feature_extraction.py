@@ -3,21 +3,18 @@
 
 import torch
 
+from ncnet_tpu_torch.models.densenet import DenseNet201Trunk
 from ncnet_tpu_torch.models.patch import PatchTrunk
 from ncnet_tpu_torch.models.resnet import ResNet101Trunk
+from ncnet_tpu_torch.models.vgg import VGG16Trunk
 from ncnet_tpu_torch.ops.norm import feature_l2norm
 
-BACKBONES = {"resnet101": ResNet101Trunk, "patch16": PatchTrunk}
-NOT_PORTED = ("vgg", "densenet201")
+BACKBONES = {"resnet101": ResNet101Trunk, "vgg": VGG16Trunk,
+             "densenet201": DenseNet201Trunk, "patch16": PatchTrunk}
 
 
 def make_trunk(cnn, device=None, generator=None):
-    """The trunk module named ``cnn`` (``resnet101`` or ``patch16``)."""
-    if cnn in NOT_PORTED:
-        raise NotImplementedError(
-            f"backbone {cnn!r} is not ported yet (ROADMAP A4); the port has "
-            f"{sorted(BACKBONES)}"
-        )
+    """The trunk module named ``cnn`` (a key of `BACKBONES`)."""
     if cnn not in BACKBONES:
         raise ValueError(f"unknown backbone {cnn!r}; have {sorted(BACKBONES)}")
     return BACKBONES[cnn](device=device, generator=generator)

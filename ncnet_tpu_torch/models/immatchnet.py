@@ -1,6 +1,7 @@
 """ImMatchNet, the matching model (``ncnet_tpu/models/immatchnet.py``).
 
-  feature extraction (frozen trunk, L2 norm)  [source and target]
+  feature extraction (trunk, frozen or with a trainable tail; L2 norm)
+  [source and target]
   -> all-pairs 4D correlation (with ``relocalization_k_size > 1``: fused
      with a 4D max-pool, which also returns the offsets of the maxima)
   -> soft mutual-NN filtering
@@ -132,12 +133,21 @@ def _compute_dtype(config):
     return torch.bfloat16 if config.half_precision else None
 
 
+def trunk_trains(model):
+    """True when some trunk tensor is marked trainable (``train_fe`` or a
+    fine-tuned tail)."""
+    return any(p.requires_grad for p in model.feature_extraction.parameters())
+
+
 def extract_features(model, config, image):
     """``[b, h, w, 3]`` normalized image -> ``[b, h/16, w/16, c]``.
 
-    The trunk is frozen: it runs under ``torch.no_grad()``, so training
-    differentiates the NC stack only and keeps no trunk activations."""
-    with torch.no_grad():
+    A frozen trunk runs wholly under ``torch.no_grad()``: training then
+    differentiates the NC stack only and keeps no trunk activations. With
+    trainable trunk tensors the trunk itself runs its frozen front under
+    ``no_grad`` and the tail from its first trainable stage with grad
+    (`ncnet_tpu_torch.models.resnet.StagedTrunk`)."""
+    def apply():
         return feature_extraction_apply(
             model.feature_extraction,
             image,
@@ -145,6 +155,11 @@ def extract_features(model, config, image):
             dtype=_compute_dtype(config),
             center=config.center_features,
         )
+
+    if trunk_trains(model):
+        return apply()
+    with torch.no_grad():
+        return apply()
 
 
 def match_pipeline(neigh_consensus, config, feat_a, feat_b):

@@ -8,14 +8,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ncnet_tpu_torch.device import resolve_device
+from ncnet_tpu_torch.models.resnet import StagedTrunk
 
 PATCH = 16
 CHANNELS = 256
 
 
-class PatchTrunk(nn.Module):
+class PatchTrunk(StagedTrunk):
     """``[b, h, w, 3]`` -> ``[b, h/16, w/16, 256]`` patch projections; the
-    weight is OIHW ``[256, 3, 16, 16]`` (the JAX kernel is HWIO)."""
+    weight is OIHW ``[256, 3, 16, 16]`` (the JAX kernel is HWIO). It has no
+    fine-tunable tail (`tail_units` raises, as the JAX package's unit rule
+    does); ``train_fe`` trains the projection."""
+
+    name = "patch16"
 
     stride = PATCH
     channels = CHANNELS
@@ -30,7 +35,8 @@ class PatchTrunk(nn.Module):
         self.weight = nn.Parameter(kernel.contiguous().to(device),
                                    requires_grad=False)
 
-    def forward(self, image):
-        x = image.permute(0, 3, 1, 2)
-        y = F.conv2d(x, self.weight.to(x.dtype), stride=PATCH)
-        return y.permute(0, 2, 3, 1)
+    def _project(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype), stride=PATCH)
+
+    def stages(self):
+        return [((self,), self._project)]

@@ -6,6 +6,13 @@ public layout is channels-last ``[b, h, w, c]`` like the JAX trunk; inside,
 the module permutes to NCHW for ``F.conv2d``. Parameter names follow the
 JAX tree (``conv1``, ``bn1``, ``layer1.0.conv2``, ``downsample_conv``...),
 so the weight bridge is a rename plus HWIO -> OIHW.
+
+Every trunk tensor (conv weights and the four BN tensors) is a parameter
+that does not require a gradient until training marks it (the trunk's
+tail, ``fe_finetune_blocks``, or all of it, ``train_fe``): the JAX package
+trains a tail unit's whole param dict, BN ``mean`` and ``var`` included.
+`StagedTrunk` runs the stages before the first trainable one under
+``torch.no_grad()``.
 """
 
 import torch
@@ -21,34 +28,53 @@ RESNET101_STAGES = ((3, 64, 1), (4, 128, 2), (23, 256, 2))
 EXPANSION = 4
 
 
+def _frozen(t, device):
+    return nn.Parameter(t.to(device), requires_grad=False)
+
+
 class Conv2d(nn.Module):
-    """Bias-free conv with an OIHW weight cast to the input's dtype."""
+    """Conv with an OIHW weight (and optional bias) cast to the input's
+    dtype. ``init``: ``'fan_out'`` He-normal (torchvision's ResNet),
+    ``'fan_in'`` He-normal (its DenseNet), ``'uniform'`` +-1/sqrt(fan_in)
+    on weight and bias (its VGG)."""
 
     def __init__(self, cin, cout, k, stride=1, padding=0, generator=None,
-                 device=None):
+                 device=None, bias=False, init="fan_out"):
         super().__init__()
-        # He-normal fan-out (torchvision's ResNet conv init)
-        std = (2.0 / (k * k * cout)) ** 0.5
-        w = torch.randn((cout, cin, k, k), generator=generator) * std
-        self.weight = nn.Parameter(w.to(device), requires_grad=False)
+        fan_in, fan_out = k * k * cin, k * k * cout
+        bound = (1.0 / fan_in) ** 0.5
+        if init == "uniform":
+            w = (torch.rand((cout, cin, k, k), generator=generator) * 2 - 1) * bound
+        else:
+            std = (2.0 / (fan_out if init == "fan_out" else fan_in)) ** 0.5
+            w = torch.randn((cout, cin, k, k), generator=generator) * std
+        self.weight = _frozen(w, device)
+        if bias:
+            b = (torch.rand((cout,), generator=generator) * 2 - 1) * bound
+            self.bias = _frozen(b, device)
+        else:
+            self.bias = None
         self.stride = stride
         self.padding = padding
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), stride=self.stride,
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, stride=self.stride,
                         padding=self.padding)
 
 
 class FrozenBatchNorm(nn.Module):
     """Eval-mode BN: ``x * inv + (offset - mean * inv)``,
-    ``inv = scale / sqrt(var + eps)``, on NCHW."""
+    ``inv = scale / sqrt(var + eps)``, on NCHW. The four tensors are
+    parameters, differentiable once marked trainable, as the JAX package's
+    ``_bn_apply`` is in all four."""
 
     def __init__(self, c, device=None):
         super().__init__()
-        self.register_buffer("scale", torch.ones(c, device=device))
-        self.register_buffer("offset", torch.zeros(c, device=device))
-        self.register_buffer("mean", torch.zeros(c, device=device))
-        self.register_buffer("var", torch.ones(c, device=device))
+        self.scale = _frozen(torch.ones(c), device)
+        self.offset = _frozen(torch.zeros(c), device)
+        self.mean = _frozen(torch.zeros(c), device)
+        self.var = _frozen(torch.ones(c), device)
 
     def forward(self, x):
         dt = x.dtype
@@ -89,8 +115,51 @@ class Bottleneck(nn.Module):
         return torch.relu(out + shortcut)
 
 
-class ResNet101Trunk(nn.Module):
+def max_pool_3x3_s2(x):
+    # max-pool 3x3/s2 with pad 1; PyTorch pads with -inf
+    return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+
+
+def _trains(modules):
+    return any(p.requires_grad for m in modules for p in m.parameters())
+
+
+class StagedTrunk(nn.Module):
+    """A trunk as an ordered list of stages on NCHW, ``stages() ->
+    [(modules holding the stage's tensors, fn), ...]``, and the units its
+    ``fe_finetune_blocks`` count backwards over (`tail_units`).
+
+    ``forward`` takes and returns channels-last tensors. The stages before
+    the first one with a trainable tensor run under ``torch.no_grad()``, so
+    a fine-tuned tail keeps no activations of the frozen front."""
+
+    name = None
+
+    def stages(self):
+        raise NotImplementedError
+
+    def tail_units(self):
+        """The trunk's fine-tunable units, shallowest first (the JAX
+        package's ``train/step.py::_finetune_tail_blocks``)."""
+        raise ValueError(f"no finetune tail defined for backbone {self.name!r}")
+
+    def forward(self, image):
+        x = image.permute(0, 3, 1, 2)
+        stages = self.stages()
+        first = next((i for i, (mods, _) in enumerate(stages) if _trains(mods)),
+                     len(stages))
+        with torch.no_grad():
+            for _, fn in stages[:first]:
+                x = fn(x)
+        for _, fn in stages[first:]:
+            x = fn(x)
+        return x.permute(0, 2, 3, 1)
+
+
+class ResNet101Trunk(StagedTrunk):
     """``[b, h, w, 3]`` normalized image -> ``[b, h/16, w/16, 1024]``."""
+
+    name = "resnet101"
 
     stride = 16
     channels = 1024
@@ -113,12 +182,13 @@ class ResNet101Trunk(nn.Module):
                 cin = planes * EXPANSION
             setattr(self, f"layer{si + 1}", nn.ModuleList(blocks))
 
-    def forward(self, image):
-        x = image.permute(0, 3, 1, 2)
-        x = torch.relu(self.bn1(self.conv1(x)))
-        # max-pool 3x3/s2 with pad 1; PyTorch pads with -inf
-        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-        for layer in (self.layer1, self.layer2, self.layer3):
-            for block in layer:
-                x = block(x)
-        return x.permute(0, 2, 3, 1)
+    def _stem(self, x):
+        return max_pool_3x3_s2(torch.relu(self.bn1(self.conv1(x))))
+
+    def stages(self):
+        blocks = [*self.layer1, *self.layer2, *self.layer3]
+        return [((self.conv1, self.bn1), self._stem)] + [((b,), b) for b in blocks]
+
+    def tail_units(self):
+        """layer3's 23 bottlenecks (the reference's ``model[-1][-(i+1)]``)."""
+        return list(self.layer3)

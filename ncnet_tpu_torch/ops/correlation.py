@@ -1,5 +1,5 @@
-"""All-pairs 4D feature correlation, plain and fused with 4D max-pooling
-(``ncnet_tpu/ops/correlation.py``)."""
+"""All-pairs 4D feature correlation, plain and fused with 4D max-pooling,
+and the reference's 3D-shaped correlation (``ncnet_tpu/ops/correlation.py``)."""
 
 import torch
 
@@ -21,6 +21,24 @@ def correlation_4d(feature_a, feature_b, normalization=False, relu=True):
         b, ha, wa, hb, wb = corr.shape
         corr = feature_l2norm(corr.reshape(b, ha, wa, hb * wb), dim=-1)
         corr = corr.reshape(b, ha, wa, hb, wb)
+    return corr
+
+
+def correlation_3d(feature_a, feature_b, normalization=True, relu=True):
+    """The reference's ``FeatureCorrelation(shape='3D')`` (lib/model.py:
+    97-105): A's grid flattened into a channel axis, channels-last ``[b,
+    hB, wB, hA*wA]`` with channel ``iA + hA*jA`` (column-major over A's
+    grid). Both maps share one grid; with ``normalization`` (the
+    reference's default) the correlation is ReLU'd (``relu``) and
+    L2-normalized over that channel axis."""
+    b, h, w, _ = feature_a.shape
+    # [b, iB, jB, jA, iA]: (jA, iA) row-major flattens to iA + h*jA
+    corr = torch.einsum("bijc,bklc->bklji", feature_a, feature_b)
+    corr = corr.reshape(b, h, w, h * w)
+    if normalization:
+        if relu:
+            corr = torch.relu(corr)
+        corr = feature_l2norm(corr, dim=-1)
     return corr
 
 

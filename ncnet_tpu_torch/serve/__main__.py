@@ -36,6 +36,7 @@ from ncnet_tpu_torch.data.images import (
     resize_bilinear_np,
 )
 from ncnet_tpu_torch.device import resolve_device
+from ncnet_tpu_torch.models.feature_extraction import BACKBONES
 from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
 from ncnet_tpu_torch.serve.buckets import BucketSpec, pair_bucket
 from ncnet_tpu_torch.serve.engine import ServeEngine, payload_spec
@@ -62,7 +63,8 @@ def parse_args(argv=None):
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--concurrency", type=int, default=8,
                    help="client threads submitting requests")
-    p.add_argument("--cnn", type=str, default="resnet101")
+    p.add_argument("--cnn", type=str, default="resnet101",
+                   choices=tuple(BACKBONES))
     p.add_argument("--ncons-kernel-sizes", type=int, nargs="+",
                    default=[5, 5, 5])
     p.add_argument("--ncons-channels", type=int, nargs="+",

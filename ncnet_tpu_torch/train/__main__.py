@@ -1,7 +1,11 @@
 """Training CLI of the port: ``python -m ncnet_tpu_torch.train``.
 
-The counterpart of ``scripts/train.py`` for a frozen trunk and a trainable
-NC head, flags spelled the same. Example (the PF-Pascal defaults:
+The counterpart of ``scripts/train.py``, flags spelled the same: the NC
+head over a frozen trunk, or with ``--fe_finetune_params N`` also the
+trunk's last N tail units (ResNet-101: layer3's bottlenecks; VGG-16: its
+convs; DenseNet-201: denseblock2's layers, then transition2), or with
+``--train_fe`` the whole trunk; ``--fe_arch`` picks resnet101, vgg,
+densenet201 or patch16. Example (the PF-Pascal defaults:
 ResNet-101, 400 px, NC 5-5-5 / 16-16-1, batch 16, bfloat16 compute over
 float32 masters) on generated pairs with a random trunk:
 
@@ -14,6 +18,12 @@ At toy size on the CPU:
         --ncons_kernel_sizes 3 3 --ncons_channels 4 1 --batch_size 2 \\
         --synthetic_pairs 8 --num_epochs 1
 
+``--checkpoint`` resumes from this CLI's ``.npz`` or from the JAX
+package's ``.msgpack`` (its Adam moments and step carried over). A resume
+keeps the checkpoint's trunk-training mode unless the flags are given; a
+different mode starts a fresh optimizer state, as ``scripts/train.py``
+does.
+
 ``--nc_topk K`` trains the NC stack on each pair's top-K correlation band
 (sparse-band training; ``--no-nc_topk_mutual`` selects the plain per-A
 top-K instead of the mutual band), e.g. ``--nc_topk 50`` at the PF-Pascal
@@ -24,6 +34,7 @@ memory and the kernels' launch counts.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -37,9 +48,11 @@ from ncnet_tpu_torch.kernels.band_gemm import band_gemm_dx, band_gemm_fwd
 from ncnet_tpu_torch.kernels.band_gemm_dw import band_gemm_dw
 from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
 from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
+from ncnet_tpu_torch.models.feature_extraction import BACKBONES
 from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
 from ncnet_tpu_torch.train.checkpoint import load_checkpoint
 from ncnet_tpu_torch.train.loop import train
+from ncnet_tpu_torch.train.step import check_from_features_frozen
 
 
 def parse_args(argv=None):
@@ -57,9 +70,18 @@ def parse_args(argv=None):
     p.add_argument("--ncons_kernel_sizes", nargs="+", type=int, default=[5, 5, 5])
     p.add_argument("--ncons_channels", nargs="+", type=int, default=[16, 16, 1])
     p.add_argument("--fe_arch", type=str, default="resnet101",
-                   choices=("resnet101", "patch16"))
+                   choices=tuple(BACKBONES))
+    p.add_argument("--train_fe", action="store_true",
+                   help="train the whole trunk with the NC head")
+    p.add_argument("--fe_finetune_params", type=int, default=0,
+                   help="finetune the last N units of the trunk's tail "
+                        "(0 = frozen trunk)")
+    p.add_argument("--feature-cache", type=str, default="",
+                   dest="feature_cache", metavar="DIR",
+                   help="not ported (ROADMAP A11); refused with a trainable "
+                        "trunk")
     p.add_argument("--allow_random_fe", action="store_true",
-                   help="explicitly allow a randomly initialized frozen trunk "
+                   help="explicitly allow a randomly initialized trunk "
                         "(the reference always uses ImageNet weights)")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=None,
                    help="bfloat16 features/correlation/NC over float32 master "
@@ -80,7 +102,8 @@ def parse_args(argv=None):
     p.add_argument("--result_model_dir", type=str, default="trained_models")
     p.add_argument("--result_model_fn", type=str, default="ncnet_tpu_torch.npz")
     p.add_argument("--checkpoint", type=str, default="",
-                   help="resume from a checkpoint of this CLI (.npz)")
+                   help="resume from a checkpoint of this CLI (.npz) or of "
+                        "the JAX package (.msgpack)")
     p.add_argument("--save-every-steps", type=int, default=0,
                    dest="save_every_steps",
                    help="also checkpoint every N optimizer steps, with a "
@@ -103,6 +126,15 @@ def main(argv=None):
             "trunk with --allow_random_fe (loading torchvision trunk weights "
             "is not ported yet)"
         )
+    if args.feature_cache:
+        try:
+            check_from_features_frozen(args.train_fe, args.fe_finetune_params)
+        except ValueError as e:
+            p.error(str(e))
+        raise NotImplementedError(
+            "--feature-cache (training from cached trunk features) is not "
+            "ported yet (ROADMAP A11)"
+        )
     device = resolve_device(args.device)
     resume = None
     if args.checkpoint:
@@ -116,6 +148,18 @@ def main(argv=None):
             config = config.replace(nc_topk=args.nc_topk)
         if args.nc_topk_mutual is not None:
             config = config.replace(nc_topk_mutual=args.nc_topk_mutual)
+        # the checkpoint records which tensors trained (the Adam state's
+        # shape); default flags adopt its mode, another mode restarts Adam
+        if not args.train_fe and not args.fe_finetune_params:
+            args.train_fe = resume.train_fe
+            args.fe_finetune_params = resume.fe_finetune_blocks
+        elif (args.train_fe, args.fe_finetune_params) != (
+                resume.train_fe, resume.fe_finetune_blocks):
+            print("finetune mode differs from the checkpoint (ckpt: "
+                  f"train_fe={resume.train_fe}, fe_finetune_blocks="
+                  f"{resume.fe_finetune_blocks}); starting a fresh optimizer "
+                  "state", flush=True)
+            resume = dataclasses.replace(resume, opt_state=None)
         print(f"resuming from {args.checkpoint} at step {resume.step}",
               flush=True)
     else:
@@ -160,7 +204,8 @@ def main(argv=None):
         checkpoint_dir=args.result_model_dir,
         checkpoint_name=args.result_model_fn,
         save_every_steps=args.save_every_steps, max_steps=args.max_steps,
-        resume=resume,
+        resume=resume, train_fe=args.train_fe,
+        fe_finetune_blocks=args.fe_finetune_params,
     )
     launches = {name: k.launches - launches0[name] for name, k in kernels.items()}
     ms = history["step_ms"]
@@ -168,6 +213,8 @@ def main(argv=None):
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu"),
         "config": config.to_dict(),
+        "train_fe": state.train_fe,
+        "fe_finetune_blocks": state.fe_finetune_blocks,
         "steps": state.step,
         "steps_this_run": len(history["step_losses"]),
         "step_losses": history["step_losses"],

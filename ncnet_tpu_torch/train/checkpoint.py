@@ -6,16 +6,20 @@ Keys (`ncnet_tpu_torch.bridge.flatten`'s ``/`` scheme):
   (`bridge.to_jax_params`: float32, HWIO trunk kernels), so the JAX
   package can read a head trained here;
 * ``opt/<i>/exp_avg``, ``opt/<i>/exp_avg_sq``, ``opt/<i>/step`` — the Adam
-  state of the i-th trainable tensor (`TrainState.optimizer`'s order);
+  state of the i-th trainable tensor (`TrainState.optimizer`'s order: the
+  NC head, then the trunk tensors that train);
 * ``meta`` — one JSON string: the format tag, the config dict, the step,
   the epoch, the train/val loss histories, the best validation loss, the
-  optimizer's hyper-parameters and the loader cursor of a mid-epoch save
+  optimizer's hyper-parameters, the trunk-training mode (``train_fe``,
+  ``fe_finetune_blocks``; the trained tail's values are in ``params``),
+  the trainable tensors' paths and the loader cursor of a mid-epoch save
   (``epoch``, ``batch_index``, ``shuffle_seed``, ``epoch_losses``).
 
 A save writes a temporary file and renames it into place. Loading a save
 and stepping on replays the uninterrupted run exactly (bitwise on the CPU):
-parameters, moments and step counts are stored unrounded. Reading the JAX
-package's msgpack checkpoints is not ported (ROADMAP A6).
+parameters, moments and step counts are stored unrounded. The JAX
+package's msgpack checkpoints are read by
+`ncnet_tpu_torch.train.jax_checkpoint`.
 """
 
 import dataclasses
@@ -38,7 +42,9 @@ FORMAT = "ncnet_tpu_torch.npz/1"
 class CheckpointData:
     config: ImMatchNetConfig
     params: Any  # the JAX param tree (numpy)
-    opt_state: Optional[list]  # per trainable tensor {'exp_avg', 'exp_avg_sq', 'step'}
+    # per trainable tensor {'exp_avg', 'exp_avg_sq', 'step'}: a list in the
+    # optimizer's order (.npz), or a dict by path (a JAX checkpoint)
+    opt_state: Any
     step: int
     epoch: int
     train_loss: list
@@ -46,6 +52,8 @@ class CheckpointData:
     best_val_loss: float
     optimizer: dict
     cursor: Optional[dict] = None
+    train_fe: bool = False
+    fe_finetune_blocks: int = 0
 
 
 def _finite_or_none(v):
@@ -78,6 +86,9 @@ def save_checkpoint(path, state, config, epoch, train_loss=(), val_loss=(),
         "optimizer": {"lr": group["lr"], "betas": list(group["betas"]),
                       "eps": group["eps"]},
         "cursor": cursor,
+        "train_fe": bool(state.train_fe),
+        "fe_finetune_blocks": int(state.fe_finetune_blocks),
+        "trainable": [list(p) for p in state.paths],
     }
     arrays["meta"] = np.asarray(json.dumps(meta))
     d = os.path.dirname(os.path.abspath(path))
@@ -91,7 +102,13 @@ def save_checkpoint(path, state, config, epoch, train_loss=(), val_loss=(),
 
 
 def load_checkpoint(path):
-    """Read a file written by `save_checkpoint` -> `CheckpointData`."""
+    """Read a file written by `save_checkpoint`, or a JAX package
+    ``.msgpack`` checkpoint (`ncnet_tpu_torch.train.jax_checkpoint`) ->
+    `CheckpointData`."""
+    if path.endswith(".msgpack"):
+        from ncnet_tpu_torch.train.jax_checkpoint import load_jax_checkpoint
+
+        return load_jax_checkpoint(path)
     with np.load(path, allow_pickle=False) as f:
         meta = json.loads(str(f["meta"]))
         if meta.get("format") != FORMAT:
@@ -120,26 +137,38 @@ def load_checkpoint(path):
                        else meta["best_val_loss"]),
         optimizer=meta["optimizer"],
         cursor=meta["cursor"],
+        train_fe=bool(meta.get("train_fe", False)),
+        fe_finetune_blocks=int(meta.get("fe_finetune_blocks", 0)),
     )
 
 
 def restore(state, ck):
     """Load ``ck``'s parameters, Adam state and step into ``state`` (a
-    `TrainState` built for the same config) in place; returns it."""
+    `TrainState` built for the same config and trunk-training mode) in
+    place; returns it. ``ck.opt_state`` None keeps the fresh optimizer."""
     bridge.load_jax_params(state.model, ck.params)
     sd = state.optimizer.state_dict()
     n = len(sd["param_groups"][0]["params"])
     if ck.opt_state is not None:
-        if len(ck.opt_state) != n:
+        opt = ck.opt_state
+        if len(opt) != n:
             raise ValueError(
-                f"checkpoint holds Adam state for {len(ck.opt_state)} tensors, "
+                f"checkpoint holds Adam state for {len(opt)} tensors, "
                 f"the optimizer has {n}"
             )
+        if isinstance(opt, dict):  # keyed by path (a JAX checkpoint)
+            missing = [p for p in state.paths if tuple(p) not in opt]
+            if missing:
+                raise ValueError(
+                    f"checkpoint holds no Adam state for {missing[:3]}: it "
+                    "was trained with another trainable set"
+                )
+            opt = [opt[tuple(p)] for p in state.paths]
         sd["state"] = {
             i: {"step": torch.tensor(float(st["step"]), dtype=torch.float32),
-                "exp_avg": torch.from_numpy(np.asarray(st["exp_avg"])),
-                "exp_avg_sq": torch.from_numpy(np.asarray(st["exp_avg_sq"]))}
-            for i, st in enumerate(ck.opt_state)
+                "exp_avg": torch.from_numpy(np.array(st["exp_avg"])),
+                "exp_avg_sq": torch.from_numpy(np.array(st["exp_avg_sq"]))}
+            for i, st in enumerate(opt)
         }
         state.optimizer.load_state_dict(sd)
     state.step = int(ck.step)

@@ -48,18 +48,22 @@ def _sync(device):
 def train(config, model, train_loader, val_loader=None, num_epochs=5,
           learning_rate=5e-4, checkpoint_dir="trained_models",
           checkpoint_name="ncnet_tpu_torch.npz", log_every=10,
-          save_every_steps=0, max_steps=0, resume=None, log=print):
+          save_every_steps=0, max_steps=0, resume=None, log=print,
+          train_fe=False, fe_finetune_blocks=0):
     """Run the training loop; returns ``(state, history)``.
 
-    ``model``: an `ImMatchNet` on its device (its NC head is made
-    trainable here). ``resume``: a `CheckpointData` to continue from (its
-    parameters, Adam state, step, histories and cursor). ``history`` has
+    ``model``: an `ImMatchNet` on its device (its NC head, and with
+    ``fe_finetune_blocks`` its trunk's last tail units or with ``train_fe``
+    its whole trunk, are made trainable here). ``resume``: a
+    `CheckpointData` to continue from (its parameters, Adam state, step,
+    histories and cursor). ``history`` has
     the per-epoch ``train_loss`` / ``val_loss``, every step's loss
     (``step_losses``, this call's steps), the per-step wall ms
     (``step_ms``, host clock to a device sync) and ``stopped_at_max_steps``.
     """
     device = model.device
-    state = create_train_state(model, learning_rate)
+    state = create_train_state(model, learning_rate, train_fe=train_fe,
+                               fe_finetune_blocks=fe_finetune_blocks)
     start_epoch, start_batch, epoch_losses0 = 0, 0, None
     best_val = float("inf")
     train_hist, val_hist = [], []
@@ -72,7 +76,8 @@ def train(config, model, train_loader, val_loader=None, num_epochs=5,
             start_epoch = int(resume.cursor["epoch"])
             start_batch = int(resume.cursor["batch_index"])
             epoch_losses0 = list(resume.cursor["epoch_losses"])
-    train_step = make_train_step(config)
+    train_step = make_train_step(config, train_fe=train_fe,
+                                 fe_finetune_blocks=fe_finetune_blocks)
     eval_step = make_eval_step(config)
     path = os.path.join(checkpoint_dir, checkpoint_name)
     metrics_path = os.path.join(checkpoint_dir, "metrics.jsonl")

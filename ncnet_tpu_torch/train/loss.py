@@ -5,14 +5,18 @@ source dimension (softmax by default), take the per-cell max in both
 matching directions, average, and subtract the same quantity computed on
 negative pairs formed by rolling the source batch by one:
 ``loss = score_neg - score_pos``. The roll is applied to the extracted
-source features (the trunk is frozen and deterministic).
+source features (the trunk, frozen or not, is deterministic).
 
 With ``config.nc_topk > 0`` (sparse-band training) each pair is scored
 on its own top-K band: `sparse_match_pipeline` (correlation, MM, top-K,
 the band NC stack, band MM) and `band_match_score_per_sample`; the NC
 stack never sees the dense correlation, and its backward runs through the
 band layer's gradient kernels on the card
-(`ncnet_tpu_torch.ops.band.BandLayerFunction`).
+(`ncnet_tpu_torch.ops.band.BandLayerFunction`). With a trainable trunk
+the band's gradient goes on into the correlation through `topk_band`'s
+gather, whose backward is a scatter-add (the JAX package's gather VJP;
+a row's K indices are distinct, so no two sums collide), and from there
+into the trunk's tail.
 
 Mixed precision (``config.half_precision``): features, correlation and
 the NC stack are bfloat16; both pipelines return float32 at the post-NC

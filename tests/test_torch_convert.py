@@ -1,8 +1,8 @@
 """Reference ``.pth.tar`` checkpoints into the port, against the JAX
 package's converter: a fake checkpoint in the reference's schema
-(torchvision Sequential-index ResNet-101 keys, pre-permuted Conv4d
-weights, an ``args`` Namespace) gives the same config, the same param tree
-and the same forward through both. float32 forward parity: rtol 1e-5 /
+(torchvision Sequential-index ResNet-101, VGG-16 or DenseNet-201 keys,
+pre-permuted Conv4d weights, an ``args`` Namespace) gives the same config,
+the same param tree and the same forward through both. float32 forward parity: rtol 1e-5 /
 atol 1e-6 of the correlation."""
 
 import argparse
@@ -142,15 +142,92 @@ def test_trunk_keys_and_nc_layouts_match_jax():
                                         pre_permuted=False))
 
 
+def _fake_vgg_state_dict(prefix):
+    """torchvision ``vgg16.features`` up to pool4: conv weights and biases at
+    their Sequential indices (the ReLUs and pools between hold none)."""
+    g = torch.Generator().manual_seed(2)
+    sd, cin, idx = {}, 3, 0
+    for c in (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M"):
+        if c == "M":
+            idx += 1
+            continue
+        sd[f"{prefix}{idx}.weight"] = torch.randn(c, cin, 3, 3, generator=g) * (
+            1.0 / (9 * cin)) ** 0.5
+        sd[f"{prefix}{idx}.bias"] = 0.1 * torch.randn(c, generator=g)
+        cin, idx = c, idx + 2  # conv, relu
+    return sd
+
+
+def _fake_densenet_state_dict(prefix, legacy=False):
+    """torchvision DenseNet-201 up to transition2 with the reference's
+    Sequential indices (0 conv0, 1 norm0, 4..7); ``legacy``: the old zoo
+    file's ``denselayer<i>.norm.1`` / ``conv.2`` names."""
+    g = torch.Generator().manual_seed(3)
+    seq = {"conv0": "0", "norm0": "1", "denseblock1": "4", "transition1": "5",
+           "denseblock2": "6", "transition2": "7"}
+    sd = {}
+
+    def key(name):
+        head, _, rest = name.partition(".")
+        return prefix + seq[head] + ("." + rest if rest else "")
+
+    def conv(name, cout, cin, k):
+        sd[key(name) + ".weight"] = torch.randn(cout, cin, k, k, generator=g) * (
+            1.0 / (cin * k * k)) ** 0.5
+
+    def bn(name, c):
+        sd[key(name) + ".weight"] = 0.5 + 0.5 * torch.rand(c, generator=g)
+        sd[key(name) + ".bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[key(name) + ".running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[key(name) + ".running_var"] = torch.rand(c, generator=g) + 0.5
+
+    conv("conv0", 64, 3, 7)
+    bn("norm0", 64)
+    cin = 64
+    for bi, n in enumerate((6, 12)):
+        for li in range(n):
+            p = f"denseblock{bi + 1}.denselayer{li + 1}."
+            n1, c1, n2, c2 = (("norm.1", "conv.1", "norm.2", "conv.2") if legacy
+                              else ("norm1", "conv1", "norm2", "conv2"))
+            bn(p + n1, cin)
+            conv(p + c1, 128, cin, 1)
+            bn(p + n2, 128)
+            conv(p + c2, 32, 128, 3)
+            cin += 32
+        bn(f"transition{bi + 1}.norm", cin)
+        conv(f"transition{bi + 1}.conv", cin // 2, cin, 1)
+        cin //= 2
+    return sd
+
+
 @pytest.mark.parametrize("cnn", ["vgg", "densenet201"])
 def test_unported_checkpoint_trunks_raise(tmp_path, cnn):
+    """The VGG-16 and DenseNet-201 reference checkpoints (ROADMAP A4, once
+    refused here) convert as the JAX package converts them, the legacy
+    ``vgg`` key prefix included, and their forwards agree."""
+    prefix = "FeatureExtraction.vgg." if cnn == "vgg" else "FeatureExtraction.model."
+    sd = (_fake_vgg_state_dict(prefix) if cnn == "vgg"
+          else _fake_densenet_state_dict(prefix, legacy=True))
+    sd.update(_nc_state_dict((3,), (1,)))
     path = str(tmp_path / "ck.pth.tar")
-    torch.save({"state_dict": _nc_state_dict((3,), (1,)),
+    torch.save({"state_dict": sd,
                 "args": argparse.Namespace(ncons_kernel_sizes=[3],
                                            ncons_channels=[1],
                                            feature_extraction_cnn=cnn)}, path)
-    with pytest.raises(NotImplementedError, match="A4"):
-        convert.convert_checkpoint(path)
+    config, params = convert.convert_checkpoint(path)
+    jconfig, jparams = jconvert.convert_checkpoint(path)
+    assert config.to_dict() == jconfig.to_dict()
+    _assert_same_tree(params, jparams)
+    _, model = convert.load_model(path, device="cpu")
+    src = np.random.RandomState(4).randn(1, 64, 48, 3).astype(np.float32)
+    with torch.inference_mode():
+        got = immatchnet_apply(model, config, torch.from_numpy(src),
+                               torch.from_numpy(src[:, ::-1].copy()))
+    want = jax_immatchnet_apply(jparams, jconfig, jnp.asarray(src),
+                                jnp.asarray(src[:, ::-1].copy()))
+    scale = float(np.abs(np.asarray(want)).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL * scale)
 
 
 def test_load_model_dispatch(tmp_path):
@@ -166,7 +243,19 @@ def test_load_model_dispatch(tmp_path):
     config, loaded = convert.load_model(path, device="cpu")
     assert config == cfg
     _assert_same_tree(bridge.to_jax_params(loaded), bridge.to_jax_params(model))
-    with pytest.raises(NotImplementedError, match="A6"):
-        convert.load_model(str(tmp_path / "jax.msgpack"), device="cpu")
+    # a JAX package checkpoint, through the port's msgpack reader
+    import jax.numpy as jnp_  # noqa: F401  (the JAX side writes it)
+    from ncnet_tpu.models.immatchnet import ImMatchNetConfig as JaxConfig
+    from ncnet_tpu.train import checkpoint as jax_checkpoint
+
+    jtree = bridge.to_jax_params(model)
+    mp = str(tmp_path / "jax.msgpack")
+    jax_checkpoint.save_checkpoint(mp, jax_checkpoint.CheckpointData(
+        config=JaxConfig(**cfg.to_dict()), params=jtree, step=4, epoch=1))
+    config, loaded = convert.load_model(mp, device="cpu")
+    assert config == cfg
+    _assert_same_tree(bridge.to_jax_params(loaded), jtree)
+    with pytest.raises(FileNotFoundError):
+        convert.load_model(str(tmp_path / "missing.msgpack"), device="cpu")
     with pytest.raises(ValueError, match="expected"):
         convert.load_model(str(tmp_path / "weights.bin"), device="cpu")

@@ -942,3 +942,81 @@ def test_band_training_step_on_the_complete_band_past_int32(card):
                       "loss": float(loss),
                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                       "card": torch.cuda.get_device_name(0)}))
+
+
+# -- trunk fine-tuning: the first NC layer's input gradient ----------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_first_layer_dx_at_finetune_shape(card, dtype):
+    """The 1->16 layer's dx (a 16->1 contraction: bfloat16 on the O = 1
+    tensor-core route, float32 on ``conv4d_fwd_ffma_o1``) at a fine-tuning
+    step's pipeline call, 32 samples on 25^4 with 5^4 taps: against the
+    plain version and bitwise on repeat."""
+    dt = getattr(torch, dtype)
+    shape = (32, 25, 25, 25, 25)
+    _, w, _ = _inputs((1, 1, 1, 1, 1), 5, 1, 16, 400, card)
+    g = torch.randn(*shape, 16, generator=torch.Generator(device=card)
+                    .manual_seed(401), device=card).to(dt)
+    w = w.to(dt)
+    got = conv4d_dx(g, w)
+    assert got.dtype == dt and got.shape == (*shape, 1)
+    assert torch.equal(conv4d_dx(g, w), got)
+    want = conv4d_dx_plain(g.float(), w.float())
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    tol = 1e-4 if dtype == "float32" else 1e-2  # test_dx_kernel_matches_plain's
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("swapped", [False, True])
+def test_band_first_layer_dx_at_finetune_shape(card, swapped):
+    """The first band layer's dx (16 cotangent channels into 1) on K = 50
+    bands of 16 samples on 25x25 grids, bfloat16, both passes: against
+    `band_dx_plain` and bitwise on repeat."""
+    g = torch.Generator(device=card).manual_seed(402)
+    scores = torch.randn(16, 25, 25, 25, 25, generator=g, device=card)
+    _, idx = topk_band(scores, 50, mutual=True)
+    del scores
+    geom = BandGeometry(idx, (25, 25), *(b_major_order(idx) if swapped else ()))
+    n = 25 * 25 * 50
+    w = ((torch.rand(5, 5, 5, 5, 1, 16, generator=g, device=card) * 2 - 1)
+         * 625 ** -0.5).to(torch.bfloat16)
+    gp = torch.randn(16, n, 16, generator=g, device=card)
+    gp = (gp * (torch.rand(16, n, 16, generator=g, device=card) > 0.5)).to(torch.bfloat16)
+    hits = geom.hits((5, 5, 5, 5))
+    got = band_gemm_dx(gp, w, hits)
+    assert got.dtype == torch.bfloat16 and got.shape == (16, n, 1)
+    assert torch.equal(band_gemm_dx(gp, w, hits), got)
+    want = torch.cat([band_dx_plain(gp[i:i + 1].float(), w.float(), BandGeometry(
+        idx[i:i + 1], (25, 25), *(b_major_order(idx[i:i + 1]) if swapped else ())))
+        for i in range(16)])
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    assert err <= 1e-2 * scale, (err, scale)  # test_band_dx_kernel_matches_plain's
+
+
+@pytest.mark.parametrize("nc_topk", [0, 8])
+def test_trunk_training_step_launches_first_layer_dx(card, nc_topk):
+    """A step that trains the trunk (patch16, ``train_fe``) makes the first
+    NC layer's dx launches a frozen step does not: dense 2 more conv4d dx
+    a step (one a pipeline call), band 4 more band dx (both passes)."""
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+    from ncnet_tpu_torch.train.step import create_train_state, make_train_step
+
+    cfg = ImMatchNetConfig(feature_extraction_cnn="patch16", ncons_kernel_sizes=(3, 3),
+                           ncons_channels=(4, 1), nc_topk=nc_topk)
+    rng = torch.Generator().manual_seed(5)
+    batch = {k: torch.randn(2, 64, 64, 3, generator=rng)
+             for k in ("source_image", "target_image")}
+    counts = []
+    for train_fe in (False, True):
+        model = ImMatchNet(cfg, device=card, generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, 1e-3, train_fe=train_fe)
+        kern = band_gemm_dx if nc_topk else conv4d_dx
+        before = kern.launches
+        state, loss = make_train_step(cfg, train_fe=train_fe)(state, batch)
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        counts.append(kern.launches - before)
+    assert counts == ([4, 8] if nc_topk else [2, 4]), counts

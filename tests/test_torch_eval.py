@@ -333,7 +333,9 @@ def test_pf_pascal_cli(small, pf_dataset, tmp_path, capsys, serve):
 
 @pytest.mark.parametrize("argv,error,item", [
     (["--refine", "2"], NotImplementedError, "A10"),
-    (["--checkpoint", "ck.msgpack"], NotImplementedError, "A6"),
+    # the JAX package's checkpoints are read now (ROADMAP A6): a missing
+    # one is a missing file, not a refusal
+    (["--checkpoint", "ck.msgpack"], FileNotFoundError, "ck.msgpack"),
 ])
 def test_pf_pascal_cli_not_ported(argv, error, item):
     base = ["--checkpoint", "ck.npz", "--device", "cpu"]

@@ -303,12 +303,8 @@ def test_not_ported_options_raise(small, inloc_data, tmp_path):
     cases = [
         (lambda: inloc.make_match_fn(cfg, mesh=object()), "A13"),
         (lambda: inloc.make_match_fn(cfg, from_features=True), "A11"),
-        (lambda: inloc.make_match_fn(cfg, device_preprocess=True), "A7b"),
-        (lambda: inloc.load_and_preprocess("x.png", 128, 2, device_normalize=True), "A7b"),
         (lambda: inloc.dump_matches(model, cfg, feature_store_dir=str(tmp_path),
                                     **_dump_kw(inloc_data, tmp_path)), "A11"),
-        (lambda: inloc.dump_matches(model, cfg, device_resize=True,
-                                    **_dump_kw(inloc_data, tmp_path)), "A7b"),
     ]
     for call, item in cases:
         with pytest.raises(NotImplementedError, match=item):
@@ -339,7 +335,17 @@ def test_inloc_cli(small, inloc_data, tmp_path, capsys):
         _assert_same_mat(tmp_path / "matches" / exp / f"{q}.mat",
                          tmp_path / "jax" / f"{q}.mat")
     for extra, item in ((["--spatial_shards", "2"], "A13"), (["--refine", "2"], "A10"),
-                        (["--device_preprocess", "true"], "A7b"),
                         (["--feature-store", str(tmp_path)], "A11")):
         with pytest.raises(NotImplementedError, match=item):
             inloc.main(argv + extra)
+    # device preprocessing (ROADMAP A7b, once refused): the .mat of the
+    # JAX package's dump on the same route, row for row
+    with pytest.raises(ValueError, match="requires --device_preprocess"):
+        inloc.main(argv + ["--device_resize", "true"])
+    dev = ["--output_root", str(tmp_path / "dev"), "--device_preprocess", "true"]
+    inloc.main(argv + dev)
+    jinloc.dump_matches(tree, jcfg, device_preprocess=True, device_resize=True,
+                        **_dump_kw(inloc_data, tmp_path / "jax_dev"))
+    for q in (1, 2):
+        _assert_same_mat(tmp_path / "dev" / exp / f"{q}.mat",
+                         tmp_path / "jax_dev" / f"{q}.mat")

@@ -68,10 +68,12 @@ def _entry_points():
     from ncnet_tpu_torch.eval.inloc import main as inloc_main
     from ncnet_tpu_torch.eval.pf_pascal import main as pf_pascal_main
     from ncnet_tpu_torch.eval.synthetic import main as synthetic_main
+    from ncnet_tpu_torch.models.densenet import DenseNet201Trunk
     from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
     from ncnet_tpu_torch.models.neigh_consensus import NeighConsensus
     from ncnet_tpu_torch.models.patch import PatchTrunk
     from ncnet_tpu_torch.models.resnet import ResNet101Trunk
+    from ncnet_tpu_torch.models.vgg import VGG16Trunk
     from ncnet_tpu_torch.serve.__main__ import main as serve_main
     from ncnet_tpu_torch.serve.engine import ServeEngine
     from ncnet_tpu_torch.train.__main__ import main as train_main
@@ -83,6 +85,9 @@ def _entry_points():
         "NeighConsensus": lambda: NeighConsensus((3,), (1,)),
         "PatchTrunk": PatchTrunk,
         "ResNet101Trunk": ResNet101Trunk,
+        "VGG16Trunk": VGG16Trunk,
+        "DenseNet201Trunk": DenseNet201Trunk,
+        "ImMatchNet(vgg)": lambda: ImMatchNet(small.replace(feature_extraction_cnn="vgg")),
         "ServeEngine": lambda: ServeEngine(lambda m, b: b, None),
         "bridge.from_jax_params": lambda: bridge.from_jax_params({}, small),
         "python -m ncnet_tpu_torch.serve": lambda: serve_main(
@@ -92,6 +97,9 @@ def _entry_points():
         "ImMatchNet(nc_topk)": lambda: ImMatchNet(small.replace(nc_topk=16)),
         "python -m ncnet_tpu_torch.train": lambda: train_main(
             ["--synthetic", "--allow_random_fe", "--fe_arch", "patch16"]),
+        "python -m ncnet_tpu_torch.train --fe_finetune_params": lambda: train_main(
+            ["--synthetic", "--allow_random_fe", "--fe_arch", "densenet201",
+             "--fe_finetune_params", "1"]),
         "python -m ncnet_tpu_torch.eval.pf_pascal": lambda: pf_pascal_main(
             ["--checkpoint", "head.npz"]),
         "python -m ncnet_tpu_torch.eval.synthetic": lambda: synthetic_main(

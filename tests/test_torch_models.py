@@ -148,14 +148,28 @@ def test_config_dict_round_trip():
         # relocalization is ported (tests/test_torch_inloc.py); refinement
         # still raises when a stream correlation would feed it
         (dict(refine_factor=2, corr_impl="stream"), "A10"),
-        (dict(feature_extraction_cnn="vgg"), "A4"),
-        (dict(feature_extraction_cnn="densenet201"), "A4"),
     ],
 )
 def test_unported_configs_raise(override, item):
     cfg = ImMatchNetConfig(**dict(SMALL, **override))
     with pytest.raises(NotImplementedError, match=item):
         ImMatchNet(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cnn,channels,units", [("vgg", 512, 10),
+                                                ("densenet201", 256, 13)])
+def test_vgg_and_densenet_trunks_build(cnn, channels, units):
+    """The trunks ROADMAP A4 once refused build at stride 16 with their
+    channel counts and tail units (forward parity with JAX:
+    tests/test_torch_trunks.py)."""
+    model = ImMatchNet(ImMatchNetConfig(**dict(SMALL, feature_extraction_cnn=cnn)),
+                       device="cpu")
+    trunk = model.feature_extraction
+    assert (trunk.stride, trunk.channels, len(trunk.tail_units())) == (16, channels, units)
+    with torch.no_grad():
+        feats = trunk(torch.zeros(1, 32, 48, 3))
+    assert feats.shape == (1, 2, 3, channels)
+    assert not any(p.requires_grad for p in trunk.parameters())
 
 
 def test_bridge_flatten_round_trip(tmp_path):

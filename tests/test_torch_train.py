@@ -166,12 +166,26 @@ def test_weak_loss_core_raises_for_unported(override, error, item):
 
 
 @pytest.mark.parametrize("kw", [dict(train_fe=True), dict(fe_finetune_blocks=1)])
-def test_trunk_training_raises_naming_a6(kw):
+def test_trunk_training_modes(kw):
+    """Trunk training on patch16 (ROADMAP A6, once refused): ``train_fe``
+    trains the projection with the head; patch16 has no tail units, so
+    ``fe_finetune_blocks`` raises as the JAX package's unit rule does; a
+    step made for another mode than the state's refuses it."""
     _, _, cfg, model = _port(SMALL)
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_train_step(cfg, **kw)
-    with pytest.raises(NotImplementedError, match="A6"):
-        create_train_state(model, **kw)
+    if "fe_finetune_blocks" in kw:
+        with pytest.raises(ValueError, match="no finetune tail"):
+            create_train_state(model, **kw)
+        with pytest.raises(ValueError, match="no finetune tail"):
+            trainable_subset(model, **kw)
+        return
+    before = model.feature_extraction.weight.detach().clone()
+    state = create_train_state(model, LR, **kw)
+    assert state.paths[-1] == ("feature_extraction", "kernel")
+    with pytest.raises(ValueError, match="made for"):
+        make_train_step(cfg)(state, _batch(1))
+    state, loss = make_train_step(cfg, **kw)(state, _batch(1))
+    assert torch.isfinite(loss)
+    assert not torch.equal(model.feature_extraction.weight, before)
 
 
 def test_from_features_with_trunk_training_raises():
