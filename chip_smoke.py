@@ -227,9 +227,40 @@ Phases, one JSON line each:
              ms a batch of 8 images, and a bfloat16 training step at batch
              16 with the trunk frozen and one with its last tail unit
              trainable, finite losses and 15 / 10 / 12 conv4d launches.
+15. stream — the streamed band (``corr_impl='stream'``) against the dense
+             band at band training's shape (16 pairs, 25x25, c = 1024, K =
+             50), mutual on and off, tiles 128 and 96, float32: bitwise the
+             band of the correlation built from the same slabs (gate a);
+             against ``correlation_4d``'s band, values within STREAM_RTOL /
+             STREAM_ATOL where the indices agree and every index swap a
+             near tie (gate b); a bitwise repeat; bfloat16 at tile 128
+             (gate a); one InLoc-sized pair (200x150 against 150x200, K =
+             16, both selections) by gate (b); each route's ms and peak
+             memory; the stream's gradient against the dense band's
+             autograd at batch 2 (STREAM_GRAD_TOL).
+16. train_stream — 3 bfloat16 steps at batch 16 with ``--nc_topk 50
+             --corr-impl stream`` against ``--corr-impl dense`` from the
+             same weights (losses within TRAIN_STREAM_LOSS_TOL, the NC
+             weights moved, 12 / 8 / 12 band launches a step), then one
+             ``--fe_finetune_params 1`` step whose backward runs through
+             the stream's VJP into the trunk (12 / 12 / 12).
+17. refine — coarse-to-fine refinement at the PF-Pascal config (``--refine
+             5 --refine_topk 16`` at 400 px): factor 1, radius 0 bitwise
+             the K = 16 band (dense and streamed); the ServeEngine ladder
+             (refined, standard, degraded) with requests pinned to each
+             rung, refined batches served, the ladder one rung a flip under
+             a burst; PF-Pascal PCK with ``--refine 5`` on the generated
+             pairs, readouts against the plain band layer's up to ties,
+             beside the dense eval; the band kernels on the refined paths'
+             coarse bands against their plain versions; 3 refined bfloat16
+             training steps at batch 16; the InLoc dump at 3200 px with
+             ``--k_size 1 --refine 2`` (its .mat, 4 band launches a pair);
+             stage seconds and peak memory.
 Then the ``{"kernels": [...]}`` line (``launches_by_path`` per kernel:
 serve, serve_band, train, eval, inloc, inloc_device_route, train_band,
-synthetic_band, finetune, finetune_band, trunks), the nvidia-smi line,
+synthetic_band, finetune, finetune_band, trunks, and this slice's
+train_stream, finetune_stream, refine_serve, refine_eval, refine_train,
+refine_inloc), the nvidia-smi line,
 and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Needs one card; exits non-zero without CUDA.
@@ -379,6 +410,31 @@ FT_BLOCKS = 1
 FT_BF16_STEPS, FT_F32_STEPS = 3, 1
 FULL_K_LOSS_TOL = 1e-8
 FULL_K_GRAD_TOL = 1e-2
+# the streamed band (--corr-impl stream): B-tile widths at band training's
+# shape (128, the default, and 96, which does not divide 625 cells), and
+# the InLoc grid at 3200 px (k_size 1) with the band of --refine_topk 16
+STREAM_TILES = (128, 96)
+INLOC_GRID, INLOC_BAND_K = (200, 150), 16
+# gate (b): the band against correlation_4d's, float32's starting tolerance
+# on the values of rows whose indices agree (cuBLAS may sum a 128-column
+# slab in another order than the full GEMM: a few float32 steps)
+STREAM_RTOL, STREAM_ATOL = 1e-5, 1e-6
+# the stream's gradient against the dense band's autograd, float32: the
+# correlation's cotangent summed in another order (three routes into a
+# cell, then two GEMMs against the dense scatter-add and its GEMMs), of
+# each gradient's scale; the same bound as GRAD_TOL
+STREAM_GRAD_TOL = 1e-4
+# 3 bfloat16 band steps, stream against dense, from the same weights: the
+# weak loss is a difference of two mean best-match scores in [0, 1]; a
+# bfloat16 slab summed in another order moves a band value by one step
+# (2^-8 of it) and may swap a near tie at the band's edge, which moves a
+# score by a few such steps on a few of 16 x 625 cells
+TRAIN_STREAM_LOSS_TOL = 1e-3
+# refinement at 400 px: the 25-cell grid pooled by 5 (bench.py's advice),
+# the coarse band 16 of 25 cells; serving: requests pinned to each rung,
+# then a burst of unpinned ones under a low high-water mark
+REFINE_PF, REFINE_TOPK = 5, 16
+REFINE_PINNED, REFINE_BURST = 4, 32
 
 
 def emit(obj):
@@ -3251,6 +3307,677 @@ def phase_trunks(smi, kernels, conv4d_plain):
     return launches
 
 
+# -- the streamed band, streamed band training, refinement ------------------
+
+
+def peak_call(fn):
+    """``(result, ms, peak bytes above the memory held before)`` of one call
+    of ``fn`` after a warm-up call; ms by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop), torch.cuda.max_memory_allocated() - base
+
+
+def unit_features(shape, seed, dtype=torch.float32):
+    """L2-normalized random features on the card (a trunk's output)."""
+    from ncnet_tpu_torch.ops.norm import feature_l2norm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return feature_l2norm(torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+
+
+def stream_vs_dense(fa, fb, k, mutual, tile, slab_gate=True):
+    """The streamed band against the dense band of one feature pair: gate
+    (a) (bitwise the band of the slabs' correlation, skipped where that
+    volume would be a second dense run), gate (b) (`correlation_4d`'s
+    band: values at STREAM_RTOL / STREAM_ATOL on the rows whose indices
+    agree, every swap a near tie), a bitwise repeat, and each route's ms
+    and peak memory."""
+    from ncnet_tpu_torch.ops.band import topk_band
+    from ncnet_tpu_torch.ops.corr_stream import (
+        band_index_swaps,
+        corr_stream_band,
+        slab_correlation,
+    )
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+
+    def dense():
+        corr = correlation_4d(fa, fb)
+        return topk_band(corr, k, values_from=mutual_matching(corr), mutual=mutual)
+
+    with torch.no_grad():
+        (sv, si), s_ms, s_peak = peak_call(
+            lambda: corr_stream_band(fa, fb, k, mutual=mutual, tile=tile))
+        again = corr_stream_band(fa, fb, k, mutual=mutual, tile=tile)
+        repeat = bool(torch.equal(sv, again[0]) and torch.equal(si, again[1]))
+        del again
+        (dv, di), d_ms, d_peak = peak_call(dense)
+        rec = {"shape_a": list(fa.shape), "shape_b": list(fb.shape), "k": k,
+               "mutual": mutual, "tile": tile, "dtype": str(fa.dtype)[6:],
+               "stream_ms": s_ms, "stream_peak_bytes": s_peak,
+               "dense_ms": d_ms, "dense_peak_bytes": d_peak,
+               "bitwise_repeat": repeat}
+        corr_s = slab_correlation(fa, fb, tile)
+        if slab_gate:
+            wv, wi = topk_band(corr_s, k, values_from=mutual_matching(corr_s),
+                               mutual=mutual)
+            view = torch.int32 if sv.dtype == torch.float32 else torch.int16
+            rec["slab_band_bitwise"] = bool(torch.equal(si, wi) and torch.equal(
+                sv.view(view), wv.view(view)))
+            del wv, wi
+        corr = correlation_4d(fa, fb)
+        swaps = band_index_swaps(corr, corr_s, si, di)
+        del corr, corr_s
+        same = (si == di).all(-1, keepdim=True).expand_as(si)
+        err = (sv[same].float() - dv[same].float()).abs()
+        bound = STREAM_ATOL + STREAM_RTOL * dv[same].float().abs()
+        rec.update(swaps=swaps, values_within_tol=bool((err <= bound).all()),
+                   max_abs_err=float(err.max()) if err.numel() else 0.0,
+                   index_bitwise=bool(torch.equal(si, di)),
+                   value_bitwise=bool(torch.equal(sv, dv)))
+    rec["ok"] = (repeat and rec.get("slab_band_bitwise", True)
+                 and swaps["near_ties"] == swaps["entries"]
+                 and (rec["values_within_tol"] or fa.dtype != torch.float32))
+    return rec
+
+
+def stream_grad_check():
+    """The stream's gradient (`CorrStreamBand.backward`) against the port's
+    autograd through the dense band, float32, at batch 2 of band training's
+    shape: ``d feat_a`` and ``d feat_b`` of a random linear functional of
+    the K = 50 mutual band's values, within STREAM_GRAD_TOL of each one's
+    scale (random features: no tied maxima, where the two routings
+    differ)."""
+    from ncnet_tpu_torch.ops.band import topk_band
+    from ncnet_tpu_torch.ops.corr_stream import corr_stream_band
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+
+    fa0 = unit_features((2, GRID, GRID, 1024), SEED + 40)
+    fb0 = unit_features((2, GRID, GRID, 1024), SEED + 41)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    ct = torch.randn(2, GRID, GRID, TRAIN_K, generator=g, device="cuda")
+
+    def grads(band_fn):
+        a, b = fa0.clone().requires_grad_(), fb0.clone().requires_grad_()
+        values, idx = band_fn(a, b)
+        (values * ct).sum().backward()
+        return a.grad, b.grad, idx
+
+    def dense(a, b):
+        corr = correlation_4d(a, b)
+        return topk_band(corr, TRAIN_K, values_from=mutual_matching(corr),
+                         mutual=True)
+
+    t0 = time.perf_counter()
+    gs = grads(lambda a, b: corr_stream_band(a, b, TRAIN_K, mutual=True))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    again = grads(lambda a, b: corr_stream_band(a, b, TRAIN_K, mutual=True))
+    gd = grads(dense)
+    rec = {"shape": [2, GRID, GRID, 1024], "k": TRAIN_K, "mutual": True,
+           "tol_rel": STREAM_GRAD_TOL, "stream_backward_s": stream_s,
+           "same_band": bool(torch.equal(gs[2], gd[2])),
+           "bitwise_repeat": all(torch.equal(x, y) for x, y in zip(gs[:2], again[:2]))}
+    for name, s, d in (("d_feat_a", gs[0], gd[0]), ("d_feat_b", gs[1], gd[1])):
+        scale = float(d.abs().max())
+        rec[name] = {"max_abs_err": float((s - d).abs().max()), "scale": scale}
+    rec["ok"] = (rec["same_band"] and rec["bitwise_repeat"] and all(
+        rec[n]["max_abs_err"] <= STREAM_GRAD_TOL * rec[n]["scale"]
+        for n in ("d_feat_a", "d_feat_b")))
+    return rec
+
+
+def phase_stream(smi):
+    """The streamed band at full width: (a) band training's shape (16 pairs,
+    25x25, c = 1024, K = 50), mutual on and off, tile 128 and 96 (which
+    does not divide 625), float32 by gates (a) and (b), bitwise repeats;
+    the same in bfloat16 (training's dtype) at tile 128; (b) one InLoc-sized
+    pair (200x150 against 150x200 features, K = 16), non-mutual and
+    mutual, float32, gate (b), ms and peak memory of both routes; (c) the
+    stream's gradient against the dense band's autograd at batch 2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pf = []
+    fa = unit_features((TRAIN_BATCH, GRID, GRID, 1024), SEED + 30)
+    fb = unit_features((TRAIN_BATCH, GRID, GRID, 1024), SEED + 31)
+    for mutual in (False, True):
+        for tile in STREAM_TILES:
+            pf.append(stream_vs_dense(fa, fb, TRAIN_K, mutual, tile))
+        pf.append(stream_vs_dense(fa.to(torch.bfloat16), fb.to(torch.bfloat16),
+                                  TRAIN_K, mutual, STREAM_TILES[0]))
+    del fa, fb
+    fa = unit_features((1,) + INLOC_GRID + (1024,), SEED + 32)
+    fb = unit_features((1,) + INLOC_GRID[::-1] + (1024,), SEED + 33)
+    inloc_pair = [stream_vs_dense(fa, fb, INLOC_BAND_K, mutual, STREAM_TILES[0],
+                                  slab_gate=False) for mutual in (False, True)]
+    del fa, fb
+    torch.cuda.empty_cache()
+    grad = stream_grad_check()
+    record = {"phase": "stream", "card": smi, "pf_pascal_training_shape": pf,
+              "inloc_pair": inloc_pair, "grad_check": grad,
+              "tol": {"rtol": STREAM_RTOL, "atol": STREAM_ATOL,
+                      "grad_rel": STREAM_GRAD_TOL}}
+    emit(record)
+    bad = [r for r in pf + inloc_pair + [grad] if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the streamed band disagrees: {bad}")
+    return record
+
+
+def run_steps(model, cfg, batches, kernels, **mode):
+    """Trainer steps (`create_train_state` / `make_train_step` with ``mode``)
+    over ``batches`` with the counts set to 0 just before: losses, step ms,
+    per-step and total launches, the trainable tensors before and after,
+    the peak memory."""
+    from ncnet_tpu_torch.train.step import create_train_state, make_train_step
+
+    state = create_train_state(model, 5e-4, **mode)
+    step = make_train_step(cfg, **mode)
+    before = [t.detach().clone() for t in state.optimizer.param_groups[0]["params"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    losses, step_ms, per_step = [], [], []
+    for b in batches:
+        was = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append({n: k.launches - was[n] for n, k in kernels.items()})
+    moved = [float((t.detach() - t0).abs().max()) for t, t0 in
+             zip(state.optimizer.param_groups[0]["params"], before)]
+    return {"losses": losses, "step_ms": step_ms, "launches_per_step": per_step,
+            "launches": {n: k.launches for n, k in kernels.items()},
+            "moved": moved, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_train_stream(smi, config, kernels):
+    """Band training with the streamed band (``--nc_topk 50 --corr-impl
+    stream``) at the PF-Pascal config: 3 bfloat16 steps at batch 16 against
+    the same steps with ``--corr-impl dense`` from the same weights (the
+    losses within TRAIN_STREAM_LOSS_TOL; every NC tensor but layer 3's
+    bias moved; 12 band forward, 8 dx and 12 dw launches a step, the
+    counts set to 0 just before); then one fine-tuning step
+    (``--fe_finetune_params 1``), whose backward runs through the stream's
+    VJP into the trunk: 12 forward, 12 dx, 12 dw launches, the tail moved.
+    Returns the launches of the stream's steps and of the fine-tuning
+    step."""
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet
+
+    dense_cfg = config.replace(half_precision=True, nc_topk=TRAIN_K)
+    stream_cfg = dense_cfg.replace(corr_impl="stream")
+    batches = [synthetic_batch(TRAIN_BATCH, SEED + 50 + i) for i in range(TRAIN_STEPS + 1)]
+    runs = {}
+    for name, cfg in (("dense", dense_cfg), ("stream", stream_cfg)):
+        model = ImMatchNet(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED))
+        runs[name] = run_steps(model, cfg, batches[:TRAIN_STEPS], kernels)
+        del model
+        torch.cuda.empty_cache()
+    model = ImMatchNet(stream_cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    ft = run_steps(model, stream_cfg, batches[TRAIN_STEPS:], kernels,
+                   fe_finetune_blocks=FT_BLOCKS)
+    del model
+    torch.cuda.empty_cache()
+    want = {n: 0 for n in kernels}
+    want.update(band_gemm_fwd=12, band_gemm_dx=8, band_gemm_dw=12)
+    ft_want = dict(want, band_gemm_dx=12)
+    s, d = runs["stream"], runs["dense"]
+    gaps = [abs(a - b) for a, b in zip(s["losses"], d["losses"])]
+    problems = []
+    if any(p != want for p in s["launches_per_step"] + d["launches_per_step"]):
+        problems.append(f"launches per step {s['launches_per_step']} != {want}")
+    if ft["launches_per_step"] != [ft_want]:
+        problems.append(f"fine-tuning launches {ft['launches_per_step']} != {ft_want}")
+    if not all(np.isfinite(s["losses"] + d["losses"] + ft["losses"])):
+        problems.append("a loss is not finite")
+    if not all(g <= TRAIN_STREAM_LOSS_TOL for g in gaps):
+        problems.append(f"stream vs dense losses differ by {gaps}")
+    if not all(m > 0 for m in s["moved"][:-1]):
+        problems.append(f"NC tensors other than layer 3's bias did not move: {s['moved']}")
+    if not all(m > 0 for m in ft["moved"][len(s["moved"]):]):
+        problems.append(f"the trunk's tail did not move: {ft['moved']}")
+    emit({"phase": "train_stream", "card": smi, "config": stream_cfg.to_dict(),
+          "batch": TRAIN_BATCH, "stream": s, "dense": d, "loss_gaps": gaps,
+          "loss_tol": TRAIN_STREAM_LOSS_TOL, "finetune": ft})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"train_stream": s["launches"], "finetune_stream": ft["launches"]}
+
+
+class RecordingLadder:
+    """A `QualityLadder` that records its rung after every update."""
+
+    def __init__(self, **kw):
+        from ncnet_tpu_torch.serve.resilience import QualityLadder
+
+        self.ladder = QualityLadder(**kw)
+        self.rungs = [self.ladder.rung]
+
+    def __getattr__(self, name):
+        return getattr(self.ladder, name)
+
+    def update(self, pressure):
+        out = self.ladder.update(pressure)
+        if self.ladder.rung != self.rungs[-1]:
+            self.rungs.append(self.ladder.rung)
+        return out
+
+
+def refine_serve(model, config, kernels):
+    """The refined serving ladder: dense standard, K = BAND_K band degraded,
+    refined (factor REFINE_PF, coarse band REFINE_TOPK) above them, all
+    warmed on the 400 px square bucket; REFINE_PINNED requests pinned to
+    each rung, then REFINE_BURST unpinned ones at once under a ladder with
+    a low high-water mark, whose every rung change must be one step."""
+    from ncnet_tpu_torch.serve.engine import ServeEngine, payload_spec
+    from ncnet_tpu_torch.serve.step import make_serve_match_step
+
+    image = image_maker(SEED + 60)
+    payloads = [{"source_image": image(SQUARE_HW), "target_image": image(SQUARE_HW)}
+                for _ in range(REFINE_PINNED)]
+    key = (SQUARE_HW, SQUARE_HW)
+    refined_cfg = config.replace(refine_factor=REFINE_PF, refine_topk=REFINE_TOPK)
+    from ncnet_tpu_torch.serve.engine import QUEUE_LIMIT
+
+    # cheaper at 4 queued requests or batches, richer again at 1 or none
+    # (the engine's pressure counts a flushed batch once)
+    ladder = RecordingLadder(rungs=("refined", "standard", "degraded"),
+                             start="refined", high=4 / QUEUE_LIMIT,
+                             low=1 / QUEUE_LIMIT, up_count=1, down_count=2)
+    variants = ("refined", "standard", "degraded")
+    with ServeEngine(make_serve_match_step(config), model, device="cuda",
+                     max_batch=MAX_BATCH,
+                     degraded_apply_fn=make_serve_match_step(
+                         config.replace(nc_topk=BAND_K)),
+                     refined_apply_fn=make_serve_match_step(refined_cfg),
+                     quality_controller=ladder) as engine:
+        t0 = time.perf_counter()
+        warm = engine.warmup([(key, payload_spec(payloads[0]))])
+        warm_s = time.perf_counter() - t0
+        for k in kernels.values():
+            k.launches = 0
+        pinned = {v: [engine.submit(key=key, payload=p, variant=v) for p in payloads]
+                  for v in variants}
+        results = {v: [f.result(timeout=600) for f in fs] for v, fs in pinned.items()}
+        pinned_launches = {n: k.launches for n, k in kernels.items()}
+        pinned_report = engine.report()
+        burst = [engine.submit(key=key, payload=payloads[i % REFINE_PINNED])
+                 for i in range(REFINE_BURST)]
+        burst_results = [f.result(timeout=600) for f in burst]
+        time.sleep(0.5)  # idle dispatch loops: the ladder climbs back
+        report = engine.report()
+    steps = [b - a for a, b in zip(ladder.rungs, ladder.rungs[1:])]
+    # a square batch: 3 conv4d launches (standard), 6 band (degraded, and
+    # the refined program's coarse band)
+    n = {"refined": pinned_report["refined_batches"],
+         "degraded": pinned_report["degraded_batches"]}
+    n["standard"] = pinned_report["batches"] - n["refined"] - n["degraded"]
+    want = {"conv4d_fwd": 3 * n["standard"],
+            "band_gemm_fwd": 6 * (n["degraded"] + n["refined"])}
+    problems = []
+    for v, rs in results.items():
+        if not all(np.isfinite(r["matches"]).all() for r in rs):
+            problems.append(f"{v}: non-finite matches")
+    if not all(np.isfinite(r["matches"]).all() for r in burst_results):
+        problems.append("burst: non-finite matches")
+    if any(pinned_launches[k] != v for k, v in want.items()):
+        problems.append(f"pinned launches {pinned_launches} != {want}")
+    if not all(n[v] > 0 for v in variants):
+        problems.append(f"pinned batches by rung: {n}")
+    if not (steps and all(abs(s) == 1 for s in steps) and len(steps) >= 2):
+        problems.append(f"ladder rungs {ladder.rungs}: not one rung a flip")
+    if report["failed"] or report["completed"] != 3 * REFINE_PINNED + REFINE_BURST:
+        problems.append(f"served {report}")
+    return {"warm_runs": warm, "warm_s": warm_s, "pinned_batches": n,
+            "pinned_launches": pinned_launches,
+            "ladder_rungs": ladder.rungs, "ladder_flips": ladder.flips,
+            "report": {k: report[k] for k in (
+                "completed", "batches", "refined_batches", "degraded_batches",
+                "degrade_flips", "variant", "pairs_per_s", "latency_p50_ms",
+                "latency_p95_ms")},
+            "refined_differs_from_standard": bool(not np.array_equal(
+                results["refined"][0]["matches"], results["standard"][0]["matches"])),
+            "problems": problems}
+
+
+def refine_stage_breakdown(model, config, batch, reps=3):
+    """CUDA-event times of the refined serving forward's stages on one
+    square batch (``config`` refined), each timed alone after a warm-up:
+    trunk, pool, the coarse band pipeline (selection, band NC, MM), the
+    window re-score, the densify; the whole forward dense-selected and
+    streamed (``corr_impl='stream'``) with each one's peak memory."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.refine import pool_features, refine_rescore
+    from ncnet_tpu_torch.serve.step import make_serve_match_step
+    from ncnet_tpu_torch.sparse import sparse_corr_to_dense, sparse_match_pipeline
+
+    r = config.refine_factor
+    coarse = config.replace(refine_factor=0, nc_topk=config.refine_topk)
+    params = model.neigh_consensus.params()
+    with torch.inference_mode():
+        fa = extract_features(model, config, batch["source_image"])
+        fb = extract_features(model, config, batch["target_image"])
+        fa_lo, fb_lo = pool_features(fa, r), pool_features(fb, r)
+        values, indices, grid_lo = sparse_match_pipeline(params, coarse, fa_lo, fb_lo)
+        fine = refine_rescore(values, indices, grid_lo, fa, fb, r,
+                              radius=config.refine_radius)
+        stages = {
+            "pairs": int(fa.shape[0]),
+            "trunk": time_ms(lambda: (
+                extract_features(model, config, batch["source_image"]),
+                extract_features(model, config, batch["target_image"])), reps),
+            "pool": time_ms(lambda: (pool_features(fa, r), pool_features(fb, r)), reps),
+            "coarse_band": time_ms(lambda: sparse_match_pipeline(
+                params, coarse, fa_lo, fb_lo), reps),
+            "rescore": time_ms(lambda: refine_rescore(
+                values, indices, grid_lo, fa, fb, r, radius=config.refine_radius), reps),
+            "densify": time_ms(lambda: sparse_corr_to_dense(*fine), reps),
+        }
+        for name, cfg in (("forward", config),
+                          ("forward_stream", config.replace(corr_impl="stream"))):
+            apply = make_serve_match_step(cfg)
+            _, ms, peak = peak_call(lambda: apply(model, batch))
+            stages[name], stages[f"{name}_peak_bytes"] = ms, peak
+    return stages
+
+
+def coarse_band_kernels(model, cfg, batch, kernels, grads, path):
+    """The band kernels on the coarse band a refined pipeline gives them
+    (``batch``'s features pooled by the refine factor, the mutual top-K at
+    ``refine_topk``), both passes, every layer: the forward (and with
+    ``grads`` dx of layers 2 and 3, and dw) against their plain versions
+    in float32, repeated bitwise, timed beside the plain version and the
+    bound. Returns ``{"fwd", "dx", "dw"}`` record lists."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.ops.band import (
+        band_dw_plain,
+        band_dx_plain,
+        band_layer_plain,
+        topk_band,
+    )
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.refine import pool_features
+
+    dtype = torch.bfloat16 if cfg.half_precision else torch.float32
+    with torch.no_grad():
+        fa, fb = (pool_features(extract_features(model, cfg, batch[k]),
+                                cfg.refine_factor)
+                  for k in ("source_image", "target_image"))
+        corr = correlation_4d(fa, fb)
+        _, idx = topk_band(corr, cfg.refine_topk,
+                           values_from=mutual_matching(corr), mutual=True)
+    grid_b = (fb.shape[1], fb.shape[2])
+    fwd, dx, dw = (kernels[n] for n in ("band_gemm_fwd", "band_gemm_dx", "band_gemm_dw"))
+    kernel = (KSIZE,) * 4
+    out = {"fwd": [], "dx": [], "dw": []}
+    b = idx.shape[0]
+    for name, geom in band_geometries(idx, grid_b).items():
+        n = geom.indices[0].numel()
+        hits = geom.hits(kernel) if grads else None
+        for li, (cin, cout) in enumerate(NC_LAYERS):
+            x, w, bias = band_layer_inputs(b, n, cin, cout, dtype, seed=170 + li)
+            gen = torch.Generator(device="cuda").manual_seed(180 + li)
+            gp = (torch.randn(b, n, cout, generator=gen, device="cuda")).to(dtype)
+            runs = [("fwd", lambda: band_kernel_call(fwd, x, w, bias, geom),
+                     lambda: band_layer_plain(x, w, bias, geom),
+                     lambda: band_layer_plain(x.float(), w.float(),
+                                              bias.to(dtype).float(), geom))]
+            if grads:
+                runs.append(("dw", lambda: dw(x, gp, hits),
+                             lambda: band_dw_plain(x, gp, geom, kernel),
+                             lambda: band_dw_plain(x, gp, geom, kernel)))
+                if li > 0:
+                    runs.append(("dx", lambda: dx(gp, w, hits),
+                                 lambda: band_dx_plain(gp, w, geom),
+                                 lambda: band_dx_plain(gp.float(), w.float(), geom)))
+            for kname, kern, plain, reference in runs:
+                ms = time_ms(kern, reps=5)
+                plain_ms = time_ms(plain, reps=2)
+                got, again = kern(), kern()
+                bitwise = bool(torch.equal(got, again))
+                got, want = got.float(), reference().float()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                tol = BAND_TOL[dtype] if kname == "fwd" else BAND_GRAD_TOL
+                ok = bool(torch.isfinite(got).all()) and err <= tol * scale and bitwise
+                out[kname].append({
+                    "layer": li, "pass": name, "shape": [b, n], "cin": cin,
+                    "cout": cout, "k": cfg.refine_topk, "grid_b": list(grid_b),
+                    "dtype": str(dtype)[6:], "path": path, "ms": ms,
+                    "plain_ms": plain_ms, "max_abs_err": err,
+                    "max_rel_err": err / scale, "tol_rel": tol,
+                    "bitwise_repeat": bitwise, "ok": ok,
+                    **band_bound_ms(geom, cin, cout, dtype)})
+                if not ok:
+                    emit({"phase": "refine", "coarse_band_kernels": out})
+                    raise AssertionError(f"band {kname} kernel disagrees on the "
+                                         f"coarse band of {path}: {out[kname][-1]}")
+    return out
+
+
+def refine_inloc(kernels):
+    """The InLoc dump at 3200 px with ``--k_size 1 --refine 2 --refine_topk
+    16`` (NC 3-3 / 16-1, bfloat16) on one generated query and two panos:
+    the .mat, its seconds, the launches (4 band forward a pair, no conv4d)
+    and the peak memory."""
+    from scipy.io import loadmat
+
+    from ncnet_tpu_torch.data.images import resize_bilinear_np, to_uint8_image
+    from ncnet_tpu_torch.eval import inloc
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+
+    config = ImMatchNetConfig(
+        feature_extraction_cnn="resnet101", ncons_kernel_sizes=(3, 3),
+        ncons_channels=(16, 1), half_precision=True, relocalization_k_size=1,
+        refine_factor=2, refine_topk=16)
+    model = ImMatchNet(config, device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED + 8)
+    query = texture(rng, QUERY_HW, 24)
+    qh, qw = QUERY_HW
+    panos = [to_uint8_image(resize_bilinear_np(
+                 query[int(0.3 * qh):int(0.67 * qh), int(0.17 * qw):int(0.83 * qw)],
+                 *PANO_HW)),
+             texture(rng, PANO_HW, 8)]
+    n_slots = inloc.n_match_slots(INLOC_SIZE, 1, True)
+    with tempfile.TemporaryDirectory() as root:
+        np.save(os.path.join(root, "query.npy"), query)
+        names = []
+        for i, pano in enumerate(panos):
+            names.append(f"pano{i}.npy")
+            np.save(os.path.join(root, names[-1]), pano)
+        shortlist = os.path.join(root, "shortlist.mat")
+        write_shortlist(shortlist, [("query.npy", names)])
+        out_dir = os.path.join(root, "matches")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        done = inloc.dump_matches(
+            model, config, shortlist, root, root, out_dir,
+            image_size=INLOC_SIZE, n_queries=1, n_panos=len(panos),
+            verbose=False, read_image=lambda p: np.load(p).astype(np.float32))
+        dump_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        m = loadmat(os.path.join(out_dir, "1.mat"))["matches"]
+    filled = [int((np.abs(m[0, p]).sum(axis=1) > 0).sum()) for p in range(len(panos))]
+    want = {n: 0 for n in kernels}
+    want["band_gemm_fwd"] = 4 * len(panos)
+    problems = []
+    if m.shape != (1, len(panos), n_slots, 5):
+        problems.append(f"refined .mat {m.shape}, want (1, 2, {n_slots}, 5)")
+    if not (np.isfinite(m).all() and (m[..., :4] >= 0).all() and (m[..., :4] <= 1).all()):
+        problems.append("refined .mat: non-finite or out-of-range matches")
+    if not all(0 < f <= n_slots for f in filled) or done["pairs"] != len(panos):
+        problems.append(f"refined .mat filled slots {filled}")
+    if launches != want:
+        problems.append(f"refined InLoc launches {launches} != {want}")
+    return {"config": config.to_dict(), "mat_shape": list(m.shape), "filled": filled,
+            "dump_s": dump_s, "s_per_pair": dump_s / len(panos),
+            "launches": launches, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "problems": problems}
+
+
+def phase_refine(smi, kernels, conv4d_plain, band_plain):
+    """Coarse-to-fine refinement at the PF-Pascal config (400 px, factor
+    REFINE_PF = 5 on the 25-cell grid, coarse band REFINE_TOPK = 16 of 25):
+    (a) factor 1, radius 0 equals the K band bit for bit through the
+    kernels, dense and streamed; (b) the refined serving ladder
+    (`refine_serve`) and its forward's stages (`refine_stage_breakdown`);
+    (c) PF-Pascal PCK with ``--refine 5`` on PF_PAIRS generated pairs
+    (centred features), every pair's readout against the plain band
+    layer's up to ties, beside the dense eval; (d) the band
+    kernels on the coarse bands of serving (float32, 4 pairs) and of
+    training (bfloat16, 16 pairs, with dx and dw) against their plain
+    versions; (e) 3 refined bfloat16 training steps at batch 16; (f) the
+    InLoc dump with ``--k_size 1 --refine 2``. Stage seconds and peak
+    memory for each. Returns the launches of each path."""
+    from ncnet_tpu_torch.data.loader import collate
+    from ncnet_tpu_torch.eval import pf_pascal
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, immatchnet_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, config = build_model()
+    stages, problems = {}, []
+
+    # (a) the anchor
+    t0 = time.perf_counter()
+    batch = synthetic_batch(2, SEED + 61)
+    anchor = {}
+    with torch.inference_mode():
+        for impl in ("dense", "stream"):
+            c = config.replace(corr_impl=impl)
+            ref = immatchnet_apply(model, c.replace(refine_factor=1,
+                                                    refine_topk=BAND_K),
+                                   batch["source_image"], batch["target_image"])
+            band = immatchnet_apply(model, c.replace(nc_topk=BAND_K),
+                                    batch["source_image"], batch["target_image"])
+            anchor[impl] = bool(torch.equal(ref, band))
+    if not all(anchor.values()):
+        problems.append(f"factor 1, radius 0 is not the band bitwise: {anchor}")
+    stages["anchor_s"] = time.perf_counter() - t0
+
+    # (b) serving
+    t0 = time.perf_counter()
+    serve = refine_serve(model, config, kernels)
+    problems += serve.pop("problems")
+    serve["stages_ms"] = refine_stage_breakdown(
+        model, config.replace(refine_factor=REFINE_PF, refine_topk=REFINE_TOPK),
+        synthetic_batch(MAX_BATCH, SEED + 65))
+    stages["serve_s"] = time.perf_counter() - t0
+    serve_launches = serve["pinned_launches"]
+
+    # (c) PF-Pascal eval with --refine 5, beside the dense eval
+    t0 = time.perf_counter()
+    pf_cfg = config.replace(center_features=True)
+    ref_cfg = pf_cfg.replace(refine_factor=REFINE_PF, refine_topk=REFINE_TOPK)
+    pf_model = ImMatchNet(pf_cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(SEED))
+    samples = pf_pascal_pairs(PF_PAIRS, SEED + 7)
+    batches = [collate(samples[i:i + MAX_BATCH]) for i in range(0, PF_PAIRS, MAX_BATCH)]
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    res_r = pf_pascal.evaluate(pf_model, ref_cfg, batches, verbose=False)
+    refine_eval_s = time.perf_counter() - t1
+    eval_peak = torch.cuda.max_memory_allocated()
+    res_d = pf_pascal.evaluate(pf_model, pf_cfg, batches, verbose=False)
+    eval_launches = {n: k.launches for n, k in kernels.items()}
+    nc = pf_model.neigh_consensus
+    layer = nc.band_layer
+    nc.band_layer = band_plain
+    try:
+        res_p = pf_pascal.evaluate(pf_model, ref_cfg, batches, verbose=False)
+    finally:
+        nc.band_layer = layer
+    agree, identical = pair_readouts(pf_model, ref_cfg, batches, "band_layer",
+                                     band_plain)
+    pf_problems, differ = pck_readout_problems(
+        f"--refine {REFINE_PF}", [res_p["per_pair"], res_r["per_pair"]], agree,
+        identical)
+    problems += pf_problems
+    n_batches = len(batches)
+    if eval_launches["band_gemm_fwd"] != 6 * n_batches or \
+            eval_launches["conv4d_fwd"] != 3 * n_batches:
+        problems.append(f"refined + dense eval launches {eval_launches}")
+    if not (res_r["n_valid"] == PF_PAIRS and all(np.isfinite(res_r["per_pair"]))):
+        problems.append("refined PCK not valid for every pair")
+    pf_rec = {"refine": REFINE_PF, "refine_topk": REFINE_TOPK, "pairs": PF_PAIRS,
+              "pck": res_r["pck"], "pck_dense": res_d["pck"],
+              "per_pair": res_r["per_pair"], "per_pair_plain": res_p["per_pair"],
+              "per_pair_dense": res_d["per_pair"], "readout_agrees": agree,
+              "readout_identical": identical, "pck_differing_pairs": differ,
+              "refine_eval_s": refine_eval_s,
+              "ms_per_batch": 1e3 * refine_eval_s / n_batches,
+              "peak_memory_bytes": eval_peak, "launches": eval_launches}
+    del pf_model
+    stages["pf_pascal_s"] = time.perf_counter() - t0
+
+    # (d) the band kernels on the refined paths' coarse bands
+    t0 = time.perf_counter()
+    serve_cfg = config.replace(refine_factor=REFINE_PF, refine_topk=REFINE_TOPK)
+    train_cfg = serve_cfg.replace(half_precision=True)
+    coarse = {"serve": coarse_band_kernels(
+                  model, serve_cfg, synthetic_batch(MAX_BATCH, SEED + 62), kernels,
+                  grads=False, path="refine_serve"),
+              "train": coarse_band_kernels(
+                  model, train_cfg, synthetic_batch(TRAIN_BATCH, SEED + 63), kernels,
+                  grads=True, path="refine_train")}
+    stages["coarse_band_kernels_s"] = time.perf_counter() - t0
+
+    # (e) refined training, 3 bfloat16 steps
+    t0 = time.perf_counter()
+    batches = [synthetic_batch(TRAIN_BATCH, SEED + 64 + i) for i in range(TRAIN_STEPS)]
+    train = run_steps(model, train_cfg, batches, kernels)
+    del batches
+    want = {n: 0 for n in kernels}
+    want.update(band_gemm_fwd=12, band_gemm_dx=8, band_gemm_dw=12)
+    if any(p != want for p in train["launches_per_step"]):
+        problems.append(f"refined training launches {train['launches_per_step']}")
+    if not all(np.isfinite(train["losses"])):
+        problems.append(f"refined training losses {train['losses']}")
+    if not all(m > 0 for m in train["moved"][:-1]):
+        problems.append(f"refined training: NC tensors did not move {train['moved']}")
+    stages["train_s"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+
+    # (f) InLoc
+    t0 = time.perf_counter()
+    inloc_rec = refine_inloc(kernels)
+    problems += inloc_rec.pop("problems")
+    stages["inloc_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit({"phase": "refine", "card": smi, "anchor_bitwise": anchor,
+          "serve": serve, "pf_pascal": pf_rec, "train": train,
+          "train_config": train_cfg.to_dict(), "inloc": inloc_rec,
+          "coarse_band_kernels": coarse, "stages_s": stages})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"launches": {"refine_serve": serve_launches, "refine_eval": eval_launches,
+                         "refine_train": train["launches"],
+                         "refine_inloc": inloc_rec["launches"]},
+            "layers": coarse}
+
+
 def kernel_line(name, source, replaces, launches, layers, work, smi,
                 launches_by_path=None):
     return {
@@ -3328,21 +4055,43 @@ def main():
     ft_launches, ft_dx = phase_finetune(smi, kernels, conv4d_dx_plain, band=False)
     ftb_launches, ftb_dx = phase_finetune(smi, kernels, conv4d_dx_plain, band=True)
     trunk_launches = phase_trunks(smi, kernels, conv4d_plain)
+    phase_stream(smi)
+    stream_launches = phase_train_stream(smi, config, kernels)
+    refine = phase_refine(smi, kernels, conv4d_plain, band_layer_plain)
+    refine_launches, coarse = refine["launches"], refine["layers"]
+    # every kernel of this slice's paths launched where it runs
+    for path, names in (("train_stream", ("band_gemm_fwd", "band_gemm_dx", "band_gemm_dw")),
+                        ("finetune_stream", ("band_gemm_fwd", "band_gemm_dx",
+                                             "band_gemm_dw")),
+                        ("refine_serve", ("conv4d_fwd", "band_gemm_fwd")),
+                        ("refine_eval", ("conv4d_fwd", "band_gemm_fwd")),
+                        ("refine_train", ("band_gemm_fwd", "band_gemm_dx", "band_gemm_dw")),
+                        ("refine_inloc", ("band_gemm_fwd",))):
+        counts = (stream_launches | refine_launches)[path]
+        if not all(counts[n] > 0 for n in names):
+            raise AssertionError(f"{path} did not launch {names}: {counts}")
+    slice_paths = stream_launches | refine_launches
 
     def band_train_by_path(name):
         return {path: band_train_launches[path][name]
                 for path in ("train_band", "synthetic_band")} | {
-                    "finetune_band": ftb_launches[name]}
+                    "finetune_band": ftb_launches[name]} | {
+                    path: slice_paths[path][name]
+                    for path in ("train_stream", "finetune_stream", "refine_train")}
 
     fwd_by_path = {"serve": launches, "train": train_launches["conv4d_fwd"],
                    "eval": eval_launches["conv4d_fwd"],
                    "inloc": inloc_launches["host"]["conv4d_fwd"],
                    "inloc_device_route": inloc_launches["device"]["conv4d_fwd"],
                    "finetune": ft_launches["conv4d_fwd"],
-                   "trunks": trunk_launches["conv4d_fwd"]}
+                   "trunks": trunk_launches["conv4d_fwd"],
+                   "refine_serve": refine_launches["refine_serve"]["conv4d_fwd"],
+                   "refine_eval": refine_launches["refine_eval"]["conv4d_fwd"]}
     band_by_path = {"serve_band": band_launches,
                     "eval": eval_launches["band_gemm_fwd"],
-                    **band_train_by_path("band_gemm_fwd")}
+                    **band_train_by_path("band_gemm_fwd"),
+                    **{path: refine_launches[path]["band_gemm_fwd"] for path in
+                       ("refine_serve", "refine_eval", "refine_inloc")}}
 
     def grad_by_path(name):
         return {"train": train_launches[name], "eval": eval_launches[name],
@@ -3365,45 +4114,63 @@ def main():
                     "both directions. Launches: the served batches', "
                     f"{TRAIN_STEPS} training steps', the eval phase's "
                     "(synthetic convergence, PF-Pascal evaluate and "
-                    "evaluate_serving) and the InLoc dump's",
+                    "evaluate_serving), the InLoc dump's, and this slice's: "
+                    "the standard rung's batches of the refined serving "
+                    "ladder and the dense PF-Pascal eval beside --refine",
                     smi, fwd_by_path),
         kernel_line("band_gemm_fwd", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:83",
                     sum(band_by_path.values()),
                     [{**la, "path": "serve_band"} for la in band_layers]
-                    + band_train_layers["fwd"],
+                    + band_train_layers["fwd"] + coarse["serve"]["fwd"]
+                    + coarse["train"]["fwd"],
                     "the three band NC layers x 2 symmetric passes of one "
                     f"square degraded batch ({MAX_BATCH} pairs, K = {BAND_K}),"
-                    " float32, and of one pipeline call of a band training "
-                    f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16; "
+                    " float32, of one pipeline call of a band training "
+                    f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16, "
+                    "and of the coarse band (400 px pooled by "
+                    f"{REFINE_PF}, K = {REFINE_TOPK}) of a refined serving "
+                    f"batch ({MAX_BATCH} pairs, float32) and of a refined "
+                    f"training call ({TRAIN_BATCH} pairs, bfloat16); "
                     "taps derived from the band's indices, no pointer table. "
                     "Launches: the degraded batches', pck_vs_topk's at "
-                    f"K = {BAND_K}, {TRAIN_STEPS} band training steps' and "
-                    f"the synthetic run's at K = {SYNTH_BAND_K}", smi,
-                    band_by_path),
+                    f"K = {BAND_K}, {TRAIN_STEPS} band training steps', "
+                    f"the synthetic run's at K = {SYNTH_BAND_K}, and this "
+                    "slice's: streamed band training and fine-tuning, the "
+                    "refined rung's batches, the refined PF-Pascal eval, "
+                    f"{TRAIN_STEPS} refined training steps and the refined "
+                    "InLoc dump", smi, band_by_path),
         kernel_line("band_gemm_dx", "ncnet_tpu_torch/csrc/band_gemm_dx.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:147",
                     sum(band_train_by_path("band_gemm_dx").values()),
-                    band_train_layers["dx"] + ftb_dx,
+                    band_train_layers["dx"] + ftb_dx + coarse["train"]["dx"],
                     "the input gradients of band NC layers 2 and 3 x 2 "
                     "symmetric passes of one pipeline call of a band training "
                     f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16, over "
                     "the pass's hit list (which dw builds and shares), and of "
                     "layer 1 (a 16->1 contraction, fine-tuning's) on both "
-                    f"passes. Launches: {TRAIN_STEPS} band training steps', "
-                    f"the synthetic run's at K = {SYNTH_BAND_K} and "
-                    f"{FT_BF16_STEPS + FT_F32_STEPS} band fine-tuning steps'", smi,
+                    "passes, and of layers 2 and 3 on the coarse band of a "
+                    f"refined training call ({TRAIN_BATCH} pairs, K = "
+                    f"{REFINE_TOPK}). Launches: {TRAIN_STEPS} band training "
+                    f"steps', the synthetic run's at K = {SYNTH_BAND_K}, "
+                    f"{FT_BF16_STEPS + FT_F32_STEPS} band fine-tuning steps', "
+                    "the streamed band's training and fine-tuning steps' and "
+                    f"{TRAIN_STEPS} refined training steps'", smi,
                     band_train_by_path("band_gemm_dx")),
         kernel_line("band_gemm_dw", "ncnet_tpu_torch/csrc/band_gemm_dw.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:147",
                     sum(band_train_by_path("band_gemm_dw").values()),
-                    band_train_layers["dw"],
+                    band_train_layers["dw"] + coarse["train"]["dw"],
                     "the weight gradients of the three band NC layers x 2 "
                     "symmetric passes of one pipeline call of a band training "
                     f"step ({TRAIN_BATCH} pairs, K = {TRAIN_K}), bfloat16, each "
-                    "with a third of its pass's hit-list build. Launches: "
-                    f"{TRAIN_STEPS} band training steps' and the synthetic "
-                    f"run's at K = {SYNTH_BAND_K}", smi,
+                    "with a third of its pass's hit-list build, and on the "
+                    f"coarse band of a refined training call (K = {REFINE_TOPK}). "
+                    f"Launches: {TRAIN_STEPS} band training steps', the "
+                    f"synthetic run's at K = {SYNTH_BAND_K}, the band "
+                    "fine-tuning steps', the streamed band's training and "
+                    f"fine-tuning steps' and {TRAIN_STEPS} refined training "
+                    "steps'", smi,
                     band_train_by_path("band_gemm_dw")),
         kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:190",

@@ -383,12 +383,17 @@ def parse_args(argv=None):
                         "on the card; unset follows --device_preprocess")
     p.add_argument("--feature-store", type=str, default=None,
                    dest="feature_store", help="not ported (ROADMAP A11)")
-    p.add_argument("--refine", type=int, default=None,
-                   help="not ported (ROADMAP A10)")
-    p.add_argument("--refine_topk", type=int, default=None,
-                   help="not ported (ROADMAP A10)")
+    p.add_argument("--refine", type=int, default=None, metavar="R",
+                   help="coarse-to-fine refinement (ncnet_tpu_torch.refine): "
+                        "pool features by R, run the coarse band at "
+                        "--refine_topk, re-score the survivors at full "
+                        "resolution. Requires --k_size 1 (refinement "
+                        "replaces the 4D max-pool relocalization). 0 forces "
+                        "it off; unset keeps the checkpoint's value")
+    p.add_argument("--refine_topk", type=int, default=None, metavar="K",
+                   help="with --refine: coarse-band width")
     p.add_argument("--refine_radius", type=int, default=None,
-                   help="not ported (ROADMAP A10)")
+                   help="with --refine: extra window reach in coarse cells")
     p.add_argument("--spatial_shards", type=int, default=0,
                    help="not ported beyond 1 (ROADMAP A13)")
     p.add_argument("--device", type=str, default=None,
@@ -399,14 +404,9 @@ def parse_args(argv=None):
 def main(argv=None):
     from ncnet_tpu_torch.convert import load_model
     from ncnet_tpu_torch.device import resolve_device
+    from ncnet_tpu_torch.eval.pf_pascal import apply_refine_flags
 
     args = parse_args(argv)
-    if any(v is not None for v in
-           (args.refine, args.refine_topk, args.refine_radius)):
-        raise NotImplementedError(
-            "--refine / --refine_topk / --refine_radius: coarse-to-fine "
-            "refinement is not ported yet (ROADMAP A10)"
-        )
     if args.spatial_shards > 1:
         raise NotImplementedError(
             "--spatial_shards: the spatial mesh is not ported yet (ROADMAP A13)"
@@ -417,9 +417,17 @@ def main(argv=None):
         raise ValueError("--device_resize requires --device_preprocess")
     device = resolve_device(args.device)
     config, model = load_model(args.checkpoint, device=device)
-    config = config.replace(half_precision=args.bf16,
-                            relocalization_k_size=args.k_size,
-                            conv4d_impl=args.conv4d_impl)
+    config = apply_refine_flags(
+        config.replace(half_precision=args.bf16,
+                       relocalization_k_size=args.k_size,
+                       conv4d_impl=args.conv4d_impl), args)
+    if config.refine_factor and args.k_size > 1:
+        # the flag's factor or the checkpoint's: refused at the flag
+        # boundary, not deep in the first forward
+        raise SystemExit(
+            f"--refine {config.refine_factor} requires --k_size 1 (refinement "
+            "replaces the 4D-maxpool relocalization)"
+        )
     out_dir = os.path.join(args.output_root, experiment_name(
         args.inloc_shortlist, args.image_size, args.k_size,
         args.matching_both_directions, args.flip_matching_direction,

@@ -23,6 +23,7 @@ from ncnet_tpu_torch.models.immatchnet import immatchnet_apply
 from ncnet_tpu_torch.ops.coords import points_to_pixel_coords, points_to_unit_coords
 from ncnet_tpu_torch.ops.matches import bilinear_point_transfer, corr_to_matches
 from ncnet_tpu_torch.ops.metrics import pck
+from ncnet_tpu_torch.refine import refine_grid_error
 
 # the batch keys the PCK step consumes (and the serving payload carries)
 PCK_BATCH_KEYS = (
@@ -160,18 +161,41 @@ def parse_args(argv=None):
                    default=None,
                    help="bfloat16 features / correlation / NC (readout "
                         "float32); default: the checkpoint's")
-    p.add_argument("--refine", type=int, default=None,
-                   help="coarse-to-fine refinement: not ported (ROADMAP A10)")
-    p.add_argument("--refine_topk", type=int, default=None,
-                   help="with --refine: not ported (ROADMAP A10)")
+    p.add_argument("--refine", type=int, default=None, metavar="R",
+                   help="coarse-to-fine refinement (ncnet_tpu_torch.refine) "
+                        "for the eval forward: pool features by R, run the "
+                        "coarse band at --refine_topk, re-score the "
+                        "surviving neighbourhoods at full resolution. 0 "
+                        "forces it off; unset keeps the checkpoint's value")
+    p.add_argument("--refine_topk", type=int, default=None, metavar="K",
+                   help="with --refine: coarse-band width")
     p.add_argument("--refine_radius", type=int, default=None,
-                   help="with --refine: not ported (ROADMAP A10)")
+                   help="with --refine: extra window reach in coarse cells")
     p.add_argument("--conv4d_impl", type=str, default="tlc",
                    help="the JAX package's conv4d lowering; recorded in "
                         "the config and unread (the port has one conv4d)")
     p.add_argument("--device", type=str, default=None,
                    help="default: cuda (the run fails without a card)")
     return p.parse_args(argv)
+
+
+def apply_refine_flags(config, args):
+    """``config`` with the ``--refine*`` flags that were given (unset keeps
+    the config's value)."""
+    for flag, field in (("refine", "refine_factor"),
+                        ("refine_topk", "refine_topk"),
+                        ("refine_radius", "refine_radius")):
+        if getattr(args, flag) is not None:
+            config = config.replace(**{field: getattr(args, flag)})
+    return config
+
+
+def check_refine_grid(factor, image_size):
+    """Exit as the JAX CLI does when the feature grid does not divide by
+    the refine factor."""
+    error = refine_grid_error(factor, image_size)
+    if error:
+        raise SystemExit(error)
 
 
 def main(argv=None):
@@ -181,18 +205,16 @@ def main(argv=None):
     from ncnet_tpu_torch.device import resolve_device
 
     args = parse_args(argv)
-    if any(v is not None for v in
-           (args.refine, args.refine_topk, args.refine_radius)):
-        raise NotImplementedError(
-            "--refine / --refine_topk / --refine_radius: coarse-to-fine "
-            "refinement is not ported yet (ROADMAP A10)"
-        )
+    if args.refine is not None:  # a flag's refusal needs no checkpoint
+        check_refine_grid(args.refine, args.image_size)
     device = resolve_device(args.device)
     config, model = load_model(args.checkpoint, device=device)
     if args.conv4d_impl:
         config = config.replace(conv4d_impl=args.conv4d_impl)
     if args.bf16 is not None:
         config = config.replace(half_precision=args.bf16)
+    config = apply_refine_flags(config, args)
+    check_refine_grid(config.refine_factor, args.image_size)
 
     dataset = PFPascalDataset(
         os.path.join(args.eval_dataset_path, "image_pairs", "test_pairs.csv"),

@@ -91,11 +91,27 @@ def synthetic_pck_vs_topk(model, config, batches, ks, alpha=0.1, n_side=4):
 
 def synthetic_pck_vs_refine(model, config, batches, factors, ks, radius=0,
                             alpha=0.1, n_side=4):
-    """The refinement sweep of the JAX package: not ported."""
-    raise NotImplementedError(
-        "synthetic_pck_vs_refine needs coarse-to-fine refinement, which is "
-        "not ported yet (ROADMAP A10)"
-    )
+    """``{(factor, k): mean PCK}`` of the same shift-annotated batches at
+    every ``refine_factor`` in ``factors`` and ``refine_topk`` in ``ks``
+    (coarse-to-fine refinement, `ncnet_tpu_torch.refine`); factor 0 is the
+    dense baseline, scored once under ``(0, 0)``. The factor-1 row at
+    radius 0 is the K band's PCK (the refined band is the band), and at
+    ``k >= hB*wB`` the dense one."""
+    cached = list(batches)
+    results = {}
+    for factor in factors:
+        if int(factor) == 0:
+            results[(0, 0)] = evaluate_synthetic(
+                model, config.replace(refine_factor=0), cached, alpha, n_side)
+            continue
+        for k in ks:
+            results[(int(factor), int(k))] = evaluate_synthetic(
+                model,
+                config.replace(refine_factor=int(factor), refine_topk=int(k),
+                               refine_radius=int(radius)),
+                cached, alpha, n_side,
+            )
+    return results
 
 
 def run(image_size=128, steps=400, batch=8, n_pairs=32, lr=5e-4, seed=0,

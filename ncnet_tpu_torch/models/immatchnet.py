@@ -9,11 +9,13 @@
   -> soft mutual-NN filtering
 
 or, with ``nc_topk > 0``, the same chain on the top-K correlation band
-(`ncnet_tpu_torch.sparse`, the band hand kernel), densified for readout.
+(`ncnet_tpu_torch.sparse`, the band hand kernel; ``corr_impl='stream'``
+selects it without the correlation volume), densified for readout; or,
+with ``refine_factor > 0``, a coarse band on pooled features re-scored at
+full resolution (`ncnet_tpu_torch.refine`), densified on the fine grid.
 
 `ImMatchNetConfig` carries every field of the JAX config, so one dict
-builds both models; the configurations this port does not implement yet
-raise `NotImplementedError` naming their ROADMAP item.
+builds both models.
 """
 
 import dataclasses
@@ -31,6 +33,10 @@ from ncnet_tpu_torch.models.neigh_consensus import NeighConsensus
 from ncnet_tpu_torch.ops.correlation import correlation_4d, correlation_maxpool4d
 from ncnet_tpu_torch.ops.matches import corr_to_matches
 from ncnet_tpu_torch.ops.matching import mutual_matching
+from ncnet_tpu_torch.refine.pipeline import (
+    check_refine_config,
+    refine_match_pipeline,
+)
 from ncnet_tpu_torch.sparse.pipeline import (
     resolve_corr_impl,
     sparse_corr_to_dense,
@@ -113,20 +119,10 @@ def check_sparse_config(config):
 
 
 def check_supported(config):
-    """`check_sparse_config`, then raise `NotImplementedError` for
-    configurations the port does not implement yet; they never fall back
-    to another path."""
+    """`check_sparse_config` and `check_refine_config`: a configuration
+    either runs as the JAX package runs it or raises here."""
     check_sparse_config(config)
-    if config.refine_factor > 0:
-        raise NotImplementedError(
-            "refine_factor > 0 (coarse-to-fine refinement) is not ported yet "
-            "(ROADMAP A10)"
-        )
-    if config.corr_impl != "dense":
-        raise NotImplementedError(
-            f"corr_impl={config.corr_impl!r} (streamed correlation) is not "
-            "ported yet (ROADMAP A9)"
-        )
+    check_refine_config(config)
 
 
 def _compute_dtype(config):
@@ -166,7 +162,10 @@ def match_pipeline(neigh_consensus, config, feat_a, feat_b):
     """Features -> filtered correlation: corr -> MM -> NC -> MM, returned
     in float32. With ``config.nc_topk > 0`` the chain runs on the top-K band
     (`ncnet_tpu_torch.sparse`) and the filtered band is densified here,
-    exact zeros off-band. With ``config.relocalization_k_size = k > 1``
+    exact zeros off-band. With ``config.refine_factor > 0`` (which takes
+    precedence) the coarse band runs on pooled features and is re-scored
+    at full resolution (`ncnet_tpu_torch.refine`); the result is the
+    refined band densified on the fine grid. With ``config.relocalization_k_size = k > 1``
     the correlation is max-pooled by k in all four dims on the way
     (`correlation_maxpool4d`) and the result is ``(corr, delta4d)``, the
     offsets `corr_to_matches` takes to restore fine-grid matches.
@@ -177,6 +176,12 @@ def match_pipeline(neigh_consensus, config, feat_a, feat_b):
     to float32 at the post-NC mutual matching (the JAX package's
     ``train/loss.py`` contract)."""
     check_supported(config)
+    if config.refine_factor > 0:
+        values, indices, grid_b = refine_match_pipeline(
+            neigh_consensus.params(), config, feat_a, feat_b,
+            layer=neigh_consensus.band_layer,
+        )
+        return sparse_corr_to_dense(values, indices, grid_b)
     if config.nc_topk > 0:
         band, indices, grid_b = sparse_match_pipeline(
             neigh_consensus.params(), config, feat_a, feat_b,
@@ -210,7 +215,8 @@ def make_match_fn(config, softmax=True, concat_directions=False):
     batch: ``(fwd, rev)``, each a stacked ``[5, b, n]`` tensor ``(xA, yA,
     xB, yB, score)`` in positive [0, 1] coordinates, or with
     ``concat_directions`` one ``[5, b, n_fwd + n_rev]`` tensor. The
-    forward is dense, the top-K band densified (``nc_topk > 0``), or
+    forward is dense, the top-K band densified (``nc_topk > 0``), the
+    refined band densified on the fine grid (``refine_factor > 0``), or
     pooled (``relocalization_k_size > 1``, whose readout restores
     fine-grid matches from the pooled correlation's offsets). Serving and
     the InLoc dump both read out through it."""

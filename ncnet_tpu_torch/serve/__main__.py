@@ -6,6 +6,7 @@
   python -m ncnet_tpu_torch.serve --images DIR --params weights.npz
   python -m ncnet_tpu_torch.serve --synthetic 16 --nc-topk 16
   python -m ncnet_tpu_torch.serve --synthetic 16 --degrade 16
+  python -m ncnet_tpu_torch.serve --synthetic 16 --refine 5 --degrade 16
 
 ``--images DIR`` pairs the sorted image files consecutively; ``--synthetic
 N`` makes N random pairs from ``--seed`` (every fourth target is 304x400,
@@ -16,9 +17,15 @@ is ImMatchNet at the flags' config (default: the PF-Pascal config, ResNet-101
 + NC 5-5-5 / 16-16-1). ``--nc-topk K`` serves the sparse top-K band
 (Sparse-NCNet) as the standard program; ``--degrade K`` pre-warms the band
 at K as the degraded program that the engine's hysteresis controller flips
-to under queue pressure (``--degrade-high`` / ``--degrade-low``). Prints
-one JSON report: pairs/s, occupancy, latency percentiles and the
-degradation counts. Runs on the card unless ``--device cpu``.
+to under queue pressure (``--degrade-high`` / ``--degrade-low``).
+``--refine R`` pre-warms the coarse-to-fine program (a ``--refine-topk``
+band on features pooled by R, re-scored at full resolution) as the rung
+above standard: a `QualityLadder` then walks ``refined <-> standard [<->
+degraded]`` one rung a flip; the feature grid ``image-size / 16`` must
+divide by R. ``--corr-impl stream`` selects every band program's band from
+B-tile slabs of the correlation instead of the volume. Prints one JSON
+report: pairs/s, occupancy, latency percentiles and the degradation
+counts. Runs on the card unless ``--device cpu``.
 """
 
 import argparse
@@ -38,9 +45,10 @@ from ncnet_tpu_torch.data.images import (
 from ncnet_tpu_torch.device import resolve_device
 from ncnet_tpu_torch.models.feature_extraction import BACKBONES
 from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+from ncnet_tpu_torch.refine import refine_grid_error
 from ncnet_tpu_torch.serve.buckets import BucketSpec, pair_bucket
 from ncnet_tpu_torch.serve.engine import ServeEngine, payload_spec
-from ncnet_tpu_torch.serve.resilience import HysteresisController
+from ncnet_tpu_torch.serve.resilience import HysteresisController, QualityLadder
 from ncnet_tpu_torch.serve.step import make_serve_match_step
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
@@ -83,6 +91,26 @@ def parse_args(argv=None):
     p.add_argument("--degrade-low", type=float, default=0.25,
                    help="queue-pressure fraction that flips back "
                         "(hysteresis low water)")
+    p.add_argument("--refine", type=int, default=0, metavar="R",
+                   help="pre-warm the coarse-to-fine REFINED program at pool "
+                        "factor R as the quality ladder's top rung; dispatch "
+                        "walks down to standard (and --degrade, when set) "
+                        "under sustained queue pressure and back when it "
+                        "clears (0 disables; the feature grid "
+                        "image_size/16 must divide by R)")
+    p.add_argument("--refine-topk", type=int, default=16, dest="refine_topk",
+                   metavar="K",
+                   help="with --refine: coarse-band width (the survivors "
+                        "re-scored at full resolution)")
+    p.add_argument("--refine-radius", type=int, default=0,
+                   dest="refine_radius",
+                   help="with --refine: extra window reach in coarse cells "
+                        "around each survivor")
+    p.add_argument("--corr-impl", choices=("dense", "stream"),
+                   default="dense", dest="corr_impl",
+                   help="band programs' correlation -> top-K selection: "
+                        "'stream' tiles B's grid and never holds the volume "
+                        "(the same band)")
     p.add_argument("--device", type=str, default=None,
                    help="default: cuda (the run fails without a card)")
     return p.parse_args(argv)
@@ -123,22 +151,54 @@ def main(argv=None):
     )
     if args.nc_topk >= 0:
         config = config.replace(nc_topk=args.nc_topk)
-    degraded_apply_fn = controller = None
+    if args.corr_impl != "dense":
+        if not (config.nc_topk or args.degrade > 0 or args.refine):
+            raise SystemExit(
+                f"--corr-impl {args.corr_impl} requires a band program "
+                "(--nc-topk K, --degrade K or --refine R): the dense NC stack "
+                "consumes the full correlation volume, so there is nothing "
+                "to stream"
+            )
+        config = config.replace(corr_impl=args.corr_impl)
+    # the standard program is dense unless --nc-topk: the streamed
+    # selection applies to the band programs only
+    standard_config = (config if config.nc_topk
+                       else config.replace(corr_impl="dense"))
+    degraded_apply_fn = refined_apply_fn = controller = ladder = None
     if args.degrade >= 0:
         # the overload fallback: the same serving forward on a K band
         degraded_apply_fn = make_serve_match_step(
             config.replace(nc_topk=args.degrade)
         )
+    if args.refine > 0:
+        error = refine_grid_error(args.refine, args.image_size)
+        if error:
+            raise SystemExit(error)
+        # the quality ceiling, pre-warmed per (bucket, batch size) beside
+        # the other programs
+        refined_apply_fn = make_serve_match_step(config.replace(
+            refine_factor=args.refine, refine_topk=args.refine_topk,
+            refine_radius=args.refine_radius))
+        ladder = QualityLadder(
+            rungs=(("refined", "standard", "degraded")
+                   if degraded_apply_fn is not None
+                   else ("refined", "standard")),
+            high=args.degrade_high, low=args.degrade_low,
+        )
+    elif degraded_apply_fn is not None:
         controller = HysteresisController(
             high=args.degrade_high, low=args.degrade_low
         )
     model = ImMatchNet(
-        config, device=device,
+        standard_config, device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )
     if args.params:
         load_jax_params(model, load_npz(args.params))
-    spec = BucketSpec(args.image_size)
+    # every rung serves every bucket: with --refine each bucket's feature
+    # grid is quantized to a multiple of the pool factor
+    spec = BucketSpec(args.image_size,
+                      grid_multiple=args.refine if args.refine > 1 else None)
 
     def prep(pair):
         imgs = []
@@ -157,13 +217,17 @@ def main(argv=None):
         else image_pairs(args.images)
     )
     report = {"n_requests": len(requests), "max_batch": args.max_batch,
-              "config": config.to_dict(), "nc_topk": config.nc_topk,
-              "degrade_topk": args.degrade}
+              "config": standard_config.to_dict(), "nc_topk": config.nc_topk,
+              "degrade_topk": args.degrade, "refine_factor": args.refine,
+              "refine_topk": args.refine_topk,
+              "refine_radius": args.refine_radius,
+              "corr_impl": args.corr_impl}
     with ServeEngine(
-        make_serve_match_step(config), model, device=device,
+        make_serve_match_step(standard_config), model, device=device,
         max_batch=args.max_batch, max_wait=args.max_wait_ms / 1e3,
         prep_fn=prep, degraded_apply_fn=degraded_apply_fn,
-        degrade_controller=controller,
+        degrade_controller=controller, refined_apply_fn=refined_apply_fn,
+        quality_controller=ladder,
     ) as engine:
         seen = {}
         for pair in requests:

@@ -23,9 +23,11 @@ that batch's futures with the exception; every accepted future resolves.
 Overload degradation: with a ``degraded_apply_fn`` (the cheaper program,
 e.g. the serving forward on an ``nc_topk`` band) a `HysteresisController`
 fed the queued-work fraction on every dispatch loop flips dispatch to it
-under sustained pressure and back when the pressure clears; a request may
-pin its program with ``submit(variant=...)``. Both programs run at
-`warmup`. Deadlines, quality ladders, the watchdog, fleet, HTTP and
+under sustained pressure and back when the pressure clears. With a
+``refined_apply_fn`` (the richer program, coarse-to-fine refinement) a
+`QualityLadder` walks ``refined <-> standard [<-> degraded]`` one rung a
+flip instead. A request may pin its program with ``submit(variant=...)``.
+Every program runs at `warmup`. Deadlines, the watchdog, fleet, HTTP and
 telemetry of the JAX engine are not ported yet (ROADMAP A15/A16).
 """
 
@@ -39,12 +41,12 @@ import torch
 
 from ncnet_tpu_torch.device import resolve_device
 from ncnet_tpu_torch.serve.batcher import MicroBatcher, Request
-from ncnet_tpu_torch.serve.resilience import HysteresisController
+from ncnet_tpu_torch.serve.resilience import HysteresisController, QualityLadder
 
 _SENTINEL = object()
 QUEUE_LIMIT = 64  # bounded submit queue: submit blocks beyond this
 READOUT_DEPTH = 2  # batches in flight between dispatch and readout
-VARIANTS = ("standard", "degraded")  # the programs a request may pin
+VARIANTS = ("refined", "standard", "degraded")  # the programs a request may pin
 
 
 def payload_spec(payload):
@@ -78,7 +80,12 @@ class ServeEngine:
     ``degraded_apply_fn`` is the cheaper program (same signature as
     ``apply_fn``) that ``degrade_controller`` (default: a
     `HysteresisController`) flips dispatch to under sustained queue
-    pressure; requests pinned with ``submit(variant=)`` bypass it.
+    pressure. ``refined_apply_fn`` is the richer program; with it the
+    default controller is a `QualityLadder` over the rungs the engine has
+    (``("refined", "standard", "degraded")`` or ``("refined",
+    "standard")``), and ``quality_controller`` replaces that ladder (it
+    wins over ``degrade_controller``). Requests pinned with
+    ``submit(variant=)`` bypass the controller.
 
     Use as a context manager; `close` drains in-flight work, resolves
     every accepted future and joins all threads.
@@ -96,13 +103,25 @@ class ServeEngine:
         prep_fn=None,
         degraded_apply_fn=None,
         degrade_controller=None,
+        refined_apply_fn=None,
+        quality_controller=None,
     ):
         self.device = resolve_device(device)
         self._programs = {"standard": apply_fn}
+        if refined_apply_fn is not None:
+            self._programs["refined"] = refined_apply_fn
         if degraded_apply_fn is not None:
             self._programs["degraded"] = degraded_apply_fn
-        if degrade_controller is not None:
+        # an injected quality controller wins, then an injected degrade
+        # controller; else a refined program gets a ladder over exactly the
+        # rungs this engine serves, a degraded-only engine the two-mode one
+        if quality_controller is not None:
+            self.controller = quality_controller
+        elif degrade_controller is not None:
             self.controller = degrade_controller
+        elif refined_apply_fn is not None:
+            self.controller = QualityLadder(rungs=tuple(
+                v for v in VARIANTS if v in self._programs))
         elif degraded_apply_fn is not None:
             self.controller = HysteresisController()
         else:
@@ -123,7 +142,8 @@ class ServeEngine:
         self._pending = set()
         self._stats = dict(submitted=0, completed=0, failed=0, batches=0,
                            real_samples=0, padded_samples=0,
-                           degraded_batches=0, degrade_flips=0)
+                           degraded_batches=0, refined_batches=0,
+                           degrade_flips=0)
         self._latencies = []
         self._t_first_submit = None
         self._t_last_done = None
@@ -146,7 +166,7 @@ class ServeEngine:
 
     def warmup(self, bucket_specs):
         """Run every (bucket, allowed batch size) once on zeros through
-        every program (standard, and degraded when configured), so the
+        every program (standard, and refined / degraded when configured), so the
         kernels are built and the convolution algorithms chosen before
         the first request. ``bucket_specs``: iterable of ``(key,
         payload_spec)``. Returns the number of (shape, program) runs."""
@@ -189,7 +209,7 @@ class ServeEngine:
         ``raw``; without one pass ``key=`` and ``payload=``. The submit
         queue is bounded: when it is full this blocks, or raises
         ``queue.Full`` after ``timeout`` seconds. ``variant`` pins the
-        program (``"standard"`` or ``"degraded"``): the request joins only
+        program (``"refined"``, ``"standard"`` or ``"degraded"``): the request joins only
         batches of that program and bypasses the controller; a pin the
         engine has no program for raises `ValueError` here. None lets the
         controller choose."""
@@ -314,8 +334,8 @@ class ServeEngine:
                 self._stats["batches"] += 1
                 self._stats["real_samples"] += n
                 self._stats["padded_samples"] += batch.pad_to
-                if variant == "degraded":
-                    self._stats["degraded_batches"] += 1
+                if variant in ("degraded", "refined"):
+                    self._stats[f"{variant}_batches"] += 1
             # padding masked here: only rows [0, n) are ever read
             for i, r in enumerate(batch.requests):
                 result = {name: a[i].copy() for name, a in arrays.items()}
@@ -328,23 +348,32 @@ class ServeEngine:
     # -- degradation controller -----------------------------------------
 
     def _variant_now(self):
-        """The program dispatch uses for unpinned batches right now."""
-        if self.controller is not None and self.controller.degraded \
-                and "degraded" in self._programs:
-            return "degraded"
-        return "standard"
+        """The program dispatch uses for unpinned batches right now: the
+        controller's rung (a ladder's ``variant``, a two-mode controller's
+        ``degraded``), clamped to "standard" where the engine has no such
+        program."""
+        if self.controller is None:
+            return "standard"
+        variant = getattr(self.controller, "variant", None)
+        if variant is None:  # the two-mode HysteresisController
+            variant = "degraded" if self.controller.degraded else "standard"
+        return variant if variant in self._programs else "standard"
 
     def _update_degrade(self):
         """Feed the controller the queued-work fraction (dispatch thread
-        only); counts the mode changes."""
-        if self.controller is None or "degraded" not in self._programs:
+        only); counts the rung changes."""
+        if self.controller is None or len(self._programs) == 1:
             return
         pressure = (self._submit_q.qsize() + self._batcher.pending()
                     + self._batch_q.qsize()) / QUEUE_LIMIT
-        was = self.controller.degraded
-        if self.controller.update(pressure) != was:
+        was = self._controller_state()
+        self.controller.update(pressure)
+        if self._controller_state() != was:
             with self._lock:
                 self._stats["degrade_flips"] += 1
+
+    def _controller_state(self):
+        return getattr(self.controller, "variant", None) or self.controller.degraded
 
     # -- settlement ------------------------------------------------------
 
@@ -368,8 +397,9 @@ class ServeEngine:
     # -- lifecycle -------------------------------------------------------
 
     def report(self):
-        """Counts (``degraded_batches``: batches the degraded program served;
-        ``degrade_flips``: controller mode changes), ``degraded_mode``, mean
+        """Counts (``degraded_batches`` / ``refined_batches``: batches the
+        degraded / refined program served; ``degrade_flips``: controller
+        rung changes), ``degraded_mode``, ``variant`` (the unpinned rung), mean
         batch occupancy, pairs/s (completed requests over first submit to
         last completion) and latency percentiles."""
         with self._lock:
@@ -380,7 +410,8 @@ class ServeEngine:
                 if self._t_last_done is not None else None
             )
         s["device"] = str(self.device)
-        s["degraded_mode"] = self._variant_now() == "degraded"
+        s["variant"] = self._variant_now()
+        s["degraded_mode"] = s["variant"] == "degraded"
         s["mean_occupancy"] = (
             s["real_samples"] / s["padded_samples"]
             if s["padded_samples"] else float("nan")

@@ -6,12 +6,15 @@
 Selection runs on the raw correlation; the band values carry the
 mutual-matching-gated correlation, the tensor the dense NC stack consumes.
 With ``K = hB*wB`` the band is complete and the pipeline equals the dense
-one. Only ``corr_impl='dense'`` is ported; the streamed band is ROADMAP A9.
+one. ``corr_impl='stream'`` selects the same band from B-tile slabs of the
+correlation (`ncnet_tpu_torch.ops.corr_stream`) and never holds the
+volume: O(hA*wA*(K + tile)) peak memory instead of O(hA*wA*hB*wB).
 """
 
 import torch
 
 from ncnet_tpu_torch.ops.band import band_layer, band_to_dense, topk_band
+from ncnet_tpu_torch.ops.corr_stream import corr_stream_band
 from ncnet_tpu_torch.ops.correlation import correlation_4d
 from ncnet_tpu_torch.ops.matching import mutual_matching
 from ncnet_tpu_torch.sparse.matching import band_mutual_matching
@@ -61,17 +64,17 @@ def sparse_match_pipeline(params, config, feat_a, feat_b,
             "configs: the 4D max-pool offsets are a dense-readout "
             "construct (set relocalization_k_size to 0)"
         )
-    if resolve_corr_impl(config) == "stream":
-        raise NotImplementedError(
-            "corr_impl='stream' (streamed band selection) is not ported yet "
-            "(ROADMAP A9)"
-        )
     grid_b = (feat_b.shape[1], feat_b.shape[2])
     k = resolve_band_width(config.nc_topk, grid_b)
-    corr = correlation_4d(feat_a, feat_b)
-    gated = mutual_matching(corr)
-    values, indices = topk_band(corr, k, values_from=gated,
-                                mutual=config.nc_topk_mutual)
+    if resolve_corr_impl(config) == "stream":
+        values, indices = corr_stream_band(
+            feat_a, feat_b, k, mutual=config.nc_topk_mutual,
+            tile=config.corr_stream_tile)
+    else:
+        corr = correlation_4d(feat_a, feat_b)
+        gated = mutual_matching(corr)
+        values, indices = topk_band(corr, k, values_from=gated,
+                                    mutual=config.nc_topk_mutual)
     if config.half_precision:
         values = values.to(torch.bfloat16)
     band = sparse_neigh_consensus_apply(

@@ -27,7 +27,13 @@ does.
 ``--nc_topk K`` trains the NC stack on each pair's top-K correlation band
 (sparse-band training; ``--no-nc_topk_mutual`` selects the plain per-A
 top-K instead of the mutual band), e.g. ``--nc_topk 50`` at the PF-Pascal
-defaults on the card, or ``--nc_topk 4`` at the toy size above.
+defaults on the card, or ``--nc_topk 4`` at the toy size above;
+``--corr-impl stream`` selects that band from B-tile slabs of the
+correlation (``--corr-tile T`` wide) and never holds the volume. ``--refine
+R`` trains on the coarse-to-fine band instead (a ``--refine_topk`` band on
+features pooled by R, re-scored at full resolution; e.g. ``--refine 5
+--refine_topk 16`` at 400 px, ``--refine 2`` at 64 px); the feature grid
+``image_size / 16`` must divide by R.
 
 It prints one JSON report at the end: losses, steps, step ms, peak device
 memory and the kernels' launch counts.
@@ -50,9 +56,16 @@ from ncnet_tpu_torch.kernels.conv4d import conv4d_dx, conv4d_fwd
 from ncnet_tpu_torch.kernels.conv4d_dw import conv4d_dw
 from ncnet_tpu_torch.models.feature_extraction import BACKBONES
 from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+from ncnet_tpu_torch.refine import refine_grid_error
 from ncnet_tpu_torch.train.checkpoint import load_checkpoint
 from ncnet_tpu_torch.train.loop import train
 from ncnet_tpu_torch.train.step import check_from_features_frozen
+
+
+#: (flag, config field) pairs a resume overrides only when the flag is given
+BAND_FLAGS = (("corr_impl", "corr_impl"), ("corr_tile", "corr_stream_tile"),
+              ("refine", "refine_factor"), ("refine_topk", "refine_topk"),
+              ("refine_radius", "refine_radius"))
 
 
 def parse_args(argv=None):
@@ -97,6 +110,29 @@ def parse_args(argv=None):
                    help="with --nc_topk: mutual band selection (the default) "
                         "or the plain per-A top-K (--no-nc_topk_mutual); "
                         "unset keeps a resumed checkpoint's value")
+    p.add_argument("--corr-impl", choices=("dense", "stream"), default=None,
+                   dest="corr_impl",
+                   help="band-path correlation -> top-K selection: 'stream' "
+                        "tiles B's grid and never holds the hA*wA*hB*wB "
+                        "volume (the same band). Requires --nc_topk or "
+                        "--refine. Unset keeps a resumed checkpoint's value "
+                        "(fresh configs: dense)")
+    p.add_argument("--corr-tile", type=int, default=None, dest="corr_tile",
+                   metavar="T",
+                   help="with --corr-impl stream: B-grid slab width of the "
+                        "streaming GEMM (default 128; clamped to hB*wB)")
+    p.add_argument("--refine", type=int, default=None, metavar="R",
+                   help="coarse-to-fine refinement: pool features by R, run "
+                        "the band at the coarse grid (width --refine_topk), "
+                        "re-score the surviving neighbourhoods at full "
+                        "resolution. 0 = off; takes precedence over "
+                        "--nc_topk. Unset keeps a resumed checkpoint's value")
+    p.add_argument("--refine_topk", type=int, default=None, metavar="K",
+                   help="with --refine: coarse-band width (default 16; unset "
+                        "keeps a resumed checkpoint's value)")
+    p.add_argument("--refine_radius", type=int, default=None,
+                   help="with --refine: extra window reach in coarse cells "
+                        "around each surviving candidate (default 0)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--result_model_dir", type=str, default="trained_models")
@@ -148,6 +184,11 @@ def main(argv=None):
             config = config.replace(nc_topk=args.nc_topk)
         if args.nc_topk_mutual is not None:
             config = config.replace(nc_topk_mutual=args.nc_topk_mutual)
+        # so do the selection impl (the band is the same under both) and
+        # the refine flags
+        for flag, field in BAND_FLAGS:
+            if getattr(args, flag) is not None:
+                config = config.replace(**{field: getattr(args, flag)})
         # the checkpoint records which tensors trained (the Adam state's
         # shape); default flags adopt its mode, another mode restarts Adam
         if not args.train_fe and not args.fe_finetune_params:
@@ -171,7 +212,17 @@ def main(argv=None):
             nc_topk=args.nc_topk or 0,
             nc_topk_mutual=(True if args.nc_topk_mutual is None
                             else args.nc_topk_mutual),
+            corr_impl=args.corr_impl or "dense",
+            corr_stream_tile=128 if args.corr_tile is None else args.corr_tile,
+            refine_factor=args.refine or 0,
+            refine_topk=16 if args.refine_topk is None else args.refine_topk,
+            refine_radius=args.refine_radius or 0,
         )
+    # the effective refine geometry, wherever it came from, against the
+    # feature grid: the pool needs an even division
+    error = refine_grid_error(config.refine_factor, args.image_size)
+    if error:
+        p.error(error)
     model = ImMatchNet(config, device=device,
                        generator=torch.Generator().manual_seed(args.seed))
 

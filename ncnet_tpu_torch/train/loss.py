@@ -16,7 +16,14 @@ band layer's gradient kernels on the card
 the band's gradient goes on into the correlation through `topk_band`'s
 gather, whose backward is a scatter-add (the JAX package's gather VJP;
 a row's K indices are distinct, so no two sums collide), and from there
-into the trunk's tail.
+into the trunk's tail. ``corr_impl='stream'`` selects the same band from
+slabs (`ncnet_tpu_torch.ops.corr_stream`), whose backward routes the
+band's gradient to the trunk without the volume.
+
+With ``config.refine_factor > 0`` (coarse-to-fine, which takes precedence
+over ``nc_topk`` as in `match_pipeline`) each pair is scored on its
+refined fine-grid band (`refine_match_pipeline`) by the same band scorer;
+at factor 1 and radius 0 the loss is the band loss bit for bit.
 
 Mixed precision (``config.half_precision``): features, correlation and
 the NC stack are bfloat16; both pipelines return float32 at the post-NC
@@ -38,6 +45,7 @@ from ncnet_tpu_torch.models.immatchnet import (
     extract_features,
     match_pipeline,
 )
+from ncnet_tpu_torch.refine.pipeline import refine_match_pipeline
 from ncnet_tpu_torch.sparse.pipeline import sparse_match_pipeline
 from ncnet_tpu_torch.sparse.score import (
     band_match_score_per_sample,
@@ -71,11 +79,6 @@ def _check(config):
             "weak_loss does not support relocalization configs "
             "(the reference trains with relocalization_k_size=0; "
             "relocalization is an eval-time memory optimization)"
-        )
-    if config.refine_factor > 0:
-        raise NotImplementedError(
-            "the weak loss of refine_factor > 0 (coarse-to-fine refinement) "
-            "is not ported yet (ROADMAP A10)"
         )
     check_supported(config)
 
@@ -115,10 +118,13 @@ def weak_loss_from_features(model, config, batch, normalization="softmax"):
 def pair_score(neigh_consensus, config, feat_a, feat_b,
                normalization="softmax"):
     """``[b]`` best-match scores of the pairs ``(feat_a, feat_b)``: the
-    dense pipeline and `match_score_per_sample`, or with ``nc_topk > 0``
-    the band pipeline and `band_match_score_per_sample`."""
-    if config.nc_topk > 0:
-        band, indices, grid_b = sparse_match_pipeline(
+    dense pipeline and `match_score_per_sample`, or with ``refine_factor >
+    0`` the refined band and with ``nc_topk > 0`` the band, each scored by
+    `band_match_score_per_sample`."""
+    band_pipeline = (refine_match_pipeline if config.refine_factor > 0
+                     else sparse_match_pipeline if config.nc_topk > 0 else None)
+    if band_pipeline is not None:
+        band, indices, grid_b = band_pipeline(
             neigh_consensus.params(), config, feat_a, feat_b,
             layer=neigh_consensus.band_layer)
         return band_match_score_per_sample(band, indices, grid_b, normalization)

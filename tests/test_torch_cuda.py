@@ -1020,3 +1020,65 @@ def test_trunk_training_step_launches_first_layer_dx(card, nc_topk):
         assert torch.isfinite(loss)
         counts.append(kern.launches - before)
     assert counts == ([4, 8] if nc_topk else [2, 4]), counts
+
+
+@pytest.mark.parametrize("mutual", [False, True])
+@pytest.mark.parametrize("tile", [128, 96])
+def test_stream_band_on_card_matches_dense_band(card, mutual, tile):
+    """The streamed band on the card at band training's shape (16 pairs of
+    25x25 grids, c = 1024, K = 50): bitwise the band of the correlation
+    built from the same slabs, and against ``correlation_4d``'s band
+    values at rtol 1e-5 / atol 1e-6 with every index swap a near tie
+    (`band_index_swaps`); a bitwise repeat."""
+    from ncnet_tpu_torch.ops.corr_stream import (
+        band_index_swaps,
+        corr_stream_band,
+        slab_correlation,
+    )
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+    from ncnet_tpu_torch.ops.norm import feature_l2norm
+
+    g = torch.Generator(device=card).manual_seed(3)
+    fa, fb = (feature_l2norm(torch.randn(16, 25, 25, 1024, generator=g, device=card))
+              for _ in range(2))
+    got_v, got_i = corr_stream_band(fa, fb, 50, mutual=mutual, tile=tile)
+    again = corr_stream_band(fa, fb, 50, mutual=mutual, tile=tile)
+    assert torch.equal(got_v, again[0]) and torch.equal(got_i, again[1])
+    corr_s = slab_correlation(fa, fb, tile)
+    want_v, want_i = topk_band(corr_s, 50, values_from=mutual_matching(corr_s),
+                               mutual=mutual)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    corr = correlation_4d(fa, fb)
+    dense_v, dense_i = topk_band(corr, 50, values_from=mutual_matching(corr),
+                                 mutual=mutual)
+    swaps = band_index_swaps(corr, corr_s, got_i, dense_i)
+    assert swaps["near_ties"] == swaps["entries"], swaps
+    same = (got_i == dense_i).all(-1, keepdim=True).expand_as(got_i)
+    torch.testing.assert_close(got_v[same], dense_v[same], rtol=1e-5, atol=1e-6)
+
+
+def test_refine_factor1_on_card_is_the_band(card):
+    """Factor 1, radius 0 through the band kernels on the card: the refined
+    band is the K band bit for bit (a one-entry window's softmax is 1.0)."""
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+    from ncnet_tpu_torch.refine import refine_match_pipeline
+    from ncnet_tpu_torch.sparse.pipeline import sparse_match_pipeline
+
+    cfg = ImMatchNetConfig(feature_extraction_cnn="patch16", ncons_kernel_sizes=(3, 3),
+                           ncons_channels=(4, 1))
+    nc = ImMatchNet(cfg, device=card,
+                    generator=torch.Generator().manual_seed(0)).neigh_consensus
+    g = torch.Generator(device=card).manual_seed(4)
+    fa, fb = (torch.randn(2, 10, 10, 256, generator=g, device=card) for _ in range(2))
+    before = band_gemm_fwd.launches
+    for impl in ("dense", "stream"):
+        c = cfg.replace(corr_impl=impl, corr_stream_tile=32)
+        got = refine_match_pipeline(nc.params(), c.replace(refine_factor=1,
+                                                           refine_topk=8),
+                                    fa, fb, layer=nc.band_layer)
+        want = sparse_match_pipeline(nc.params(), c.replace(nc_topk=8), fa, fb,
+                                     layer=nc.band_layer)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert band_gemm_fwd.launches - before == 16  # 2 layers x 2 passes x 4 calls

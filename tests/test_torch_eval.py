@@ -288,8 +288,15 @@ def test_synthetic_pck_matches_jax_per_pair(small):
     sweep = synthetic.synthetic_pck_vs_topk(model, cfg, [batch], ks=[0, 16],
                                             alpha=0.15)
     assert abs(sweep[16] - sweep[0]) <= PCK_ATOL and abs(sweep[0] - mean) <= PCK_ATOL
-    with pytest.raises(NotImplementedError, match="A10"):
-        synthetic.synthetic_pck_vs_refine(model, cfg, [batch], [1], [4])
+    # refinement (ROADMAP A10, once refused): the factor-1, radius-0 row
+    # is the band's PCK, the complete coarse band's the dense one
+    refine = synthetic.synthetic_pck_vs_refine(model, cfg, [batch], [0, 1],
+                                               [5, 16], alpha=0.15)
+    assert sorted(refine) == [(0, 0), (1, 5), (1, 16)]
+    band = synthetic.synthetic_pck_vs_topk(model, cfg, [batch], ks=[5],
+                                           alpha=0.15)
+    assert refine[(1, 5)] == band[5]
+    assert refine[(1, 16)] == sweep[16] and refine[(0, 0)] == sweep[0]
 
 
 # -- CLIs at toy size ------------------------------------------------------
@@ -332,7 +339,9 @@ def test_pf_pascal_cli(small, pf_dataset, tmp_path, capsys, serve):
 
 
 @pytest.mark.parametrize("argv,error,item", [
-    (["--refine", "2"], NotImplementedError, "A10"),
+    # refinement is ported (ROADMAP A10): a factor the 400 px grid (25
+    # cells) does not divide is refused before the checkpoint is read
+    (["--refine", "2"], SystemExit, "does not divide by --refine 2"),
     # the JAX package's checkpoints are read now (ROADMAP A6): a missing
     # one is a missing file, not a refusal
     (["--checkpoint", "ck.msgpack"], FileNotFoundError, "ck.msgpack"),

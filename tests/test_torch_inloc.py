@@ -334,9 +334,12 @@ def test_inloc_cli(small, inloc_data, tmp_path, capsys):
     for q in (1, 2):
         _assert_same_mat(tmp_path / "matches" / exp / f"{q}.mat",
                          tmp_path / "jax" / f"{q}.mat")
-    for extra, item in ((["--spatial_shards", "2"], "A13"), (["--refine", "2"], "A10"),
-                        (["--feature-store", str(tmp_path)], "A11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for extra, error, item in (
+            (["--spatial_shards", "2"], NotImplementedError, "A13"),
+            # refinement is ported (ROADMAP A10) and needs --k_size 1
+            (["--refine", "2"], SystemExit, "requires --k_size 1"),
+            (["--feature-store", str(tmp_path)], NotImplementedError, "A11")):
+        with pytest.raises(error, match=item):
             inloc.main(argv + extra)
     # device preprocessing (ROADMAP A7b, once refused): the .mat of the
     # JAX package's dump on the same route, row for row

@@ -140,20 +140,22 @@ def test_config_dict_round_trip():
 @pytest.mark.parametrize(
     "override,item",
     [
-        # the band itself is ported (tests/test_torch_sparse.py); streaming
-        # it is not, and a stream without a band is a ValueError there
-        (dict(nc_topk=8, corr_impl="stream"), "A9"),
-        (dict(refine_factor=2), "A10"),
-        (dict(nc_topk=8, corr_impl="stream", nc_topk_mutual=False), "A9"),
-        # relocalization is ported (tests/test_torch_inloc.py); refinement
-        # still raises when a stream correlation would feed it
-        (dict(refine_factor=2, corr_impl="stream"), "A10"),
+        # the streamed band and refinement are ported (ROADMAP A9/A10,
+        # tests/test_torch_corr_stream.py, tests/test_torch_refine.py):
+        # these configs build, and what the JAX package refuses raises
+        (dict(nc_topk=8, corr_impl="stream"), "stream"),
+        (dict(refine_factor=2), "refine_factor"),
+        (dict(nc_topk=8, corr_impl="stream", nc_topk_mutual=False), "stream"),
+        (dict(refine_factor=2, corr_impl="stream"), "refine_factor"),
     ],
 )
 def test_unported_configs_raise(override, item):
     cfg = ImMatchNetConfig(**dict(SMALL, **override))
-    with pytest.raises(NotImplementedError, match=item):
-        ImMatchNet(cfg, device="cpu")
+    assert ImMatchNet(cfg, device="cpu").config == cfg
+    refused = {"stream": dict(corr_stream_tile=0, nc_topk=0),
+               "refine_factor": dict(relocalization_k_size=2)}[item]
+    with pytest.raises(ValueError):
+        ImMatchNet(cfg.replace(**refused), device="cpu")
 
 
 @pytest.mark.parametrize("cnn,channels,units", [("vgg", 512, 10),

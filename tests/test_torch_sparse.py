@@ -135,7 +135,10 @@ def test_full_k_band_equals_dense(tgt_hw):
         (dict(nc_topk=8, relocalization_k_size=2), ValueError, "relocalization"),
         (dict(corr_impl="stream"), ValueError, "requires a band path"),
         (dict(corr_impl="tiled"), ValueError, "not one of"),
-        (dict(nc_topk=8, corr_impl="stream"), NotImplementedError, "A9"),
+        # the streamed band is ported (ROADMAP A9); a refinement the JAX
+        # package refuses raises here too
+        (dict(nc_topk=8, refine_factor=2, refine_radius=-1), ValueError,
+         "negative"),
     ],
 )
 def test_sparse_config_checks(override, error, match):
@@ -253,8 +256,10 @@ def test_engine_rejects_a_pin_it_cannot_serve(programs):
     with ServeEngine(standard, model, device="cpu") as engine:
         with pytest.raises(ValueError, match="no degraded program"):
             engine.submit(key=SQUARE, payload={}, variant="degraded")
-        with pytest.raises(ValueError, match="unknown quality variant"):
+        with pytest.raises(ValueError, match="no refined program"):
             engine.submit(key=SQUARE, payload={}, variant="refined")
+        with pytest.raises(ValueError, match="unknown quality variant"):
+            engine.submit(key=SQUARE, payload={}, variant="ultra")
     assert engine.report()["submitted"] == 0
 
 

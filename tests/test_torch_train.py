@@ -153,8 +153,10 @@ def test_weak_loss_from_features_matches_weak_loss():
 @pytest.mark.parametrize(
     "override,error,item",
     [
-        (dict(nc_topk=8, corr_impl="stream"), NotImplementedError, "A9"),
-        (dict(refine_factor=2), NotImplementedError, "A10"),
+        # the stream and refinement are ported (ROADMAP A9/A10); what
+        # stays refused is what the JAX package refuses
+        (dict(corr_impl="stream"), ValueError, "requires a band path"),
+        (dict(refine_factor=2, refine_topk=0), ValueError, "positive band width"),
         (dict(relocalization_k_size=2), ValueError, "relocalization"),
     ],
 )
