@@ -196,7 +196,11 @@ Phases, one JSON line each:
              against the host route's by the tie gate above (each pick
              short of the best by at most twice their difference), the same
              launches, and each route's host, transfer and device time for
-             the query and a pano.
+             the query and a pano. Then (``inloc_store``) the same dump
+             through a gallery feature store (``feature_store_dir``), cold
+             and warm: the trunk runs for the query and every pano, then for
+             the query alone; the same launches; each .mat against the
+             image route's (the device route's gate), its seconds a pair.
 12. finetune — trunk fine-tuning (``--fe_finetune_params 1``: layer3's
              last bottleneck with the head) at the PF-Pascal config on a
              model of its own (seed 0): the first NC layer's dx (a 16->1
@@ -256,11 +260,38 @@ Phases, one JSON line each:
              training steps at batch 16; the InLoc dump at 3200 px with
              ``--k_size 1 --refine 2`` (its .mat, 4 band launches a pair);
              stage seconds and peak memory.
+18. checkpoint — a torchvision-keyed ResNet-101 state dict (random values
+             from the seed, ``layer4`` and ``fc`` included) saved with
+             ``torch.save``; 2 steps at batch 16 through the train CLI's
+             ``main`` with ``--fe_weights`` (6 / 4 / 6 conv4d launches a
+             step), whose ``.npz`` holds that trunk bitwise; then 8 requests
+             from the ``.npz`` through the serve CLI's ``main`` with
+             ``--checkpoint``, one a batch, against ``make_match_fn`` on
+             ``convert.load_model``'s model (up to ties), and at
+             ``--max-batch 4`` for the served pairs/s.
+19. feature_cache — ``train`` (32 pairs) and ``val`` (16) feature stores
+             at 400 px (ResNet-101 to layer3, bfloat16: 96 shards of 1.28
+             MB) populated through the train CLI's ``open_feature_cache``;
+             3 cached steps at batch 16 dense, at K = 50 (dense and streamed
+             selection) and dense pinned on the card: no trunk call, 6 / 4 /
+             6 conv4d or 12 / 8 / 12 band launches a step, the pinned losses
+             bitwise the unpinned, each loss within CACHE_LOSS_TOL of the
+             image path's; the stage times of a dense and a band step,
+             cached and from images; a cached eval step; the stores re-opened
+             under another trunk raise ``FeatureCacheMismatch``.
+20. feature_store_serve — 16 requests over 8 images served from a gallery
+             store (the serve CLI's ``feature_store_prep``), each pinned to
+             the standard and the degraded (K = 16) program, twice (the
+             trunk runs 8 times, then never): the standard rung's matches
+             against the image path's up to ties, the degraded rung's bands
+             against the image path's (every differing row holds a near
+             tie), launches and pairs/s.
 Then the ``{"kernels": [...]}`` line (``launches_by_path`` per kernel:
 serve, serve_band, train, eval, inloc, inloc_device_route, train_band,
-synthetic_band, finetune, finetune_band, trunks, and this slice's
+synthetic_band, finetune, finetune_band, trunks, and the later slices'
 train_stream, finetune_stream, refine_serve, refine_eval, refine_train,
-refine_inloc), the nvidia-smi line,
+refine_inloc, checkpoint_train, checkpoint_serve, feature_cache,
+feature_cache_band, feature_store_serve, inloc_store), the nvidia-smi line,
 and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Needs one card; exits non-zero without CUDA.
@@ -435,6 +466,21 @@ TRAIN_STREAM_LOSS_TOL = 1e-3
 # then a burst of unpinned ones under a low high-water mark
 REFINE_PF, REFINE_TOPK = 5, 16
 REFINE_PINNED, REFINE_BURST = 4, 32
+# this slice: requests served from a trained checkpoint (one a batch, then
+# batched); the feature cache's stores (pairs) at the PF-Pascal config
+CKPT_SERVE_REQUESTS = 8
+CACHE_TRAIN_PAIRS, CACHE_VAL_PAIRS = 32, 16
+# a cached step's loss against the image path's on the same batch and
+# weights: the store's bfloat16 features come from trunk calls of 16 images
+# (8 pairs' sources and targets), the image path's from calls of 16
+# sources or 16 targets, so cuDNN may pick another algorithm and move a
+# feature by one bfloat16 step (2^-8 of it) now and then; the loss, a
+# difference of two mean best-match scores in [0, 1], then moves by a few
+# such steps on a few cells (TRAIN_STREAM_LOSS_TOL's reasoning)
+CACHE_LOSS_TOL = 1e-3
+# serving from a gallery store: requests over a few images, each image
+# visited by several requests
+STORE_IMAGES = 8
 
 
 def emit(obj):
@@ -1539,12 +1585,24 @@ def synthetic_batch(n, seed, hw=SQUARE_HW):
     return device_batch(collate([ds[i] for i in range(n)]), "cuda")
 
 
+def pair_features(model, config, batch):
+    """Both images' trunk features, or a feature batch's own (cast as
+    `weak_loss_from_features` casts them: its "trunk" stage is that cast)."""
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+
+    if "source_features" in batch:
+        dtype = torch.bfloat16 if config.half_precision else batch["source_features"].dtype
+        return tuple(batch[k].to(dtype) for k in ("source_features", "target_features"))
+    return tuple(extract_features(model, config, batch[k])
+                 for k in ("source_image", "target_image"))
+
+
 def train_stage_breakdown(model, config, batch, optimizer):
     """CUDA-event times of one training step's stages, in order, on one
-    batch: trunk (both images), correlation + MM (both pipelines), NC
-    forward (both pipelines), post-NC MM + scores + loss, backward,
-    optimizer; and the whole step."""
-    from ncnet_tpu_torch.models.immatchnet import extract_features
+    batch (images, or cached features: `pair_features`): trunk (both
+    images), correlation + MM (both pipelines), NC forward (both
+    pipelines), post-NC MM + scores + loss, backward, optimizer; and the
+    whole step."""
     from ncnet_tpu_torch.ops.correlation import correlation_4d
     from ncnet_tpu_torch.ops.matching import mutual_matching
     from ncnet_tpu_torch.train.loss import match_score_per_sample
@@ -1554,8 +1612,7 @@ def train_stage_breakdown(model, config, batch, optimizer):
     optimizer.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     ev[0].record()
-    fa = extract_features(model, config, batch["source_image"])
-    fb = extract_features(model, config, batch["target_image"])
+    fa, fb = pair_features(model, config, batch)
     ev[1].record()
     corrs = [mutual_matching(correlation_4d(a, fb)).to(dtype)
              for a in (fa, torch.roll(fa, -1, 0))]
@@ -2128,6 +2185,8 @@ def phase_inloc(smi, kernels, conv4d_plain):
         dev_dump_s = time.perf_counter() - t0
         dev_launches = {n: k.launches for n, k in kernels.items()}
         dev_mat = loadmat(os.path.join(dev_dir, "1.mat"))
+        store_runs = inloc_store_dumps(model, config, root, shortlist, len(panos),
+                                       kernels)
         routes = inloc_routes(model, config, root, inloc)
     m = mat["matches"]
     filled = [int((np.abs(m[0, p]).sum(axis=1) > 0).sum()) for p in range(len(panos))]
@@ -2145,6 +2204,13 @@ def phase_inloc(smi, kernels, conv4d_plain):
     if dev_launches != launches:
         problems.append(f"device route launches {dev_launches} != {launches}")
     route_check = mat_route_check(m, dev_mat["matches"])
+    for run, trunk_want in zip(store_runs, (1 + len(panos), 1)):
+        store_mat = run.pop("mat")
+        run["vs_image_route"] = mat_route_check(m, store_mat)
+        run["identical_to_image_route"] = bool(np.array_equal(store_mat, m))
+        if (run["launches"] != launches or run["trunk_calls"] != trunk_want
+                or not run["vs_image_route"]["ok"]):
+            problems.append(f"the {run['label']} store dump fails: {run}")
 
     # one pair: readout against the plain forward, and its stage times
     t0 = time.perf_counter()
@@ -2255,9 +2321,53 @@ def phase_inloc(smi, kernels, conv4d_plain):
           "written": done["written"], "launches": launches,
           "device_route_launches": dev_launches, "device_route_mat": route_check,
           "readout": readout, "stages_ms": stages, "layers": layers})
+    emit({"phase": "inloc_store", "card": smi, "config": config.to_dict(),
+          "image_size": INLOC_SIZE, "pairs_a_dump": len(panos),
+          "image_route_s_per_pair": dump_s / len(panos), "dumps": store_runs})
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"host": launches, "device": dev_launches}, layers
+    return {"host": launches, "device": dev_launches,
+            "store": {n: sum(r["launches"][n] for r in store_runs)
+                      for n in launches}}, layers
+
+
+def inloc_store_dumps(model, config, root, shortlist, n_panos, kernels):
+    """The InLoc dump of ``root``'s query and panos through a gallery
+    feature store (``feature_store_dir``), cold then warm: each dump's
+    seconds a pair, trunk calls (cold: the query and every pano; warm: the
+    query), panos extracted, launches (counts set to 0 just before) and
+    ``.mat`` matches."""
+    from scipy.io import loadmat
+
+    from ncnet_tpu_torch.eval import inloc
+
+    store_dir = os.path.join(root, "gallery")
+    calls = []
+    hook = model.feature_extraction.register_forward_hook(lambda *a: calls.append(1))
+    runs = []
+    try:
+        for label in ("cold", "warm"):
+            out = os.path.join(root, f"matches_store_{label}")
+            for k in kernels.values():
+                k.launches = 0
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = inloc.dump_matches(
+                model, config, shortlist, root, root, out, image_size=INLOC_SIZE,
+                n_queries=1, n_panos=n_panos, verbose=False,
+                feature_store_dir=store_dir,
+                read_image=lambda p: np.load(p).astype(np.float32))
+            secs = time.perf_counter() - t0
+            runs.append({"label": label, "s_per_pair": secs / n_panos,
+                         "trunk_calls": len(calls),
+                         "panos_extracted": done["panos_extracted"],
+                         "launches": {n: k.launches for n, k in kernels.items()},
+                         "mat": loadmat(os.path.join(out, "1.mat"))["matches"]})
+    finally:
+        hook.remove()
+    runs[0]["store_mbytes"] = store_megabytes(store_dir)
+    return runs
 
 
 def mat_route_check(host, device):
@@ -2579,12 +2689,11 @@ class TimedCalls:
 
 def band_train_stage_breakdown(model, config, batch, optimizer):
     """CUDA-event times of one band training step's stages, in order, on
-    one batch: trunk (both images), correlation + MM + top-K (both
-    pipelines), band NC forward (both), band MM + scores + loss, backward
-    (split into the dx kernel's calls, dw's hit-list builds, whose hits
-    an entry it reports, dw's launches, and the rest), Adam; and the
-    whole step."""
-    from ncnet_tpu_torch.models.immatchnet import extract_features
+    one batch (images, or cached features: `pair_features`): trunk (both
+    images), correlation + MM + top-K (both pipelines), band NC forward
+    (both), band MM + scores + loss, backward (split into the dx kernel's
+    calls, dw's hit-list builds, whose hits an entry it reports, dw's
+    launches, and the rest), Adam; and the whole step."""
     from ncnet_tpu_torch.ops import band
     from ncnet_tpu_torch.ops.correlation import correlation_4d
     from ncnet_tpu_torch.ops.matching import mutual_matching
@@ -2603,8 +2712,7 @@ def band_train_stage_breakdown(model, config, batch, optimizer):
     try:
         torch.cuda.synchronize()
         ev[0].record()
-        fa = extract_features(model, config, batch["source_image"])
-        fb = extract_features(model, config, batch["target_image"])
+        fa, fb = pair_features(model, config, batch)
         ev[1].record()
         grid_b = (fb.shape[1], fb.shape[2])
         k = resolve_band_width(config.nc_topk, grid_b)
@@ -3474,15 +3582,16 @@ def phase_stream(smi):
     return record
 
 
-def run_steps(model, cfg, batches, kernels, **mode):
-    """Trainer steps (`create_train_state` / `make_train_step` with ``mode``)
-    over ``batches`` with the counts set to 0 just before: losses, step ms,
-    per-step and total launches, the trainable tensors before and after,
-    the peak memory."""
+def run_steps(model, cfg, batches, kernels, from_features=False, **mode):
+    """Trainer steps (`create_train_state` / `make_train_step` with ``mode``;
+    ``from_features``: the batches are cached features) over ``batches``
+    with the counts set to 0 just before: losses, step ms, per-step and
+    total launches, the trainable tensors before and after, the peak
+    memory."""
     from ncnet_tpu_torch.train.step import create_train_state, make_train_step
 
     state = create_train_state(model, 5e-4, **mode)
-    step = make_train_step(cfg, **mode)
+    step = make_train_step(cfg, from_features=from_features, **mode)
     before = [t.detach().clone() for t in state.optimizer.param_groups[0]["params"]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3978,6 +4087,577 @@ def phase_refine(smi, kernels, conv4d_plain, band_plain):
             "layers": coarse}
 
 
+# -- this slice: a trained checkpoint served (C5), pretrained trunk weights
+# (A6b), the frozen-trunk feature cache (A11) -------------------------------
+
+
+def torchvision_resnet101(seed):
+    """A torchvision-keyed ResNet-101 state dict (``conv1`` .. ``layer4``,
+    ``fc``, ``num_batches_tracked``) of random values from ``seed``: no
+    pretrained file can be fetched here. Conv weights at He-like scale and
+    BN near the identity keep 30 random blocks' activations finite."""
+    from ncnet_tpu_torch.models.resnet import EXPANSION, RESNET101_STAGES
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[name + ".weight"] = torch.randn(cout, cin, k, k, generator=g) * (
+            1.0 / (cin * k * k)) ** 0.5
+
+    def bn(name, c):
+        sd[name + ".weight"] = 0.5 + 0.5 * torch.rand(c, generator=g)
+        sd[name + ".bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[name + ".running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[name + ".running_var"] = torch.rand(c, generator=g) + 0.5
+        sd[name + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for si, (n_blocks, planes, _) in enumerate(RESNET101_STAGES + ((3, 512, 2),)):
+        for bi in range(n_blocks):
+            p = f"layer{si + 1}.{bi}."
+            conv(p + "conv1", planes, cin, 1)
+            bn(p + "bn1", planes)
+            conv(p + "conv2", planes, planes, 3)
+            bn(p + "bn2", planes)
+            conv(p + "conv3", planes * EXPANSION, planes, 1)
+            bn(p + "bn3", planes * EXPANSION)
+            if bi == 0:
+                conv(p + "downsample.0", planes * EXPANSION, cin, 1)
+                bn(p + "downsample.1", planes * EXPANSION)
+            cin = planes * EXPANSION
+    sd["fc.weight"] = 0.01 * torch.randn(1000, 2048, generator=g)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def same_tree(a, b):
+    """Two param trees (nested dicts and lists of arrays) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def served_vs_lone(results, lone, tol):
+    """Served matches against lone ``[5, n]`` references: the share of rows
+    whose picks differ and the largest score gap relative to the
+    reference's scale. Each row is one cell's best match, so a pick that
+    moved to a (near-)tie keeps its score within ``tol``."""
+    differ, err = 0, 0.0
+    for got, want in zip(results, lone):
+        got = got["matches"]
+        differ += int((got[:4] != want[:4]).any(axis=0).sum())
+        err = max(err, float(np.abs(got[4] - want[4]).max()
+                             / np.abs(want[4]).max()))
+    rows = sum(w.shape[1] for w in lone)
+    return {"rows": rows, "rows_differing": differ, "score_max_rel_err": err,
+            "tol_rel": tol, "ok": bool(err <= tol)}
+
+
+def phase_checkpoint(smi, kernels):
+    """Pretrained trunk weights in training and a trained checkpoint served
+    (A6b, C5): a torchvision-keyed ResNet-101 ``.pth`` (random values, with
+    its ``layer4`` and ``fc``) saved with ``torch.save``; 2 steps at batch
+    16 from it through the train CLI's ``main`` with ``--fe_weights`` (the
+    counts set to 0 just before), whose ``.npz`` must hold that trunk
+    bitwise; then CKPT_SERVE_REQUESTS requests from that ``.npz`` through
+    the serve CLI's ``main`` with ``--checkpoint``, one a batch, against
+    `make_match_fn` on `convert.load_model`'s model (up to ties), and again
+    at ``--max-batch`` MAX_BATCH for the served pairs/s. Returns the
+    launches by path."""
+    import io
+
+    from ncnet_tpu_torch.convert import load_model, load_trunk_weights
+    from ncnet_tpu_torch.data.images import normalize_image_np, resize_bilinear_np
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNetConfig
+    from ncnet_tpu_torch.serve.__main__ import main as serve_main
+    from ncnet_tpu_torch.serve.__main__ import synthetic_pairs
+    from ncnet_tpu_torch.serve.buckets import BucketSpec
+    from ncnet_tpu_torch.serve.step import make_match_fn
+    from ncnet_tpu_torch.train.__main__ import main as train_main
+    from ncnet_tpu_torch.train.checkpoint import load_checkpoint
+
+    problems = []
+    with tempfile.TemporaryDirectory() as root:
+        pth = os.path.join(root, "resnet101.pth")
+        torch.save(torchvision_resnet101(SEED), pth)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train = train_main([
+                "--synthetic", "--fe_weights", pth, "--max-steps", "2",
+                "--image_size", str(SQUARE_HW[0]),
+                "--batch_size", str(TRAIN_BATCH), "--synthetic_pairs",
+                str(2 * TRAIN_BATCH), "--num_workers", "4",
+                "--result_model_dir", os.path.join(root, "run")])
+        train_s = time.perf_counter() - t0
+        train_launches = {n: k.launches for n, k in kernels.items()}
+        ck = load_checkpoint(train["checkpoint"])
+        trunk_ok = same_tree(ck.params["feature_extraction"],
+                             load_trunk_weights(pth, "resnet101"))
+        want = {n: 0 for n in kernels}
+        want.update(conv4d_fwd=12, conv4d_dx=8, conv4d_dw=12)
+        if train_launches != want or train["steps"] != 2:
+            problems.append(f"--fe_weights training launches {train_launches} != {want}")
+        if not (trunk_ok and all(np.isfinite(train["step_losses"]))):
+            problems.append("the trained checkpoint's trunk is not the --fe_weights "
+                            f"trunk, or a loss is not finite: {train['step_losses']}")
+
+        argv = ["--synthetic", str(CKPT_SERVE_REQUESTS), "--checkpoint",
+                train["checkpoint"], "--concurrency", "1", "--image-size",
+                str(SQUARE_HW[0])]
+        results = []
+        for k in kernels.values():
+            k.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            lone_run = serve_main(argv + ["--max-batch", "1"], results=results)
+        serve_launches = {n: k.launches for n, k in kernels.items()}
+        with contextlib.redirect_stdout(io.StringIO()):
+            batched = serve_main(argv + ["--max-batch", str(MAX_BATCH)])
+        config = ImMatchNetConfig.from_dict(lone_run["config"])
+        _, model = load_model(train["checkpoint"], device="cuda")
+        fn = make_match_fn(config)
+        spec = BucketSpec(SQUARE_HW[0])
+        lone = []
+        for pair in synthetic_pairs(CKPT_SERVE_REQUESTS, 0):
+            src, tgt = (torch.from_numpy(normalize_image_np(resize_bilinear_np(
+                img, *spec.bucket(*img.shape[:2]))).astype(np.float32))[None].cuda()
+                for img in pair)
+            with torch.inference_mode():
+                lone.append(fn(model, src, tgt)[:, 0].cpu().numpy())
+        del model
+    # bfloat16 (the checkpoint's dtype): a pick moved to a near tie keeps
+    # its score within a bfloat16 step of the scale
+    agree = served_vs_lone(results, lone, BAND_TOL[torch.bfloat16])
+    # warmup: both buckets once; then 3 launches a square pair, 6 a
+    # rectangular one (every fourth target is 304x400)
+    n_rect = CKPT_SERVE_REQUESTS // 4
+    serve_want = 3 * (CKPT_SERVE_REQUESTS - n_rect + 1) + 6 * (n_rect + 1)
+    if serve_launches["conv4d_fwd"] != serve_want or lone_run["failed"]:
+        problems.append(f"served launches {serve_launches} (want {serve_want} "
+                        f"conv4d_fwd) or failures {lone_run['failed']}")
+    if not agree["ok"] or lone_run["weights"] != train["checkpoint"]:
+        problems.append(f"served matches disagree with make_match_fn: {agree}")
+    emit({"phase": "checkpoint", "card": smi, "fe_weights": "torchvision-keyed "
+          "ResNet-101 state dict (random values from the seed, layer4 and fc "
+          "included)", "train": {k: train[k] for k in (
+              "weights", "steps", "step_losses", "step_ms", "peak_memory_bytes")},
+          "train_s": train_s, "train_launches": train_launches,
+          "trunk_is_the_fe_weights": trunk_ok,
+          "serve": {"weights": lone_run["weights"], "config": lone_run["config"],
+                    "requests": CKPT_SERVE_REQUESTS, "launches": serve_launches,
+                    "pairs_per_s_batch1": lone_run["pairs_per_s"],
+                    "pairs_per_s": batched["pairs_per_s"],
+                    "max_batch": MAX_BATCH,
+                    "latency_p50_ms": batched["latency_p50_ms"],
+                    "vs_make_match_fn": agree}})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"checkpoint_train": train_launches, "checkpoint_serve": serve_launches}
+
+
+def band_swaps_explained(corr, corr_other, idx_1, idx_2):
+    """`band_index_swaps` with the mutual selection's cascade allowed for:
+    a near tie in a B column flips two entries' column ranks, and the row
+    of an entry that entered or left its band then gives up or takes
+    another entry that is no tie itself. So every A row whose index set
+    differs must hold a swapped entry that is a near tie (within twice the
+    two correlations' largest difference of another entry of its row or
+    column)."""
+    b, ha, wa, hb, wb = corr.shape
+    na, nb = ha * wa, hb * wb
+    c = corr.reshape(b, na, nb).float()
+    delta = float((c - corr_other.reshape(b, na, nb).float()).abs().max())
+
+    def member(idx):
+        m = torch.zeros((b, na, nb), dtype=torch.bool, device=c.device)
+        return m.scatter_(2, idx.reshape(b, na, -1).long(), True)
+
+    diff = member(idx_1) ^ member(idx_2)
+    near = torch.zeros_like(diff)
+    where = diff.nonzero()
+    if len(where):
+        bi, a, j = where.unbind(1)
+        v = c[bi, a, j][:, None]
+        row, col = (c[bi, a] - v).abs(), (c[bi, :, j] - v).abs()
+        n = torch.arange(len(where), device=c.device)
+        row[n, j] = col[n, a] = float("inf")
+        near[bi, a, j] = torch.minimum(row.amin(1), col.amin(1)) <= 2 * delta
+    rows = diff.any(-1)
+    return {"rows": int(rows.sum()), "rows_with_a_near_tie": int(near.any(-1).sum()),
+            "entries": int(diff.sum()), "near_ties": int(near.sum()), "delta": delta}
+
+
+def store_megabytes(root):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root)
+               for f in files) / 1e6
+
+
+def phase_feature_cache(smi, kernels):
+    """Training from cached trunk features (A11) at the PF-Pascal config,
+    bfloat16: `train.__main__.open_feature_cache` populates ``train``
+    (CACHE_TRAIN_PAIRS pairs) and ``val`` (CACHE_VAL_PAIRS) stores at 400
+    px (a ResNet-101 forward of 16 images a call), timed, and their size;
+    3 cached steps at batch 16 (`FeatureBatchLoader`, the counts set to 0
+    just before) dense, on the K = 50 band (dense selection), streamed,
+    and dense again pinned on the card: no trunk call in a cached step,
+    6 / 4 / 6 conv4d or 12 / 8 / 12 band launches a step, the pinned losses
+    bitwise the unpinned ones, each loss within CACHE_LOSS_TOL of the image
+    path's on the same batches and weights; the stage times of a dense and
+    a band step, cached and from images; one cached eval step on ``val``;
+    the stores re-opened under another trunk must raise
+    `FeatureCacheMismatch`. Returns the launches by path."""
+    from ncnet_tpu_torch.data.features_loader import FeatureBatchLoader
+    from ncnet_tpu_torch.data.loader import collate
+    from ncnet_tpu_torch.data.pairs import SyntheticPairDataset
+    from ncnet_tpu_torch.features import FeatureCacheMismatch
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet
+    from ncnet_tpu_torch.train.__main__ import open_feature_cache
+    from ncnet_tpu_torch.train.step import (
+        create_train_state,
+        device_batch,
+        make_eval_step,
+    )
+
+    model, config = build_model()
+    config = config.replace(half_precision=True)
+    datasets = {"train": SyntheticPairDataset(n=CACHE_TRAIN_PAIRS,
+                                              output_size=SQUARE_HW, seed=SEED + 70),
+                "val": SyntheticPairDataset(n=CACHE_VAL_PAIRS, output_size=SQUARE_HW,
+                                            seed=SEED + 71)}
+    trunk_calls = []
+    hook = model.feature_extraction.register_forward_hook(
+        lambda *a: trunk_calls.append(1))
+    problems, runs, stages = [], {}, {}
+    nc0 = [t.detach().clone() for t in model.neigh_consensus.trainable()]
+
+    def reset_nc():
+        with torch.no_grad():
+            for t, t0 in zip(model.neigh_consensus.trainable(), nc0):
+                t.copy_(t0)
+
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        populate = {}
+        stores = open_feature_cache(root, model, config, SQUARE_HW, datasets, populate)
+        torch.cuda.synchronize()
+        populate_s = time.perf_counter() - t0
+        shards = sum(f.endswith(".feat") for _, _, fs in os.walk(root) for f in fs)
+        store_mb = store_megabytes(root)
+        extract_calls = len(trunk_calls)
+        if shards != 2 * (CACHE_TRAIN_PAIRS + CACHE_VAL_PAIRS):
+            problems.append(f"{shards} shards written")
+        other = ImMatchNet(config, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED + 1))
+        mismatch = None
+        try:
+            open_feature_cache(root, other, config, SQUARE_HW, datasets)
+            problems.append("stores re-opened under another trunk did not raise")
+        except FeatureCacheMismatch as e:
+            mismatch = str(e)[:120]
+        del other
+        torch.cuda.empty_cache()
+
+        modes = (("dense", config, False),
+                 ("band", config.replace(nc_topk=TRAIN_K), False),
+                 ("stream", config.replace(nc_topk=TRAIN_K, corr_impl="stream"), False),
+                 ("dense_pinned", config, True))
+        for name, cfg, pin in modes:
+            with FeatureBatchLoader(stores["train"], TRAIN_BATCH, shuffle=True,
+                                    seed=SEED, num_workers=4, drop_last=True,
+                                    pin_hbm=pin, device="cuda") as loader:
+                feats = [b for e in (0, 1) for b in loader.iter_epoch(e)][:TRAIN_STEPS]
+                plan = [i for e in (0, 1)
+                        for i in loader._dl._epoch_batches(e)][:TRAIN_STEPS]
+                feats = [device_batch(b, "cuda") for b in feats]
+                reset_nc()
+                trunk_calls.clear()
+                runs[name] = run_steps(model, cfg, feats, kernels, from_features=True)
+                runs[name]["trunk_calls"] = len(trunk_calls)
+            if pin:
+                runs[name]["pinned_mbytes"] = loader.pinned_nbytes() / 1e6
+                continue
+            images = [device_batch(collate([datasets["train"][int(i)] for i in idx]),
+                                   "cuda") for idx in plan]
+            reset_nc()
+            runs[name]["image_path"] = run_steps(model, cfg, images, kernels)
+            if name != "stream":
+                breakdown = (train_stage_breakdown if name == "dense"
+                             else band_train_stage_breakdown)
+                for label, batch in (("cached", feats[0]), ("images", images[0])):
+                    opt = create_train_state(model, 5e-4).optimizer
+                    breakdown(model, cfg, batch, opt)  # warm
+                    stages[f"{name}_{label}"] = breakdown(model, cfg, batch, opt)
+                    reset_nc()
+            del images, feats
+        val_feats = next(iter(FeatureBatchLoader(stores["val"], TRAIN_BATCH,
+                                                 num_workers=2).iter_epoch(0)))
+        val_loss = float(make_eval_step(config, from_features=True)(model, val_feats))
+    hook.remove()
+    reset_nc()
+    del model
+    torch.cuda.empty_cache()
+
+    dense_want = {n: 0 for n in kernels}
+    dense_want.update(conv4d_fwd=6, conv4d_dx=4, conv4d_dw=6)
+    band_want = {n: 0 for n in kernels}
+    band_want.update(band_gemm_fwd=12, band_gemm_dx=8, band_gemm_dw=12)
+    gaps = {}
+    for name, run in runs.items():
+        want = band_want if name in ("band", "stream") else dense_want
+        if any(p != want for p in run["launches_per_step"]):
+            problems.append(f"{name}: launches a step {run['launches_per_step']} != {want}")
+        if run["trunk_calls"]:
+            problems.append(f"{name}: the trunk ran {run['trunk_calls']} times in "
+                            "cached steps")
+        if not all(np.isfinite(run["losses"])):
+            problems.append(f"{name}: a loss is not finite: {run['losses']}")
+        if "image_path" in run:
+            gaps[name] = [abs(a - b) for a, b in
+                          zip(run["losses"], run["image_path"]["losses"])]
+            if not all(g <= CACHE_LOSS_TOL for g in gaps[name]):
+                problems.append(f"{name}: cached vs image-path losses differ by "
+                                f"{gaps[name]}")
+    if runs["dense_pinned"]["losses"] != runs["dense"]["losses"]:
+        problems.append("pinned losses are not bitwise the unpinned ones: "
+                        f"{runs['dense_pinned']['losses']} vs {runs['dense']['losses']}")
+    if not np.isfinite(val_loss):
+        problems.append(f"cached eval loss {val_loss}")
+    emit({"phase": "feature_cache", "card": smi, "config": config.to_dict(),
+          "pairs": {"train": CACHE_TRAIN_PAIRS, "val": CACHE_VAL_PAIRS},
+          "populate": populate, "populate_s": populate_s,
+          "trunk_calls_to_populate": extract_calls, "shards": shards,
+          "store_mbytes": store_mb, "shard_mbytes": store_mb / max(shards, 1),
+          "mismatch_raised": mismatch, "runs": runs, "loss_gaps_vs_image_path": gaps,
+          "loss_tol": CACHE_LOSS_TOL, "stages_ms": stages, "val_loss": val_loss})
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    def total(names):
+        return {n: sum(runs[m]["launches"][n] for m in names) for n in kernels}
+
+    return {"feature_cache": total(("dense", "dense_pinned")),
+            "feature_cache_band": total(("band", "stream"))}
+
+
+def phase_feature_store_serve(smi, model, config, kernels):
+    """Serving from a gallery feature store (A11): 2 x STORE_IMAGES requests
+    over STORE_IMAGES generated images (6 at 400x400, 2 at 304x400), each
+    pinned to the standard (dense) and to the degraded (K = BAND_K band)
+    program of a ServeEngine whose prep is the serve CLI's
+    (`feature_store_prep`), twice: the first pass extracts each image once
+    (the trunk runs STORE_IMAGES times), the second reads every image from
+    the store (no trunk call). Both passes' matches against the image
+    path's engine on the same requests, float32 (TF32 off); the image path
+    runs one request a batch, so its trunk sees each image at batch 1 as
+    the store's extraction does. The standard rung's served matches must
+    equal the image path's up to ties. A band's selection depends on the
+    last bits of the correlation (cuBLAS may sum it in another order for
+    another batch's composition, and the store's features may differ from
+    the image path's in the last bits), and a candidate swapped at the
+    band's edge moves its neighbours' NC output: so the degraded rung is
+    held by its bands, each request's band from the store's features
+    against the band from the image path's, every A row whose band differs
+    holding a near tie (`band_swaps_explained`), and the image engine's degraded rows against
+    the degraded program at one request a batch; the store's degraded rows
+    against the image path's are reported. Every served result is finite
+    and of its shape. The launches of the two store passes (counts set to
+    0 just before). Returns them."""
+    from ncnet_tpu_torch import bridge
+    from ncnet_tpu_torch.data.images import normalize_image_np, resize_bilinear_np
+    from ncnet_tpu_torch.features import GalleryFeatureStore, trunk_digest
+    from ncnet_tpu_torch.serve.__main__ import feature_store_prep
+    from ncnet_tpu_torch.serve.buckets import BucketSpec
+    from ncnet_tpu_torch.serve.engine import ServeEngine
+    from ncnet_tpu_torch.serve.step import make_serve_match_step
+
+    rng = np.random.RandomState(SEED + 80)
+    images = {f"img{i}": rng.uniform(0, 255, (RECT_HW if i >= 6 else SQUARE_HW)
+                                     + (3,)).astype(np.float32)
+              for i in range(STORE_IMAGES)}
+    keys = sorted(images)
+    requests = [((keys[i], images[keys[i]]), (keys[(i + s) % STORE_IMAGES],
+                                               images[keys[(i + s) % STORE_IMAGES]]))
+                for s in (1, 3) for i in range(STORE_IMAGES)]
+    spec = BucketSpec(SQUARE_HW[0])
+
+    def resized(img):
+        h, w = spec.bucket(img.shape[0], img.shape[1])
+        return normalize_image_np(resize_bilinear_np(img, h, w)).astype(np.float32)
+
+    def image_prep(pair):
+        src, tgt = (resized(img) for _, img in pair)
+        return (src.shape[:2], tgt.shape[:2]), {"source_image": src,
+                                                "target_image": tgt}
+
+    served = []
+
+    def counted(variant, from_features):
+        cfg = config.replace(nc_topk=BAND_K) if variant == "degraded" else config
+        apply = make_serve_match_step(cfg, from_features=from_features)
+
+        def run(m, batch):
+            served.append((variant, tuple(batch["source_image"].shape[1:3]),
+                           tuple(batch["target_image"].shape[1:3])))
+            return apply(m, batch)
+
+        return run
+
+    def serve_pass(engine):
+        futures = {}
+        lock = threading.Lock()
+
+        def client(idx):
+            for i in idx:
+                for v in ("standard", "degraded"):
+                    f = engine.submit(requests[i], variant=v)
+                    with lock:
+                        futures[i, v] = f
+
+        threads = [threading.Thread(target=client, args=(range(c, len(requests), 4),))
+                   for c in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out = {k: f.result(timeout=600) for k, f in futures.items()}
+        return out, time.perf_counter() - t0
+
+    def engine_for(prep, from_features, max_batch=MAX_BATCH):
+        return ServeEngine(counted("standard", from_features), model, device="cuda",
+                           max_batch=max_batch, max_wait=0.05, prep_fn=prep,
+                           degraded_apply_fn=counted("degraded", from_features))
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    fdim = 1024  # ResNet-101 to layer3
+    grids = {hw: (hw[0] // 16, hw[1] // 16) for hw in (SQUARE_HW, RECT_HW)}
+    warm_specs = [((grids[SQUARE_HW], grids[hw]), {
+        "source_image": (grids[SQUARE_HW] + (fdim,), torch.float32),
+        "target_image": (grids[hw] + (fdim,), torch.float32)})
+        for hw in (SQUARE_HW, RECT_HW)]
+    trunk_calls = []
+    hook = model.feature_extraction.register_forward_hook(
+        lambda *a: trunk_calls.append(1))
+    passes, problems = [], []
+    with tempfile.TemporaryDirectory() as root:
+        store = GalleryFeatureStore.open_or_create(
+            root, trunk_digest(bridge.to_jax_params(model)["feature_extraction"],
+                               config, None), config)
+        with engine_for(feature_store_prep(store, model, config, resized),
+                        True) as engine:
+            engine.warmup(warm_specs)
+            for k in kernels.values():
+                k.launches = 0
+            served.clear()
+            for label in ("cold", "warm"):
+                trunk_calls.clear()
+                results, secs = serve_pass(engine)
+                passes.append({"label": label, "results": results, "seconds": secs,
+                               "trunk_calls": len(trunk_calls),
+                               "pairs_per_s": 2 * len(requests) / secs})
+            launches = {n: k.launches for n, k in kernels.items()}
+            store_served = list(served)
+        store_mb = store_megabytes(root)
+        store_features = {k: store.get(k)[0] for k in keys}
+    hook.remove()
+    with engine_for(image_prep, False, max_batch=1) as engine:
+        engine.warmup([((SQUARE_HW, hw), {
+            "source_image": (SQUARE_HW + (3,), np.dtype(np.float32)),
+            "target_image": (hw + (3,), np.dtype(np.float32))})
+            for hw in (SQUARE_HW, RECT_HW)])
+        t0 = time.perf_counter()
+        image_results, image_s = serve_pass(engine)
+    # the degraded rung: each request's band from the store's features
+    # against the band from the image path's trunk at batch 1 (the image
+    # engine's features), and the degraded program on both
+    from ncnet_tpu_torch.models.immatchnet import extract_features
+    from ncnet_tpu_torch.ops.band import topk_band
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import mutual_matching
+
+    deg_cfg = config.replace(nc_topk=BAND_K)
+    degraded = make_serve_match_step(deg_cfg, from_features=True)
+    swaps, lone, lone_image, feat_err = [], [], [], 0.0
+    with torch.inference_mode():
+        image_feats = {k: extract_features(model, config, torch.from_numpy(
+            resized(images[k]))[None].cuda())[0] for k in keys}
+        feats = {k: store_features[k].cuda() for k in keys}
+        for k in keys:
+            feat_err = max(feat_err, float((feats[k] - image_feats[k]).abs().max()
+                                           / image_feats[k].abs().max()))
+        for (ka, _), (kb, _) in requests:
+            sel = []
+            for fs in (feats, image_feats):
+                corr = correlation_4d(fs[ka][None], fs[kb][None])
+                _, idx = topk_band(corr, BAND_K, values_from=mutual_matching(corr),
+                                   mutual=deg_cfg.nc_topk_mutual)
+                sel.append((corr, idx))
+            swaps.append(band_swaps_explained(sel[0][0], sel[1][0], sel[0][1],
+                                              sel[1][1]))
+            for fs, out in ((feats, lone), (image_feats, lone_image)):
+                out.append(degraded(model, {"source_image": fs[ka][None],
+                                            "target_image": fs[kb][None]}
+                                    )["matches"][0].cpu().numpy())
+    swapped = {k: sum(w[k] for w in swaps)
+               for k in ("rows", "rows_with_a_near_tie", "entries", "near_ties")}
+    swapped["max_delta"] = max(w["delta"] for w in swaps)
+    order = {v: [(i, v) for i in range(len(requests))]
+             for v in ("standard", "degraded")}
+    agree = {"degraded_band_swaps": dict(swapped, ok=swapped["rows_with_a_near_tie"]
+                                         == swapped["rows"]),
+             "features_max_rel_diff": feat_err,
+             "degraded_one_a_batch": served_vs_lone(
+                 [{"matches": m} for m in lone],
+                 [image_results[k]["matches"] for k in order["degraded"]], SERVE_TOL),
+             "degraded_image_engine_vs_one_a_batch": served_vs_lone(
+                 [image_results[k] for k in order["degraded"]], lone_image, SERVE_TOL)}
+    served_degraded = {}
+    for p in passes:
+        agree[f"{p['label']}_standard"] = served_vs_lone(
+            [p["results"][k] for k in order["standard"]],
+            [image_results[k]["matches"] for k in order["standard"]], SERVE_TOL)
+        served_degraded[p["label"]] = served_vs_lone(
+            [p["results"][k] for k in order["degraded"]], lone, SERVE_TOL)
+        check_matches([(a[1].shape[:2], b[1].shape[:2]) for a, b in requests] * 2,
+                      [p["results"][k] for v in order.values() for k in v])
+    for p in passes:
+        del p["results"]
+    want = {n: 0 for n in kernels}
+    # a pair of one grid runs the symmetric NC net once, two grids twice
+    want["conv4d_fwd"] = sum(3 if a == t else 6 for v, a, t in store_served
+                             if v == "standard")
+    want["band_gemm_fwd"] = 6 * sum(v == "degraded" for v, _, _ in store_served)
+    if launches != want:
+        problems.append(f"store passes' launches {launches} != {want}")
+    if [p["trunk_calls"] for p in passes] != [STORE_IMAGES, 0]:
+        problems.append(f"trunk calls (cold, warm) {[p['trunk_calls'] for p in passes]}"
+                        f" != [{STORE_IMAGES}, 0]")
+    # gated: the standard rung's matches up to ties; the degraded rung's
+    # band swaps all near ties, and the image engine's degraded rows its
+    # program's at one request a batch; the rest is reported
+    gated = ("cold_standard", "warm_standard", "degraded_band_swaps",
+             "degraded_image_engine_vs_one_a_batch")
+    if not all(agree[g]["ok"] for g in gated):
+        problems.append(f"store matches disagree with the image path: {agree}")
+    emit({"phase": "feature_store_serve", "card": smi, "config": config.to_dict(),
+          "degraded_topk": BAND_K, "images": STORE_IMAGES, "requests": len(requests),
+          "passes": passes, "image_path_pairs_per_s": 2 * len(requests) / image_s,
+          "store_mbytes": store_mb, "launches": launches, "vs_image_path": agree,
+          "served_degraded_vs_one_a_batch": served_degraded})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
 def kernel_line(name, source, replaces, launches, layers, work, smi,
                 launches_by_path=None):
     return {
@@ -4059,25 +4739,37 @@ def main():
     stream_launches = phase_train_stream(smi, config, kernels)
     refine = phase_refine(smi, kernels, conv4d_plain, band_layer_plain)
     refine_launches, coarse = refine["launches"], refine["layers"]
-    # every kernel of this slice's paths launched where it runs
-    for path, names in (("train_stream", ("band_gemm_fwd", "band_gemm_dx", "band_gemm_dw")),
-                        ("finetune_stream", ("band_gemm_fwd", "band_gemm_dx",
-                                             "band_gemm_dw")),
+    ckpt_launches = phase_checkpoint(smi, kernels)
+    cache_launches = phase_feature_cache(smi, kernels)
+    store_serve = phase_feature_store_serve(smi, model, config, kernels)
+    # every kernel of the later slices' paths launched where it runs
+    dense_grad = ("conv4d_fwd", "conv4d_dx", "conv4d_dw")
+    band_grad = ("band_gemm_fwd", "band_gemm_dx", "band_gemm_dw")
+    slice_paths = (stream_launches | refine_launches | ckpt_launches | cache_launches
+                   | {"feature_store_serve": store_serve,
+                      "inloc_store": inloc_launches["store"]})
+    for path, names in (("train_stream", band_grad), ("finetune_stream", band_grad),
                         ("refine_serve", ("conv4d_fwd", "band_gemm_fwd")),
                         ("refine_eval", ("conv4d_fwd", "band_gemm_fwd")),
-                        ("refine_train", ("band_gemm_fwd", "band_gemm_dx", "band_gemm_dw")),
-                        ("refine_inloc", ("band_gemm_fwd",))):
-        counts = (stream_launches | refine_launches)[path]
+                        ("refine_train", band_grad),
+                        ("refine_inloc", ("band_gemm_fwd",)),
+                        ("checkpoint_train", dense_grad),
+                        ("checkpoint_serve", ("conv4d_fwd",)),
+                        ("feature_cache", dense_grad),
+                        ("feature_cache_band", band_grad),
+                        ("feature_store_serve", ("conv4d_fwd", "band_gemm_fwd")),
+                        ("inloc_store", ("conv4d_fwd",))):
+        counts = slice_paths[path]
         if not all(counts[n] > 0 for n in names):
             raise AssertionError(f"{path} did not launch {names}: {counts}")
-    slice_paths = stream_launches | refine_launches
 
     def band_train_by_path(name):
         return {path: band_train_launches[path][name]
                 for path in ("train_band", "synthetic_band")} | {
                     "finetune_band": ftb_launches[name]} | {
                     path: slice_paths[path][name]
-                    for path in ("train_stream", "finetune_stream", "refine_train")}
+                    for path in ("train_stream", "finetune_stream", "refine_train",
+                                 "feature_cache_band")}
 
     fwd_by_path = {"serve": launches, "train": train_launches["conv4d_fwd"],
                    "eval": eval_launches["conv4d_fwd"],
@@ -4086,16 +4778,22 @@ def main():
                    "finetune": ft_launches["conv4d_fwd"],
                    "trunks": trunk_launches["conv4d_fwd"],
                    "refine_serve": refine_launches["refine_serve"]["conv4d_fwd"],
-                   "refine_eval": refine_launches["refine_eval"]["conv4d_fwd"]}
+                   "refine_eval": refine_launches["refine_eval"]["conv4d_fwd"],
+                   **{path: slice_paths[path]["conv4d_fwd"] for path in (
+                       "checkpoint_train", "checkpoint_serve", "feature_cache",
+                       "feature_store_serve", "inloc_store")}}
     band_by_path = {"serve_band": band_launches,
                     "eval": eval_launches["band_gemm_fwd"],
                     **band_train_by_path("band_gemm_fwd"),
                     **{path: refine_launches[path]["band_gemm_fwd"] for path in
-                       ("refine_serve", "refine_eval", "refine_inloc")}}
+                       ("refine_serve", "refine_eval", "refine_inloc")},
+                    "feature_store_serve": store_serve["band_gemm_fwd"]}
 
     def grad_by_path(name):
         return {"train": train_launches[name], "eval": eval_launches[name],
-                "finetune": ft_launches[name], "trunks": trunk_launches[name]}
+                "finetune": ft_launches[name], "trunks": trunk_launches[name],
+                "checkpoint_train": slice_paths["checkpoint_train"][name],
+                "feature_cache": slice_paths["feature_cache"][name]}
 
     emit({"kernels": [
         kernel_line("conv4d_fwd", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
@@ -4114,9 +4812,13 @@ def main():
                     "both directions. Launches: the served batches', "
                     f"{TRAIN_STEPS} training steps', the eval phase's "
                     "(synthetic convergence, PF-Pascal evaluate and "
-                    "evaluate_serving), the InLoc dump's, and this slice's: "
-                    "the standard rung's batches of the refined serving "
-                    "ladder and the dense PF-Pascal eval beside --refine",
+                    "evaluate_serving), the InLoc dump's, and the later "
+                    "slices': the standard rung's batches of the refined "
+                    "serving ladder and the dense PF-Pascal eval beside "
+                    "--refine; the --fe_weights training steps and the "
+                    "serving of their checkpoint; cached training steps "
+                    "(unpinned and pinned); the standard program served from "
+                    "a gallery store; the InLoc dumps from a gallery store",
                     smi, fwd_by_path),
         kernel_line("band_gemm_fwd", "ncnet_tpu_torch/csrc/band_gemm_fwd.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:83",
@@ -4138,8 +4840,10 @@ def main():
                     f"the synthetic run's at K = {SYNTH_BAND_K}, and this "
                     "slice's: streamed band training and fine-tuning, the "
                     "refined rung's batches, the refined PF-Pascal eval, "
-                    f"{TRAIN_STEPS} refined training steps and the refined "
-                    "InLoc dump", smi, band_by_path),
+                    f"{TRAIN_STEPS} refined training steps, the refined "
+                    "InLoc dump, cached band training (dense and streamed "
+                    "selection) and the degraded program served from a "
+                    "gallery store", smi, band_by_path),
         kernel_line("band_gemm_dx", "ncnet_tpu_torch/csrc/band_gemm_dx.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:147",
                     sum(band_train_by_path("band_gemm_dx").values()),
@@ -4154,8 +4858,9 @@ def main():
                     f"{REFINE_TOPK}). Launches: {TRAIN_STEPS} band training "
                     f"steps', the synthetic run's at K = {SYNTH_BAND_K}, "
                     f"{FT_BF16_STEPS + FT_F32_STEPS} band fine-tuning steps', "
-                    "the streamed band's training and fine-tuning steps' and "
-                    f"{TRAIN_STEPS} refined training steps'", smi,
+                    "the streamed band's training and fine-tuning steps', "
+                    f"{TRAIN_STEPS} refined training steps' and the cached "
+                    "band training steps'", smi,
                     band_train_by_path("band_gemm_dx")),
         kernel_line("band_gemm_dw", "ncnet_tpu_torch/csrc/band_gemm_dw.cu",
                     "ncnet_tpu/kernels/band_gemm_pallas.py:147",
@@ -4169,8 +4874,8 @@ def main():
                     f"Launches: {TRAIN_STEPS} band training steps', the "
                     f"synthetic run's at K = {SYNTH_BAND_K}, the band "
                     "fine-tuning steps', the streamed band's training and "
-                    f"fine-tuning steps' and {TRAIN_STEPS} refined training "
-                    "steps'", smi,
+                    f"fine-tuning steps', {TRAIN_STEPS} refined training "
+                    "steps' and the cached band training steps'", smi,
                     band_train_by_path("band_gemm_dw")),
         kernel_line("conv4d_dx", "ncnet_tpu_torch/csrc/conv4d_fwd.cu",
                     "ncnet_tpu/kernels/conv4d_pallas.py:190",
@@ -4184,8 +4889,9 @@ def main():
                     "of layer 1 (a 16->1 contraction) at a fine-tuning step's "
                     "pipeline call, bfloat16 and float32; launches over "
                     f"{TRAIN_STEPS} steps, the synthetic convergence runs, "
-                    f"{FT_BF16_STEPS + FT_F32_STEPS} fine-tuning steps and the "
-                    "trunks phase's steps", smi,
+                    f"{FT_BF16_STEPS + FT_F32_STEPS} fine-tuning steps, the "
+                    "trunks phase's steps, the --fe_weights training steps "
+                    "and the cached training steps", smi,
                     grad_by_path("conv4d_dx")),
         {**kernel_line(
             "conv4d_dw", "ncnet_tpu_torch/csrc/conv4d_dw.cu",
@@ -4197,8 +4903,9 @@ def main():
             "bfloat16 and float32 (`--no-bf16`), the float32 ones at 2 "
             "samples too, and of the two NC layers (3^4) of a synthetic "
             "convergence call, float32 and bfloat16; launches over "
-            f"{TRAIN_STEPS} steps and the synthetic convergence runs "
-            "(launches_by_dtype_by_path: the train phase's float32 ones are "
+            f"{TRAIN_STEPS} steps, the synthetic convergence runs and the "
+            "later slices' training paths (launches_by_dtype_by_path: the "
+            "train phase's float32 ones are "
             "the gradient check's and the float32 stage breakdown's)", smi,
             grad_by_path("conv4d_dw")),
          "launches_by_dtype_by_path": dw_by_dtype},

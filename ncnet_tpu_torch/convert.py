@@ -26,6 +26,7 @@ from ncnet_tpu_torch.bridge import from_jax_params
 from ncnet_tpu_torch.models.densenet import TRUNK_BLOCKS
 from ncnet_tpu_torch.models.immatchnet import ImMatchNetConfig
 from ncnet_tpu_torch.models.resnet import RESNET101_STAGES
+from ncnet_tpu_torch.models.vgg import VGG16_TO_POOL4
 
 RESNET_SEQUENTIAL = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
                      "6": "layer3"}
@@ -170,6 +171,12 @@ def convert_checkpoint(path):
     weight`` / ``<i>.bias``) hold no ``vgg`` to rename."""
     # the checkpoint pickles an argparse Namespace: not a weights-only file
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if not (isinstance(ckpt, dict) and "state_dict" in ckpt):
+        # a raw torchvision state dict has no 'state_dict' / 'args' envelope
+        raise ValueError(
+            f"{path} is not a full reference training checkpoint (no "
+            "'state_dict' key); for trunk-only weights (e.g. a raw "
+            "torchvision .pth) use --fe_weights")
     sd = {k.replace("vgg", "model"): v for k, v in ckpt["state_dict"].items()}
     args = ckpt.get("args")
     cnn = getattr(args, "fe_arch", None) or getattr(
@@ -187,6 +194,45 @@ def convert_checkpoint(path):
         "neigh_consensus": convert_neigh_consensus(sd),
     }
     return config, params
+
+
+def load_trunk_weights(path, cnn="resnet101"):
+    """Trunk weights from a file -> the trunk's param tree for ``cnn`` (the
+    JAX layout, the ``feature_extraction`` entry of the param tree; load it
+    through `ncnet_tpu_torch.bridge`). The counterpart of
+    ``ncnet_tpu/utils/convert_torch.py::load_trunk_weights``. Takes:
+
+    * a reference ``.pth.tar`` training checkpoint (keys under
+      ``FeatureExtraction.model.``, a legacy ``vgg`` renamed ``model``);
+    * a raw torchvision state dict (``.pth``: ``conv1.weight``,
+      ``layer1.0.conv1.weight``, ``features.N.weight``), ResNet-101, VGG-16
+      or DenseNet-201; keys past the trunk are ignored (``layer4.*``,
+      ``fc.*``, ``classifier.*``, ``num_batches_tracked``, VGG-16's convs
+      past pool4);
+    * the JAX package's ``.msgpack`` or the port's ``.npz`` checkpoint
+      (their ``params['feature_extraction']``).
+    """
+    if path.endswith((".msgpack", ".npz")):
+        from ncnet_tpu_torch.train.checkpoint import load_checkpoint
+
+        tree = load_checkpoint(path).params["feature_extraction"]
+    else:
+        if cnn not in TRUNK_CONVERTERS:
+            raise ValueError(f"unsupported backbone for trunk conversion: {cnn!r}")
+        # a reference checkpoint pickles an argparse Namespace beside the dict
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+        sd = {k.replace("vgg", "model"): v for k, v in sd.items()}
+        prefix = ("FeatureExtraction.model."
+                  if any(k.startswith("FeatureExtraction.model.") for k in sd)
+                  else "")
+        if cnn != "resnet101" and not prefix and any(
+                k.startswith("features.") for k in sd):
+            prefix = "features."
+        tree = TRUNK_CONVERTERS[cnn](sd, prefix=prefix)
+    if cnn == "vgg":  # torchvision's features go on past pool4
+        tree = tree[:sum(c != "M" for c in VGG16_TO_POOL4)]
+    return tree
 
 
 def load_reference_checkpoint(path, device=None):

@@ -1,5 +1,5 @@
-"""Host-side image decode / resize / normalize for serving (numpy), and the
-ImageNet normalization on tensors. Counterparts of
+"""Host-side image decode / resize / normalize (numpy; `preprocess` chains
+the three), and the ImageNet normalization on tensors. Counterparts of
 ``ncnet_tpu/data/images.py`` and ``ncnet_tpu/ops/image.py``."""
 
 import numpy as np
@@ -63,3 +63,12 @@ def to_uint8_image(image):
     ``uint8_output`` wire format)."""
     return np.rint(np.clip(image, 0.0, 255.0)).astype(np.uint8)
 
+
+
+def preprocess(path, out_h, out_w):
+    """Decode -> resize -> normalize: ``(the normalized [out_h, out_w, 3]
+    image, its original (h, w))``, as the JAX package's."""
+    img = load_image(path)
+    orig = img.shape[:2]
+    img = resize_bilinear_np(img, out_h, out_w)
+    return normalize_image_np(img), orig

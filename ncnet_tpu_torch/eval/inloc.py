@@ -25,8 +25,14 @@ device work a pair (PERF.md), so these two move the dump's largest cost
 off the host; the numbers differ from the host route only by the uint8
 rounding of resized pixels (at most one gray level on a few pixels).
 
-Not ported, each raising with its ROADMAP item: the spatial mesh (A13)
-and the gallery feature store and ``from_features`` (A11).
+``feature_store_dir`` (the CLI's ``--feature-store``) dumps from a gallery
+feature store (`ncnet_tpu_torch.features.GalleryFeatureStore`, under the
+trunk's digest): one trunk forward a query; a pano's features are read
+from the store, extracted only on the pano's first visit across queries
+and runs, and matched by ``make_match_fn(from_features=True)``, the image
+route's math without its trunk.
+
+Not ported, raising with its ROADMAP item: the spatial mesh (A13).
 """
 
 import argparse
@@ -37,11 +43,17 @@ import time
 import numpy as np
 import torch
 
+from ncnet_tpu_torch import bridge
 from ncnet_tpu_torch.data.images import (
     load_image,
     normalize_image_np,
     resize_bilinear_np,
     to_uint8_image,
+)
+from ncnet_tpu_torch.features import (
+    GalleryFeatureStore,
+    make_batch_extractor,
+    trunk_digest,
 )
 from ncnet_tpu_torch.models import immatchnet
 from ncnet_tpu_torch.ops.image import device_normalize, resize_bilinear_align_corners
@@ -123,20 +135,24 @@ def make_match_fn(config, mesh=None, softmax=True, device_preprocess=False,
     matches of one pair batch, ``(fwd, rev)`` or with
     ``concat_directions`` one ``[5, b, n_fwd + n_rev]`` tensor), with the
     JAX package's signature. ``device_preprocess``: the images come as
-    uint8 and are ImageNet-normalized on their device first. The options
-    that are not ported raise."""
+    uint8 and are ImageNet-normalized on their device first.
+    ``from_features``: ``src`` / ``tgt`` are ``[1, fh, fw, c]`` trunk
+    features (the gallery store's) and the forward runs no trunk op; it
+    takes no ``device_preprocess`` (`ValueError`). A mesh is not ported
+    (raises)."""
     if mesh is not None:
         raise NotImplementedError(
             "a spatial mesh (the correlation pipeline sharded over A-grid "
             "rows) is not ported yet (ROADMAP A13)"
         )
-    if from_features:
-        raise NotImplementedError(
-            "from_features (matching precomputed trunk features of the "
-            "gallery feature store) is not ported yet (ROADMAP A11)"
+    if from_features and device_preprocess:
+        raise ValueError(
+            "from_features match fns take feature maps, not images; "
+            "device_preprocess does not apply"
         )
     fn = immatchnet.make_match_fn(config, softmax=softmax,
-                                  concat_directions=concat_directions)
+                                  concat_directions=concat_directions,
+                                  from_features=from_features)
     if not device_preprocess:
         return fn
 
@@ -264,15 +280,20 @@ def dump_matches(model, config, shortlist_path, query_path, pano_path,
     an image file to ``[h, w, 3]`` 0..255 (default: PIL through
     `load_image`). ``device_preprocess`` ships uint8 images normalized on
     the card, ``device_resize`` (needs it) upscales there too
-    (`load_and_preprocess`). Returns ``{'written': [...], 'skipped': [...],
-    'pairs': n}`` (query numbers, 1-based).
+    (`load_and_preprocess`). ``feature_store_dir``: match from a gallery
+    feature store there (`_dump_from_store`; not with ``mesh``,
+    ``device_preprocess`` or ``device_resize``: `ValueError`). Returns
+    ``{'written': [...], 'skipped': [...], 'pairs': n}`` (query numbers,
+    1-based), from a store also ``'panos_extracted'``.
     """
     from scipy.io import loadmat
 
-    if feature_store_dir is not None:
-        raise NotImplementedError(
-            "feature_store_dir (the gallery feature store) is not ported yet "
-            "(ROADMAP A11)"
+    if feature_store_dir is not None and (
+            mesh is not None or device_preprocess or device_resize):
+        raise ValueError(
+            "feature_store_dir is incompatible with mesh/device_preprocess/"
+            "device_resize (the gallery-store dump ships features, not "
+            "images)"
         )
     if device_resize and not device_preprocess:
         raise ValueError(
@@ -289,12 +310,19 @@ def dump_matches(model, config, shortlist_path, query_path, pano_path,
         )
     match_fn = make_match_fn(config, mesh=mesh, softmax=softmax,
                              device_preprocess=device_preprocess,
-                             concat_directions=both_directions)
+                             concat_directions=both_directions,
+                             from_features=feature_store_dir is not None)
     db = loadmat(shortlist_path)["ImgList"][0, :]
     pano_fn_all = np.vstack(tuple(db[q][1] for q in range(len(db))))
     os.makedirs(output_dir, exist_ok=True)
     _clean_stale_temps(output_dir)
     n_slots = n_match_slots(image_size, k_size, both_directions)
+    if feature_store_dir is not None:
+        return _dump_from_store(
+            model, config, match_fn, db, pano_fn_all, query_path, pano_path,
+            output_dir, image_size, n_queries, n_panos, n_slots,
+            both_directions, flip_direction, verbose, feature_store_dir,
+            read_image)
 
     def image(root, fn):
         out = load_and_preprocess(os.path.join(root, fn), image_size, k_size,
@@ -319,6 +347,68 @@ def dump_matches(model, config, shortlist_path, query_path, pano_path,
                 match_fn, model, src, tgt, k_size, stride, both_directions,
                 flip_direction,
             )
+            n = min(len(xa), n_slots)
+            for col, v in enumerate((xa, ya, xb, yb, score)):
+                matches[0, idx, :n, col] = v[:n]
+            done["pairs"] += 1
+        _atomic_savemat(out_path, {"matches": matches,
+                                   "query_fn": _to_str(db[q][0]),
+                                   "pano_fn": pano_fn_all})
+        done["written"].append(q + 1)
+        if verbose:
+            print(f"query {q + 1}/{n_queries} -> {out_path}", flush=True)
+    return done
+
+
+def _dump_from_store(model, config, match_fn, db, pano_fn_all, query_path,
+                     pano_path, output_dir, image_size, n_queries, n_panos,
+                     n_slots, both_directions, flip_direction, verbose,
+                     feature_store_dir, read_image):
+    """`dump_matches` from a gallery feature store (the JAX package's
+    ``_dump_matches_from_store``): one trunk forward a query; a pano's
+    features from the store, keyed by its shortlist name, extracted on its
+    first visit only. A cached pano is not read from disk: its shard gives
+    its grid, and the .mat's coordinates need only the grid times the
+    stride."""
+    k_size = config.relocalization_k_size
+    stride = model.feature_extraction.stride
+    store = GalleryFeatureStore.open_or_create(
+        feature_store_dir,
+        trunk_digest(bridge.to_jax_params(model)["feature_extraction"],
+                     config, None),
+        config)
+    extract = make_batch_extractor(model, config)
+
+    def extract_from_disk(root, fn):
+        return extract(load_and_preprocess(os.path.join(root, fn), image_size,
+                                           k_size, read_image=read_image))
+
+    done = {"written": [], "skipped": [], "pairs": 0, "panos_extracted": 0}
+
+    def pano_features(fn):
+        if store.has(fn):
+            return store.get(fn).to(model.device)
+        feats = extract_from_disk(pano_path, fn)
+        store.put(fn, feats)
+        done["panos_extracted"] += 1
+        return feats
+
+    def image_shape(feats):
+        return (1, feats.shape[1] * stride, feats.shape[2] * stride, 3)
+
+    for q in range(n_queries):
+        out_path = os.path.join(output_dir, f"{q + 1}.mat")
+        if os.path.exists(out_path):  # resumable, as the image route
+            done["skipped"].append(q + 1)
+            continue
+        qfeat = extract_from_disk(query_path, _to_str(db[q][0]))
+        matches = np.zeros((1, n_panos, n_slots, 5))
+        for idx in range(n_panos):
+            pfeat = pano_features(_to_str(db[q][1].ravel()[idx]))
+            xa, ya, xb, yb, score = match_pair(
+                match_fn, model, qfeat, pfeat, k_size, stride,
+                both_directions, flip_direction,
+                shapes=(image_shape(qfeat), image_shape(pfeat)))
             n = min(len(xa), n_slots)
             for col, v in enumerate((xa, ya, xb, yb, score)):
                 matches[0, idx, :n, col] = v[:n]
@@ -382,7 +472,13 @@ def parse_args(argv=None):
                         "(the panos) at their original size and resize them "
                         "on the card; unset follows --device_preprocess")
     p.add_argument("--feature-store", type=str, default=None,
-                   dest="feature_store", help="not ported (ROADMAP A11)")
+                   dest="feature_store", metavar="DIR",
+                   help="gallery feature store: each pano's trunk features "
+                        "are extracted once ever (across queries and runs) "
+                        "into DIR under the trunk's digest, the query's once "
+                        "a query; a store of another trunk raises. Turns "
+                        "--device_preprocess / --device_resize off (the "
+                        "store route ships features, not images)")
     p.add_argument("--refine", type=int, default=None, metavar="R",
                    help="coarse-to-fine refinement (ncnet_tpu_torch.refine): "
                         "pool features by R, run the coarse band at "
@@ -415,6 +511,9 @@ def main(argv=None):
         args.device_resize = args.device_preprocess
     if args.device_resize and not args.device_preprocess:
         raise ValueError("--device_resize requires --device_preprocess")
+    if args.feature_store:
+        # the store route ships features: the image transfer route is moot
+        args.device_preprocess = args.device_resize = False
     device = resolve_device(args.device)
     config, model = load_model(args.checkpoint, device=device)
     config = apply_refine_flags(

@@ -210,7 +210,8 @@ def immatchnet_apply(model, config, source_image, target_image):
     return match_pipeline(model.neigh_consensus, config, feat_a, feat_b)
 
 
-def make_match_fn(config, softmax=True, concat_directions=False):
+def make_match_fn(config, softmax=True, concat_directions=False,
+                  from_features=False):
     """``fn(model, src, tgt)`` -> both directions' matches of one pair
     batch: ``(fwd, rev)``, each a stacked ``[5, b, n]`` tensor ``(xA, yA,
     xB, yB, score)`` in positive [0, 1] coordinates, or with
@@ -219,12 +220,19 @@ def make_match_fn(config, softmax=True, concat_directions=False):
     refined band densified on the fine grid (``refine_factor > 0``), or
     pooled (``relocalization_k_size > 1``, whose readout restores
     fine-grid matches from the pooled correlation's offsets). Serving and
-    the InLoc dump both read out through it."""
+    the InLoc dump both read out through it. ``from_features``: ``src`` /
+    ``tgt`` are ``[b, fh, fw, c]`` trunk features (a feature store's) and
+    the forward is `match_pipeline` alone, no trunk op."""
     check_supported(config)
     k = config.relocalization_k_size
 
+    def forward(model, src, tgt):
+        if from_features:
+            return match_pipeline(model.neigh_consensus, config, src, tgt)
+        return immatchnet_apply(model, config, src, tgt)
+
     def fn(model, src, tgt):
-        out = immatchnet_apply(model, config, src, tgt)
+        out = forward(model, src, tgt)
         corr, delta4d = out if k > 1 else (out, None)
         kw = dict(scale="positive", do_softmax=softmax, delta4d=delta4d,
                   k_size=max(k, 1))

@@ -5,8 +5,9 @@ Three stages, each on its own thread(s), with queues between them:
 
 1. **host prep** — ``host_workers`` threads pop raw requests from a
    BOUNDED submit queue (`submit` blocks, or raises ``queue.Full`` with a
-   timeout), run ``prep_fn`` (decode / resize / normalize) and feed the
-   `MicroBatcher`;
+   timeout), run ``prep_fn`` (decode / resize / normalize, or a feature
+   store's lookup) and feed the `MicroBatcher`; a payload holds numpy
+   arrays or CPU tensors;
 2. **dispatch** — one thread drives the batcher (cap and max-wait
    flushes), stacks each flushed group into a batch padded by replicating
    the last real sample, copies it to the device, runs ``apply_fn`` and
@@ -51,11 +52,26 @@ VARIANTS = ("refined", "standard", "degraded")  # the programs a request may pin
 
 def payload_spec(payload):
     """Per-sample ``{name: (shape, dtype)}`` of a payload dict — the warmup
-    description of a bucket's arrays."""
+    description of a bucket's arrays (a tensor's dtype is a torch dtype:
+    the feature store's bfloat16 maps have no numpy dtype)."""
     return {
-        name: (tuple(np.shape(arr)), np.asarray(arr).dtype)
+        name: ((tuple(arr.shape), arr.dtype) if isinstance(arr, torch.Tensor)
+               else (tuple(np.shape(arr)), np.asarray(arr).dtype))
         for name, arr in payload.items()
     }
+
+
+def _zeros(shape, dtype, device):
+    if isinstance(dtype, torch.dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return torch.from_numpy(np.zeros(shape, dtype)).to(device)
+
+
+def _stack(arrs):
+    """One batch tensor of per-request arrays or tensors."""
+    if isinstance(arrs[0], torch.Tensor):
+        return torch.stack(arrs)
+    return torch.from_numpy(np.stack([np.asarray(a) for a in arrs]))
 
 
 def percentiles(samples, ps=(50, 95, 99)):
@@ -173,12 +189,8 @@ class ServeEngine:
         n = 0
         for _, pspec in bucket_specs:
             for bs in self.batch_sizes:
-                batch = {
-                    name: torch.from_numpy(
-                        np.zeros((bs,) + tuple(shape), dtype)
-                    ).to(self.device)
-                    for name, (shape, dtype) in pspec.items()
-                }
+                batch = {name: _zeros((bs,) + tuple(shape), dtype, self.device)
+                         for name, (shape, dtype) in pspec.items()}
                 for apply_fn in self._programs.values():
                     with torch.inference_mode():
                         apply_fn(self._model, batch)
@@ -290,11 +302,11 @@ class ServeEngine:
             reqs = batch.requests
             tensors = {}
             for name in sorted(reqs[0].payload):
-                arrs = [np.asarray(r.payload[name]) for r in reqs]
+                arrs = [r.payload[name] for r in reqs]
                 # pad by replicating the last REAL sample: the padded rows
                 # run through the same forward and are dropped at readout
                 arrs.extend([arrs[-1]] * (batch.pad_to - len(arrs)))
-                tensors[name] = torch.from_numpy(np.stack(arrs)).to(self.device)
+                tensors[name] = _stack(arrs).to(self.device)
             with torch.inference_mode():
                 out = self._programs[variant](self._model, tensors)
                 if self.device.type == "cuda":

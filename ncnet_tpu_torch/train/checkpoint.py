@@ -19,7 +19,8 @@ A save writes a temporary file and renames it into place. Loading a save
 and stepping on replays the uninterrupted run exactly (bitwise on the CPU):
 parameters, moments and step counts are stored unrounded. The JAX
 package's msgpack checkpoints are read by
-`ncnet_tpu_torch.train.jax_checkpoint`.
+`ncnet_tpu_torch.train.jax_checkpoint`, the reference's ``.pth.tar`` by
+`ncnet_tpu_torch.convert`.
 """
 
 import dataclasses
@@ -102,13 +103,22 @@ def save_checkpoint(path, state, config, epoch, train_loss=(), val_loss=(),
 
 
 def load_checkpoint(path):
-    """Read a file written by `save_checkpoint`, or a JAX package
-    ``.msgpack`` checkpoint (`ncnet_tpu_torch.train.jax_checkpoint`) ->
-    `CheckpointData`."""
+    """Read a file written by `save_checkpoint`, a JAX package ``.msgpack``
+    checkpoint (`ncnet_tpu_torch.train.jax_checkpoint`) or a reference
+    ``.pth.tar`` / ``.pth`` training checkpoint (its NC head and trunk, no
+    optimizer state: the reference's torch Adam is not carried over; a raw
+    torchvision state dict raises `ValueError`) -> `CheckpointData`."""
     if path.endswith(".msgpack"):
         from ncnet_tpu_torch.train.jax_checkpoint import load_jax_checkpoint
 
         return load_jax_checkpoint(path)
+    if path.endswith((".pth.tar", ".pth")):
+        from ncnet_tpu_torch.convert import convert_checkpoint
+
+        config, params = convert_checkpoint(path)
+        return CheckpointData(config=config, params=params, opt_state=None,
+                              step=0, epoch=0, train_loss=[], val_loss=[],
+                              best_val_loss=float("inf"), optimizer={})
     with np.load(path, allow_pickle=False) as f:
         meta = json.loads(str(f["meta"]))
         if meta.get("format") != FORMAT:

@@ -1,5 +1,8 @@
 """Read the JAX package's msgpack checkpoints
-(``ncnet_tpu/train/checkpoint.py``) with neither ``msgpack`` nor ``flax``.
+(``ncnet_tpu/train/checkpoint.py``) with neither ``msgpack`` nor ``flax``,
+and write the msgpack bytes ``flax.serialization.msgpack_serialize`` makes
+of a param tree (`msgpack_serialize`, which the feature store's
+``trunk_digest`` hashes).
 
 The file is ``flax.serialization.msgpack_serialize`` of the payload that
 ``serialize_checkpoint`` builds: ``config`` (a dict), ``params`` and the
@@ -13,6 +16,13 @@ type 2 a complex number; an array past flax's chunk size is a dict
 A ``<path>.sha256`` sidecar, where there is one, holds the file's SHA-256
 and is checked first, as the JAX package's ``load_checkpoint`` does.
 
+`msgpack_serialize(tree)` follows flax: the tree goes through
+``to_state_dict`` (a list becomes a dict keyed ``'0'``, ``'1'``, ...) and
+``jax.tree.map``, which rebuilds every dict with its keys in sorted string
+order, at every level (``'10'`` sorts before ``'2'``); an array is ext type
+1 holding ``packb((shape, dtype name, raw bytes))``. Each value takes
+msgpack-python's smallest encoding, so the bytes are flax's.
+
 `load_jax_checkpoint` gives the port's `CheckpointData`: the params as the
 JAX tree (numpy), and the Adam state (optax ``scale_by_adam``'s ``mu``,
 ``nu`` and ``count``) as ``exp_avg``, ``exp_avg_sq`` and ``step`` keyed by
@@ -21,23 +31,22 @@ layout (trunk conv weights OIHW): `restore` matches them to the
 optimizer's tensors by path.
 """
 
-import hashlib
 import math
-import os
 import struct
 
 import numpy as np
 
 from ncnet_tpu_torch.bridge import from_jax_layout
 from ncnet_tpu_torch.models.immatchnet import ImMatchNetConfig
+# IntegrityError: what a bad sidecar digest raises, importable from here
+from ncnet_tpu_torch.resilience.durable import (  # noqa: F401
+    IntegrityError,
+    read_verified_bytes,
+)
 
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 CHUNKED = "__msgpack_chunked_array__"
-DIGEST_SUFFIX = ".sha256"
-
-
-class IntegrityError(RuntimeError):
-    """A checkpoint's bytes do not match its sidecar digest."""
+MAX_CHUNK_SIZE = 2 ** 30  # flax chunks arrays past this many bytes
 
 
 class _Ext:
@@ -150,6 +159,134 @@ def unpackb(data):
     return out
 
 
+def _sized(out, n, small, formats):
+    """A length header: ``small`` (a fixed-size base byte or None) below
+    its limit, else the first of ``formats`` ``(byte, struct code, limit)``
+    that holds ``n``."""
+    if small is not None and n < small[1]:
+        out.append(bytes([small[0] | n]))
+        return
+    for byte, fmt, limit in formats:
+        if n <= limit:
+            out.append(bytes([byte]) + struct.pack(">" + fmt, n))
+            return
+    raise ValueError(f"msgpack length {n} is too large")
+
+
+def _pack_int(out, v):
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        out.append(struct.pack(">b" if v < 0 else ">B", v))
+        return
+    for byte, fmt, lo, hi in ((0xCC, "B", 0, 0xFF), (0xD0, "b", -0x80, -1),
+                              (0xCD, "H", 0, 0xFFFF), (0xD1, "h", -0x8000, -1),
+                              (0xCE, "I", 0, 0xFFFFFFFF),
+                              (0xD2, "i", -0x80000000, -1),
+                              (0xCF, "Q", 0, 2 ** 64 - 1),
+                              (0xD3, "q", -2 ** 63, -1)):
+        if lo <= v <= hi:
+            out.append(bytes([byte]) + struct.pack(">" + fmt, v))
+            return
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(out, code, data):
+    n = len(data)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(bytes([fixed[n]]))
+    else:
+        _sized(out, n, None, ((0xC7, "B", 0xFF), (0xC8, "H", 0xFFFF),
+                              (0xC9, "I", 0xFFFFFFFF)))
+    out.append(struct.pack(">b", code))
+    out.append(data)
+
+
+def _pack_ndarray(arr):
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialized")
+    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _pack(out, obj):
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int) and not isinstance(obj, np.generic):
+        _pack_int(out, obj)
+    elif isinstance(obj, float) and not isinstance(obj, np.generic):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _sized(out, len(raw), (0xA0, 32), ((0xD9, "B", 0xFF),
+                                           (0xDA, "H", 0xFFFF),
+                                           (0xDB, "I", 0xFFFFFFFF)))
+        out.append(raw)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = bytes(obj)
+        _sized(out, len(raw), None, ((0xC4, "B", 0xFF), (0xC5, "H", 0xFFFF),
+                                     (0xC6, "I", 0xFFFFFFFF)))
+        out.append(raw)
+    elif isinstance(obj, (list, tuple)):
+        _sized(out, len(obj), (0x90, 16), ((0xDC, "H", 0xFFFF),
+                                           (0xDD, "I", 0xFFFFFFFF)))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _sized(out, len(obj), (0x80, 16), ((0xDE, "H", 0xFFFF),
+                                           (0xDF, "I", 0xFFFFFFFF)))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, EXT_NDARRAY, _pack_ndarray(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, EXT_NPSCALAR, _pack_ndarray(np.asarray(obj)))
+    elif isinstance(obj, complex):
+        _pack_ext(out, EXT_COMPLEX, packb([obj.real, obj.imag]))
+    else:
+        raise TypeError(f"cannot msgpack a {type(obj).__name__}")
+
+
+def packb(obj):
+    """msgpack bytes of ``obj`` (None, bool, int, float, str, bytes, list,
+    tuple, dict in its own order, numpy arrays and scalars as flax's ext
+    records), each value in msgpack-python's smallest encoding."""
+    out = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def to_state_dict(tree):
+    """flax's ``to_state_dict`` after ``jax.tree.map``: lists become dicts
+    keyed ``'0'``, ``'1'``, ...; every dict's keys are sorted as strings;
+    leaves become numpy arrays."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {str(k): to_state_dict(tree[k]) for k in sorted(tree, key=str)}
+    return np.asarray(tree)
+
+
+def msgpack_serialize(tree):
+    """``flax.serialization.msgpack_serialize(to_state_dict(jax.tree.map(
+    np.asarray, tree)))`` for a tree of dicts, lists and arrays (no array
+    past flax's chunk size)."""
+    state = to_state_dict(tree)
+
+    def check(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                check(v)
+        elif node.nbytes > MAX_CHUNK_SIZE:
+            raise ValueError(
+                f"an array of {node.nbytes} bytes: flax would chunk it, and "
+                "chunked arrays are not written here")
+
+    check(state)
+    return packb(state)
+
+
 def _ordered(d):
     return [d[k] for k in sorted(d, key=int)]
 
@@ -175,23 +312,6 @@ def relistify(tree):
                 return [relistify(tree[k]) for k in keys]
         return {k: relistify(v) for k, v in tree.items()}
     return tree
-
-
-def read_verified_bytes(path):
-    """The file's bytes; with a ``<path>.sha256`` sidecar, raise
-    `IntegrityError` unless they hash to it."""
-    with open(path, "rb") as f:
-        blob = f.read()
-    sidecar = path + DIGEST_SUFFIX
-    if os.path.exists(sidecar):
-        with open(sidecar, "rb") as f:
-            want = f.read().strip().decode("ascii", errors="replace")
-        if hashlib.sha256(blob).hexdigest() != want:
-            raise IntegrityError(
-                f"{path} does not match its recorded digest ({sidecar}); "
-                "treating as corrupt"
-            )
-    return blob
 
 
 def read_payload(path):

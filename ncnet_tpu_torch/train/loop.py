@@ -8,9 +8,12 @@ JAX loop: exact resume (Adam state, step, a mid-epoch loader cursor with
 the epoch's losses so far), ``save_every_steps`` cursor snapshots, the
 loader driven by absolute epoch, and ``metrics.jsonl`` beside the
 checkpoint. ``max_steps`` stops a run after that many optimizer steps
-with a cursor snapshot it can resume from. Not ported yet: preemption
-signals, async and sharded checkpoints, the device mesh, the feature
-cache and the profiler window (ROADMAP A11, A13, A14, A16).
+with a cursor snapshot it can resume from. ``from_features`` trains from
+cached trunk features (`ncnet_tpu_torch.data.features_loader`): a frozen
+trunk only, and no trunk op runs in a step. Loaders with ``close()`` are
+closed on every exit path. Not ported yet: preemption signals, async and
+sharded checkpoints, the device mesh and the profiler window (ROADMAP
+A13, A14, A16).
 """
 
 import json
@@ -23,6 +26,7 @@ import torch
 
 from ncnet_tpu_torch.train.checkpoint import restore, save_checkpoint
 from ncnet_tpu_torch.train.step import (
+    check_from_features_frozen,
     create_train_state,
     make_eval_step,
     make_train_step,
@@ -49,7 +53,7 @@ def train(config, model, train_loader, val_loader=None, num_epochs=5,
           learning_rate=5e-4, checkpoint_dir="trained_models",
           checkpoint_name="ncnet_tpu_torch.npz", log_every=10,
           save_every_steps=0, max_steps=0, resume=None, log=print,
-          train_fe=False, fe_finetune_blocks=0):
+          train_fe=False, fe_finetune_blocks=0, from_features=False):
     """Run the training loop; returns ``(state, history)``.
 
     ``model``: an `ImMatchNet` on its device (its NC head, and with
@@ -60,7 +64,26 @@ def train(config, model, train_loader, val_loader=None, num_epochs=5,
     the per-epoch ``train_loss`` / ``val_loss``, every step's loss
     (``step_losses``, this call's steps), the per-step wall ms
     (``step_ms``, host clock to a device sync) and ``stopped_at_max_steps``.
+    ``from_features``: the loaders yield ``source_features`` /
+    ``target_features`` batches (a fully frozen trunk, else `ValueError`).
     """
+    try:
+        return _train(config, model, train_loader, val_loader, num_epochs,
+                      learning_rate, checkpoint_dir, checkpoint_name,
+                      log_every, save_every_steps, max_steps, resume, log,
+                      train_fe, fe_finetune_blocks, from_features)
+    finally:
+        for loader in (train_loader, val_loader):
+            if hasattr(loader, "close"):
+                loader.close()
+
+
+def _train(config, model, train_loader, val_loader, num_epochs,
+           learning_rate, checkpoint_dir, checkpoint_name, log_every,
+           save_every_steps, max_steps, resume, log, train_fe,
+           fe_finetune_blocks, from_features):
+    if from_features:
+        check_from_features_frozen(train_fe, fe_finetune_blocks)
     device = model.device
     state = create_train_state(model, learning_rate, train_fe=train_fe,
                                fe_finetune_blocks=fe_finetune_blocks)
@@ -77,8 +100,9 @@ def train(config, model, train_loader, val_loader=None, num_epochs=5,
             start_batch = int(resume.cursor["batch_index"])
             epoch_losses0 = list(resume.cursor["epoch_losses"])
     train_step = make_train_step(config, train_fe=train_fe,
-                                 fe_finetune_blocks=fe_finetune_blocks)
-    eval_step = make_eval_step(config)
+                                 fe_finetune_blocks=fe_finetune_blocks,
+                                 from_features=from_features)
+    eval_step = make_eval_step(config, from_features=from_features)
     path = os.path.join(checkpoint_dir, checkpoint_name)
     metrics_path = os.path.join(checkpoint_dir, "metrics.jsonl")
     os.makedirs(checkpoint_dir, exist_ok=True)

@@ -1082,3 +1082,36 @@ def test_refine_factor1_on_card_is_the_band(card):
                                      layer=nc.band_layer)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert band_gemm_fwd.launches - before == 16  # 2 layers x 2 passes x 4 calls
+
+
+def test_feature_store_on_card(card, tmp_path):
+    """A card-extracted bfloat16 shard round-trips through the store bit for
+    bit; the store pins on the card (batches gathered there equal the
+    unpinned loader's), and a set past the memory budget is refused."""
+    from ncnet_tpu_torch.data.features_loader import FeatureBatchLoader
+    from ncnet_tpu_torch.features import FeatureStore, make_batch_extractor
+    from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
+
+    cfg = ImMatchNetConfig(feature_extraction_cnn="patch16", ncons_kernel_sizes=(3,),
+                           ncons_channels=(1,), half_precision=True)
+    model = ImMatchNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    images = torch.randn(6, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    feats = make_batch_extractor(model, cfg)(images)
+    assert feats.dtype == torch.bfloat16 and feats.device.type == "cuda"
+    store = FeatureStore.create(str(tmp_path), "d" * 64, cfg, (64, 64), 3)
+    for i in range(3):
+        store.put(i, feats[2 * i], feats[2 * i + 1])
+    src, tgt = store.get(1)
+    assert torch.equal(src.view(torch.int16), feats[2].cpu().view(torch.int16))
+    assert torch.equal(tgt.view(torch.int16), feats[3].cpu().view(torch.int16))
+    kw = dict(shuffle=True, seed=4, num_workers=1)
+    with FeatureBatchLoader(store, 2, **kw) as plain, \
+            FeatureBatchLoader(store, 2, pin_hbm=True, **kw) as pinned:
+        for a, b in zip(plain.iter_epoch(0), pinned.iter_epoch(0)):
+            assert b["source_features"].device.type == "cuda"
+            for k in a:
+                assert torch.equal(a[k].view(torch.int16),
+                                   b[k].cpu().view(torch.int16))
+    with pytest.raises(ValueError, match="pin_hbm"):
+        next(FeatureBatchLoader(store, 2, pin_hbm=True,
+                                hbm_fit_fraction=1e-12).iter_epoch(0))

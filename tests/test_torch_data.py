@@ -1,6 +1,7 @@
 """The port's training data and CLI against the JAX package on the CPU:
 the synthetic and CSV pair datasets (bitwise), the loader's batch order,
-and ``python -m ncnet_tpu_torch.train`` at toy size."""
+its retries, skip budget, host shards and process backend, and ``python
+-m ncnet_tpu_torch.train`` at toy size."""
 
 import json
 import os
@@ -9,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from ncnet_tpu.data import loader as jax_loader
 from ncnet_tpu.data.loader import DataLoader as JaxDataLoader
 from ncnet_tpu.data.pairs import ImagePairDataset as JaxImagePairDataset
 from ncnet_tpu.data.pairs import SyntheticPairDataset as JaxSyntheticPairDataset
+from ncnet_tpu_torch.data import loader as port_loader
 from ncnet_tpu_torch.data.loader import DataLoader, collate
 from ncnet_tpu_torch.data.pairs import ImagePairDataset, SyntheticPairDataset
 from ncnet_tpu_torch.train.__main__ import main as train_main
@@ -161,3 +164,92 @@ def test_cli_refuses_a_random_trunk_unless_asked(capsys):
     with pytest.raises(SystemExit):
         train_main(["--device", "cpu"])
     assert "no pretrained trunk" in capsys.readouterr().err
+
+
+class _Flaky:
+    """Index ``i`` fails its first ``fails.get(i, 0)`` reads (a flaky
+    mount), and the ``bad`` indices always (bitrot). Module-level: the
+    process backend's spawned workers pickle it."""
+
+    def __init__(self, n=8, fails=None, bad=()):
+        self.n, self.fails, self.bad = n, dict(fails or {}), set(bad)
+        self.reads = {}
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        self.reads[idx] = self.reads.get(idx, 0) + 1
+        if idx in self.bad or self.reads[idx] <= self.fails.get(idx, 0):
+            raise OSError(f"read failure on {idx}")
+        return {"x": np.full((2,), float(idx), np.float32)}
+
+
+@pytest.mark.parametrize("retries,fails", [(0, 0), (2, 2), (2, 3), (1, 0)])
+def test_retry_call_equals_jax(retries, fails):
+    outcomes = []
+    for mod in (port_loader, jax_loader):
+        ds = _Flaky(fails={0: fails})
+        try:
+            got = mod.retry_call(lambda: ds[0], retries, 0.0)["x"].tolist()
+        except OSError as e:
+            got = str(e)
+        outcomes.append((got, ds.reads[0]))
+    assert outcomes[0] == outcomes[1]
+
+
+@pytest.mark.parametrize("bad,budget", [((2,), 2), ((2, 3), 2), ((2, 6), 1),
+                                        ((7,), 1), ((), 0)])
+def test_build_batch_skip_budget_equals_jax(bad, budget):
+    """A corrupt sample is replaced by the next loadable index (wrapping),
+    past the budget the sample's error propagates: the JAX loader's rule."""
+    for idx in ([1, 2, 3], [6, 7], [2]):
+        outcomes = []
+        for mod in (port_loader, jax_loader):
+            try:
+                batch, skipped = mod.build_batch(_Flaky(bad=bad), idx, 0, 0.0, budget)
+                outcomes.append((batch["x"].tolist(), skipped))
+            except OSError as e:
+                outcomes.append(str(e))
+        assert outcomes[0] == outcomes[1]
+
+
+@pytest.mark.parametrize("n,hosts", [(10, 2), (17, 3), (5, 5), (4, 1)])
+def test_shard_indices_equal_jax(n, hosts):
+    for host in range(hosts):
+        np.testing.assert_array_equal(port_loader.shard_indices(n, host, hosts),
+                                      jax_loader.shard_indices(n, host, hosts))
+
+
+def test_loader_skip_budget_and_sharding_equal_jax():
+    kw = dict(num_workers=2, sample_retries=0, skip_budget=2, shuffle=True, seed=5,
+              host_id=1, n_hosts=2)
+    ours = DataLoader(_Flaky(16, bad=(9, 12)), 3, **kw)
+    theirs = JaxDataLoader(_Flaky(16, bad=(9, 12)), 3, **kw)
+    got = [b["x"][:, 0].tolist() for b in ours.iter_epoch(1)]
+    assert got == [b["x"][:, 0].tolist() for b in theirs.iter_epoch(1)]
+    assert sorted(ours.skipped) == sorted(theirs.skipped) == [9, 12]
+    with pytest.raises(RuntimeError, match="skip budget exhausted"):
+        list(DataLoader(_Flaky(8, bad=(2, 5)), 2, num_workers=1, sample_retries=0,
+                        skip_budget=1))
+
+
+def test_process_backend_batches_bitwise_the_thread_backends():
+    ds = SyntheticPairDataset(n=6, output_size=(32, 32), seed=2)
+    thread = DataLoader(ds, 2, shuffle=True, seed=3, num_workers=2)
+    with DataLoader(ds, 2, shuffle=True, seed=3, num_workers=2,
+                    backend="process") as proc:
+        for epoch in (0, 1):  # the pool is reused
+            bt, bp = list(thread.iter_epoch(epoch)), list(proc.iter_epoch(epoch))
+            assert len(bt) == len(bp) == 3
+            for a, b in zip(bt, bp):
+                for k in a:
+                    np.testing.assert_array_equal(a[k], b[k])
+    assert proc._pool is None  # the context manager shut the pool down
+    # a failing sample surfaces through the pool with its message
+    with DataLoader(_Flaky(4, bad=(2,)), 2, num_workers=1, backend="process",
+                    sample_retries=0) as broken:
+        with pytest.raises(RuntimeError, match="read failure on 2"):
+            list(broken.iter_epoch(0))
+    with pytest.raises(ValueError, match="unknown loader backend"):
+        DataLoader(ds, 2, backend="fiber")

@@ -299,16 +299,10 @@ def test_dump_matches_resume_and_stale_temps(small, inloc_data, tmp_path):
 
 
 def test_not_ported_options_raise(small, inloc_data, tmp_path):
+    # the gallery feature store (A11) is ported: tests/test_torch_features.py
     _, _, cfg, model = small
-    cases = [
-        (lambda: inloc.make_match_fn(cfg, mesh=object()), "A13"),
-        (lambda: inloc.make_match_fn(cfg, from_features=True), "A11"),
-        (lambda: inloc.dump_matches(model, cfg, feature_store_dir=str(tmp_path),
-                                    **_dump_kw(inloc_data, tmp_path)), "A11"),
-    ]
-    for call, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="A13"):
+        inloc.make_match_fn(cfg, mesh=object())
 
 
 def test_inloc_cli(small, inloc_data, tmp_path, capsys):
@@ -337,10 +331,16 @@ def test_inloc_cli(small, inloc_data, tmp_path, capsys):
     for extra, error, item in (
             (["--spatial_shards", "2"], NotImplementedError, "A13"),
             # refinement is ported (ROADMAP A10) and needs --k_size 1
-            (["--refine", "2"], SystemExit, "requires --k_size 1"),
-            (["--feature-store", str(tmp_path)], NotImplementedError, "A11")):
+            (["--refine", "2"], SystemExit, "requires --k_size 1")):
         with pytest.raises(error, match=item):
             inloc.main(argv + extra)
+    # the gallery feature store (ROADMAP A11, once refused): the same .mat
+    store = ["--output_root", str(tmp_path / "store"), "--feature-store",
+             str(tmp_path / "gallery")]
+    assert inloc.main(argv + store)["panos_extracted"] == 4
+    for q in (1, 2):
+        _assert_same_mat(tmp_path / "store" / exp / f"{q}.mat",
+                         tmp_path / "jax" / f"{q}.mat")
     # device preprocessing (ROADMAP A7b, once refused): the .mat of the
     # JAX package's dump on the same route, row for row
     with pytest.raises(ValueError, match="requires --device_preprocess"):

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, no file of it (or chip_smoke.py) imports them, and its entry
-points refuse to run on the CPU unless asked to."""
+package, no file of it (or chip_smoke.py) imports them (the feature cache,
+the durable writes and the loaders among them), and its entry points
+refuse to run on the CPU unless asked to."""
 
 import ast
 import os
@@ -68,6 +69,7 @@ def _entry_points():
     from ncnet_tpu_torch.eval.inloc import main as inloc_main
     from ncnet_tpu_torch.eval.pf_pascal import main as pf_pascal_main
     from ncnet_tpu_torch.eval.synthetic import main as synthetic_main
+    from ncnet_tpu_torch.features.__main__ import main as features_main
     from ncnet_tpu_torch.models.densenet import DenseNet201Trunk
     from ncnet_tpu_torch.models.immatchnet import ImMatchNet, ImMatchNetConfig
     from ncnet_tpu_torch.models.neigh_consensus import NeighConsensus
@@ -106,6 +108,13 @@ def _entry_points():
             ["--steps", "1"]),
         "python -m ncnet_tpu_torch.eval.inloc": lambda: inloc_main(
             ["--checkpoint", "head.npz"]),
+        "python -m ncnet_tpu_torch.features": lambda: features_main(
+            ["--feature-cache", "cache", "--synthetic"]),
+        "python -m ncnet_tpu_torch.serve --checkpoint": lambda: serve_main(
+            ["--synthetic", "1", "--checkpoint", "head.npz"]),
+        "python -m ncnet_tpu_torch.train --feature-cache": lambda: train_main(
+            ["--synthetic", "--allow_random_fe", "--fe_arch", "patch16",
+             "--feature-cache", "cache"]),
     }
 
 
